@@ -1,0 +1,84 @@
+"""Dtype and kernel-routing policy: fp32 parameters, optional bf16 activations.
+
+Port of ``rgba_tpu/core/precision.py``.  The JAX policy pins
+``Precision.HIGHEST`` for fp32 parity because TPU dots default to bf16
+passes; the CUDA twin is TF32, which cuDNN convolutions use by default.
+``precision_scope`` turns TF32 off for fp32 policies while a forward runs.
+
+Routing flags name the hand-written CUDA kernels of ``ops/kernels``.  The
+JAX flags ``fused_gate_chain``, ``fused_dse`` and ``int8_conv`` have no port
+yet, so the policy has no such fields.  ``packed_dse`` is a TPU lane layout
+of the same math and computes the plain DSE here.  Parameters are always
+fp32 and the entropy math always runs in fp32.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+
+@dataclasses.dataclass(frozen=True)
+class Policy:
+    compute_dtype: torch.dtype = torch.float32
+    # inference-only kernel routing (ops/kernels); no backward yet
+    fused_win_attn: bool = False
+    fused_gdn: bool = False
+    packed_dse: bool = False
+
+    @property
+    def exact(self) -> bool:
+        return self.compute_dtype == torch.float32
+
+    def cast_in(self, x):
+        return x.to(self.compute_dtype)
+
+    def gelu(self, x):
+        """Exact erf GELU in fp32, tanh approximation in bf16."""
+        return F.gelu(x, approximate="none" if self.exact else "tanh")
+
+
+@contextlib.contextmanager
+def precision_scope(policy: Policy):
+    """TF32 off for fp32 policies (the twin of the JAX HIGHEST pin); the
+    previous flags come back on exit."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    if policy.exact:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+DEFAULT_POLICY = Policy()
+BF16_POLICY = Policy(compute_dtype=torch.bfloat16)
+# serving: bf16 + the fused window-attention kernel (inference only)
+SERVE_POLICY = Policy(compute_dtype=torch.bfloat16, fused_win_attn=True,
+                      packed_dse=True)
+
+
+def policy_from_str(name: str) -> Policy:
+    if name in ("bfloat16", "bf16"):
+        return BF16_POLICY
+    if name in ("float32", "fp32"):
+        return DEFAULT_POLICY
+    if name in ("serve", "serving"):
+        return SERVE_POLICY
+    raise ValueError(f"unknown compute dtype: {name}")
+
+
+def resolve_device(device=None) -> torch.device:
+    """``cuda`` unless the caller asks for another device; never falls back
+    to the CPU on its own."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run on the CPU")
+    return dev

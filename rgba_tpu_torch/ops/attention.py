@@ -1,0 +1,232 @@
+"""Masked window attention, the paper's core op, and the gate blocks
+around it (port of ``rgba_tpu/ops/attention.py``).
+
+Windows of alpha-empty pixels output exactly 0 before the residual add
+(the reference's ``remove_zero_windows``).  With ``policy.fused_win_attn``
+the attention runs in the CUDA kernel ``ops/kernels/win_attn.py``, which
+takes the shifted-window mask as region ids and the gate as ``alive``;
+otherwise the additive-bias formulation below runs in PyTorch.  The
+``fused_gate_chain`` kernel has no port yet: the gate chains are plain.
+
+Module and parameter names follow the reference's state-dict keys
+(``attn.attn.qkv``, ``conv_a.0.conv.0``, ``trunk_ResBlock1.conv1`` ...).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+import torch.nn.functional as F
+
+from ..core import init
+from ..core.precision import Policy
+from .conv import Conv, GELU
+from .kernels.win_attn import fused_window_attention
+from .window import (relative_position_index, swin_attention_bias,
+                     swin_region_ids, window_alive, window_partition,
+                     window_reverse)
+
+
+class WindowAttention(nn.Module):
+    """W-MSA over (nWB, N, C) token windows with relative-position bias."""
+
+    def __init__(self, dim: int, window_size: int, num_heads: int = 8, *,
+                 policy: Policy, device, generator):
+        super().__init__()
+        self.dim, self.window_size, self.num_heads = dim, window_size, num_heads
+        self.policy = policy
+        self.relative_position_bias_table = init.truncated_normal(
+            ((2 * window_size - 1) ** 2, num_heads), 0.02, generator, device)
+        self.qkv = torch.nn.utils.skip_init(nn.Linear, dim, 3 * dim,
+                                            device=device)
+        self.proj = torch.nn.utils.skip_init(nn.Linear, dim, dim,
+                                             device=device)
+        # JAX keeps (in, out) kernels drawn with lecun_normal; torch Linear
+        # stores (out, in), so draw in JAX's layout and transpose
+        self.qkv.weight = nn.Parameter(init.lecun_normal(
+            (dim, 3 * dim), dim, generator, device).data.t().contiguous())
+        self.qkv.bias = init.zeros((3 * dim,), device)
+        self.proj.weight = nn.Parameter(init.lecun_normal(
+            (dim, dim), dim, generator, device).data.t().contiguous())
+        self.proj.bias = init.zeros((dim,), device)
+        idx = torch.from_numpy(relative_position_index(window_size).reshape(-1))
+        self.register_buffer("relative_position_index", idx.to(device),
+                             persistent=False)
+
+    def rel_bias(self):
+        """(nh, N, N) fp32 gather of the bias table."""
+        n = self.window_size ** 2
+        rb = self.relative_position_bias_table[self.relative_position_index]
+        return rb.reshape(n, n, self.num_heads).permute(2, 0, 1).float()
+
+    def forward(self, x, bias=None, fused=None):
+        """x: (nWB, N, C).  ``bias``: optional (nW, N, N) additive shifted-
+        window mask, tiled over the batch.  ``fused=(region, alive)`` routes
+        through the kernel: region (nWB, N) int32, alive (nWB, 1)."""
+        nwb, n, c = x.shape
+        nh = self.num_heads
+        hd = c // nh
+        scale = hd ** -0.5
+        dt = self.policy.compute_dtype
+        if fused is not None:
+            region, alive = fused
+            return fused_window_attention(
+                x.to(dt).contiguous(), region, alive,
+                self.qkv.weight.t().to(dt), self.qkv.bias.float(),
+                self.proj.weight.t().to(dt), self.proj.bias.float(),
+                self.rel_bias(), num_heads=nh)
+
+        qkv = F.linear(x.to(dt), self.qkv.weight.to(dt), self.qkv.bias.to(dt))
+        q = qkv[..., :c].reshape(nwb, n, nh, hd)
+        k = qkv[..., c:2 * c].reshape(nwb, n, nh, hd)
+        v = qkv[..., 2 * c:].reshape(nwb, n, nh, hd)
+        # fp32 accumulates scores in fp32; bf16 keeps them bf16 (the softmax
+        # itself still reduces in fp32)
+        attn = torch.einsum("wnhd,wmhd->whnm", q * scale, k)
+        attn = attn + self.rel_bias()[None].to(attn.dtype)
+        if bias is not None:
+            nw = bias.shape[0]
+            attn = attn.reshape(nwb // nw, nw, nh, n, n) + \
+                bias[None, :, None].to(attn.dtype)
+            attn = attn.reshape(nwb, nh, n, n)
+        attn = torch.softmax(attn.float(), dim=-1).to(dt)
+        out = torch.einsum("whnm,wmhd->wnhd", attn, v).to(dt)
+        return F.linear(out.reshape(nwb, n, c), self.proj.weight.to(dt),
+                        self.proj.bias.to(dt))
+
+
+class MaskedWinBlock(nn.Module):
+    """Swin block gated by a per-pixel alpha: alpha rolls with x under the
+    cyclic shift, windows whose alpha sums to 0 output exactly 0, and the
+    unshifted input is added back."""
+
+    def __init__(self, dim: int, num_heads: int = 8, window_size: int = 8,
+                 shift_size: int = 0, *, policy: Policy, device, generator):
+        super().__init__()
+        self.window_size, self.shift_size = window_size, shift_size
+        self.policy = policy
+        self.attn = WindowAttention(dim, window_size, num_heads,
+                                    policy=policy, device=device,
+                                    generator=generator)
+        self._masks = {}   # (h, w, b, device) -> region ids / bias tensors
+
+    def _static(self, kind: str, h: int, w: int, b: int, device):
+        key = (kind, h, w, b, device)
+        if key not in self._masks:
+            ws, ss = self.window_size, self.shift_size
+            if kind == "region":
+                t = torch.from_numpy(swin_region_ids(h, w, ws, ss))
+                t = t.to(device).repeat(b, 1)
+            else:
+                t = torch.from_numpy(swin_attention_bias(h, w, ws, ss))
+                t = t.to(device)
+            self._masks[key] = t
+        return self._masks[key]
+
+    def forward(self, x, alpha=None):
+        """x: (B, C, H, W); alpha: (B, 1, H, W) alpha at this scale, or None
+        for the unmasked Swin twin."""
+        b, c, h, w = x.shape
+        ws, ss = self.window_size, self.shift_size
+        shortcut = x
+        xh = x.permute(0, 2, 3, 1)
+        ah = None if alpha is None else alpha.permute(0, 2, 3, 1)
+        if ss > 0:
+            xh = torch.roll(xh, shifts=(-ss, -ss), dims=(1, 2))
+            if ah is not None:
+                ah = torch.roll(ah, shifts=(-ss, -ss), dims=(1, 2))
+        tokens = window_partition(xh, ws).reshape(-1, ws * ws, c)
+        alive = None if ah is None else window_alive(window_partition(ah, ws))
+
+        if self.policy.fused_win_attn:
+            region = self._static("region", h, w, b, x.device)
+            gate = (alive if alive is not None else
+                    torch.ones(tokens.shape[0], device=x.device))
+            attn = self.attn(tokens, fused=(region, gate[:, None]))
+        else:
+            bias = (self._static("bias", h, w, b, x.device) if ss > 0
+                    else None)
+            attn = self.attn(tokens, bias)
+            if alive is not None:
+                attn = attn * alive[:, None, None].to(attn.dtype)
+        out = window_reverse(attn.reshape(-1, ws, ws, c), ws, h, w)
+        if ss > 0:
+            out = torch.roll(out, shifts=(ss, ss), dims=(1, 2))
+        return shortcut + out.permute(0, 3, 1, 2)
+
+
+def _bottleneck(dim: int, policy, device, generator):
+    """1x1 C->C/2, GELU, 3x3, GELU, 1x1 C/2->C (convs at 0, 2, 4)."""
+    kw = dict(policy=policy, device=device, generator=generator)
+    return nn.Sequential(Conv(dim, dim // 2, 1, 1, **kw), GELU(policy),
+                         Conv(dim // 2, dim // 2, 3, 1, **kw), GELU(policy),
+                         Conv(dim // 2, dim, 1, 1, **kw))
+
+
+class ResidualUnit(nn.Module):
+    """gelu(x + conv1x1(gelu(conv3x3(gelu(conv1x1(x))))))."""
+
+    def __init__(self, dim: int, *, policy: Policy, device, generator):
+        super().__init__()
+        self.policy = policy
+        self.conv = _bottleneck(dim, policy, device, generator)
+
+    def forward(self, x):
+        return self.policy.gelu(x + self.conv(x))
+
+
+class WinGateAttention(nn.Module):
+    """out = x + conv_a(x) * sigmoid(conv_b(masked_win_attn(x, alpha)))."""
+
+    def __init__(self, dim: int, num_heads: int = 8, window_size: int = 8,
+                 shift_size: int = 0, *, policy: Policy, device, generator):
+        super().__init__()
+        kw = dict(policy=policy, device=device, generator=generator)
+        conv_a = [ResidualUnit(dim, **kw) for _ in range(3)]
+        self.attn = MaskedWinBlock(dim, num_heads, window_size, shift_size,
+                                   **kw)
+        conv_b = [ResidualUnit(dim, **kw) for _ in range(3)]
+        conv_b.append(Conv(dim, dim, 1, 1, **kw))
+        self.conv_a = nn.Sequential(*conv_a)
+        self.conv_b = nn.Sequential(*conv_b)
+
+    def forward(self, x, alpha=None):
+        b = self.conv_b(self.attn(x, alpha))
+        return x + self.conv_a(x) * torch.sigmoid(b)
+
+
+class ResBlock(nn.Module):
+    """x + conv3(relu(conv2(relu(conv1(x)))))."""
+
+    def __init__(self, dim: int, *, policy: Policy, device, generator):
+        super().__init__()
+        kw = dict(policy=policy, device=device, generator=generator)
+        self.conv1 = Conv(dim, dim // 2, 1, 1, **kw)
+        self.conv2 = Conv(dim // 2, dim // 2, 3, 1, **kw)
+        self.conv3 = Conv(dim // 2, dim, 1, 1, **kw)
+
+    def forward(self, x):
+        y = F.relu(self.conv1(x))
+        y = F.relu(self.conv2(y))
+        return x + self.conv3(y)
+
+
+class SimplifiedAttention(nn.Module):
+    """The mask codec's convolutional gate: x + sigmoid(attn(x)) * trunk(x)."""
+
+    def __init__(self, dim: int, *, policy: Policy, device, generator):
+        super().__init__()
+        kw = dict(policy=policy, device=device, generator=generator)
+        self.trunk_ResBlock1 = ResBlock(dim, **kw)
+        self.trunk_ResBlock2 = ResBlock(dim, **kw)
+        self.trunk_ResBlock3 = ResBlock(dim, **kw)
+        self.attention_ResBlock1 = ResBlock(dim, **kw)
+        self.attention_ResBlock2 = ResBlock(dim, **kw)
+        self.attention_ResBlock3 = ResBlock(dim, **kw)
+        self.conv1 = Conv(dim, dim, 1, 1, **kw)
+
+    def forward(self, x):
+        t = self.trunk_ResBlock3(self.trunk_ResBlock2(self.trunk_ResBlock1(x)))
+        a = self.attention_ResBlock3(self.attention_ResBlock2(
+            self.attention_ResBlock1(x)))
+        return x + torch.sigmoid(self.conv1(a)) * t

@@ -1,0 +1,60 @@
+"""Generalized Divisive Normalization (port of ``rgba_tpu/ops/gdn.py``).
+
+y_i = x_i / sqrt(beta_i + sum_j gamma_ij x_j^2)   (the inverse multiplies)
+
+beta and gamma are stored through a sqrt reparameterization with pedestal
+2^-36 and lower-bounded with the gradient-gated ``lower_bound``; that stays
+in PyTorch.  With ``policy.fused_gdn`` the normalization runs in the CUDA
+kernel ``ops/kernels/gdn.py`` on NHWC rows.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+import torch.nn.functional as F
+
+from ..core.precision import Policy
+from .kernels.gdn import fused_gdn
+from .math import lower_bound
+
+_REPARAM_OFFSET = 2.0 ** -18
+_PEDESTAL = _REPARAM_OFFSET ** 2
+
+
+class GDN(nn.Module):
+    def __init__(self, channels: int, inverse: bool = False, *,
+                 policy: Policy, device, beta_min: float = 1e-6,
+                 gamma_init: float = 0.1):
+        super().__init__()
+        self.inverse = inverse
+        self.policy = policy
+        self.beta_min = beta_min
+        eye = torch.eye(channels, device=device)
+        self.beta = nn.Parameter(
+            torch.sqrt(torch.ones(channels, device=device) + _PEDESTAL))
+        self.gamma = nn.Parameter(torch.sqrt(gamma_init * eye + _PEDESTAL))
+
+    def reparam(self):
+        """(beta, gamma) after the lower bound and pedestal."""
+        beta_bound = (self.beta_min + _PEDESTAL) ** 0.5
+        beta = lower_bound(self.beta, beta_bound) ** 2 - _PEDESTAL
+        gamma = lower_bound(self.gamma, _REPARAM_OFFSET) ** 2 - _PEDESTAL
+        return beta, gamma
+
+    def forward(self, x):
+        """x: (B, C, H, W); gamma[i, j] weights input channel j into output
+        channel i, as torch's 1x1 conv of x^2 does."""
+        beta, gamma = self.reparam()
+        dt = self.policy.compute_dtype
+        x = x.to(dt)
+        if self.policy.fused_gdn:
+            rows = x.permute(0, 2, 3, 1).contiguous()     # free if channels_last
+            y = fused_gdn(rows, gamma.t(), beta, inverse=self.inverse)
+            return y.permute(0, 3, 1, 2)
+        norm = F.conv2d(x * x, gamma.to(dt)[:, :, None, None]).float() + \
+            beta.float()[None, :, None, None]
+        # fp32: exact sqrt/div; bf16: the elementwise tail in bf16
+        if dt != torch.float32:
+            norm = norm.to(dt)
+        return x * (torch.sqrt(norm) if self.inverse else torch.rsqrt(norm))

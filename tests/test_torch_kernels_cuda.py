@@ -1,0 +1,127 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Every test here needs an NVIDIA GPU with nvcc (the kernels have no CPU
+mode) and skips without one.  The file imports no JAX, so it also runs on
+a machine that has only PyTorch:
+
+    python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
+
+Tolerances, as chip_smoke.py: fp32 2e-5 + 2e-5*|ref| (sums taken in
+another order); bf16 2^-5 * max(1, max|ref|), four bf16 ulps at the
+largest value (an fp32 sum a hair apart can round qkv, P or the output to
+the neighbouring bf16 value).
+"""
+
+import dataclasses
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from rgba_tpu_torch.core.precision import SERVE_POLICY  # noqa: E402
+from rgba_tpu_torch.data.synthetic import synthetic_rgba_batch  # noqa: E402
+from rgba_tpu_torch.models.pipeline import RGBAPipeline  # noqa: E402
+from rgba_tpu_torch.ops.kernels import gdn, win_attn  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (CUDA kernels have no CPU mode)")
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False    # fp32 plain versions exact
+    yield torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _assert_close(got, want, dtype):
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    if dtype == torch.float32:
+        assert bool((err <= 2e-5 + 2e-5 * want.abs()).all()), float(err.max())
+    else:
+        assert float(err.max()) <= 2.0 ** -5 * max(1.0, float(want.abs().max()))
+
+
+def _gdn_args(m, c, dtype, dev, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(m, c, generator=g).to(dev, dtype)
+    gt = (0.1 * torch.eye(c) + 1e-3 * torch.rand(c, c, generator=g)).to(dev)
+    beta = (1.0 + 0.1 * torch.rand(c, generator=g)).to(dev)
+    return x, gt, beta
+
+
+def _attn_args(nw, n, c, nh, dtype, dev, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(nw, n, c, generator=g).to(dev, dtype),
+            torch.randint(0, 4, (nw, n), generator=g, dtype=torch.int32).to(dev),
+            (torch.arange(nw) % 3 != 0).float().reshape(nw, 1).to(dev),
+            (torch.randn(c, 3 * c, generator=g) / c ** 0.5).to(dev, dtype),
+            (0.1 * torch.randn(3 * c, generator=g)).to(dev),
+            (torch.randn(c, c, generator=g) / c ** 0.5).to(dev, dtype),
+            (0.1 * torch.randn(c, generator=g)).to(dev),
+            (0.02 * torch.randn(nh, n, n, generator=g)).to(dev)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("m,c", [(64 * 96, 192), (1001, 192), (300, 16)])
+def test_gdn_kernel_matches_plain(card, dtype, inverse, m, c):
+    x, gt, beta = _gdn_args(m, c, dtype, card)
+    _assert_close(gdn.fused_gdn(x, gt, beta, inverse),
+                  gdn.gdn_plain(x, gt, beta, inverse), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c,nh", [(64, 192, 8), (16, 80, 8), (16, 24, 3)])
+def test_window_attention_kernel_matches_plain(card, dtype, n, c, nh):
+    args = _attn_args(30, n, c, nh, dtype, card)
+    got = win_attn.fused_window_attention(*args, num_heads=nh)
+    _assert_close(got, win_attn.window_attention_plain(*args, num_heads=nh),
+                  dtype)
+    assert not got[0::3].any()          # dead windows are exactly zero
+
+
+def test_launch_counts_only_kernel_launches(card):
+    x, gt, beta = _gdn_args(256, 192, torch.float32, card)
+    args = _attn_args(6, 16, 80, 8, torch.float32, card)
+    g0, a0 = gdn.KERNEL.launches, win_attn.KERNEL.launches
+    gdn.fused_gdn(x, gt, beta)
+    gdn.gdn_plain(x, gt, beta)
+    win_attn.fused_window_attention(*args, num_heads=8)
+    win_attn.window_attention_plain(*args, num_heads=8)
+    assert (gdn.KERNEL.launches - g0, win_attn.KERNEL.launches - a0) == (1, 1)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(card):
+    x, gt, beta = _gdn_args(64, 192, torch.float32, card)
+    with pytest.raises(RuntimeError, match="inference-only"):
+        gdn.fused_gdn(x.requires_grad_(True), gt, beta)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        gdn.fused_gdn(torch.zeros(8, 200, device=card),
+                      torch.zeros(200, 200, device=card),
+                      torch.ones(200, device=card))
+    with pytest.raises(ValueError, match="contiguous"):
+        gdn.fused_gdn(torch.zeros(192, 8, device=card).t(), gt, beta)
+    with pytest.raises(TypeError):
+        gdn.fused_gdn(torch.zeros(8, 192, device=card, dtype=torch.float16),
+                      gt, beta)
+    args = _attn_args(4, 16, 80, 8, torch.float32, card)
+    with pytest.raises(ValueError, match="rel_bias shape"):
+        win_attn.fused_window_attention(*args[:-1], args[-1][:, :8],
+                                        num_heads=8)
+    with pytest.raises(ValueError, match="heads"):
+        win_attn.fused_window_attention(*args, num_heads=7)
+
+
+def test_pipeline_on_the_card_goes_through_both_kernels(card):
+    policy = dataclasses.replace(SERVE_POLICY, fused_gdn=True)
+    pipe = RGBAPipeline(policy, seed=0)
+    d = synthetic_rgba_batch(1, 64, 128, seed=0)
+    gdn.KERNEL.launches = win_attn.KERNEL.launches = 0
+    out = pipe(d["masked_image"], d["alpha"])
+    assert (win_attn.KERNEL.launches, gdn.KERNEL.launches) == (4, 12)
+    assert out["x_hat"].shape == (1, 64, 128, 3)
+    assert all(bool(torch.isfinite(v).all()) for v in out.values())
