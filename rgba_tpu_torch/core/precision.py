@@ -5,11 +5,14 @@ Port of ``rgba_tpu/core/precision.py``.  The JAX policy pins
 passes; the CUDA twin is TF32, which cuDNN convolutions use by default.
 ``precision_scope`` turns TF32 off for fp32 policies while a forward runs.
 
-Routing flags name the hand-written CUDA kernels of ``ops/kernels``.  The
-JAX flags ``fused_gate_chain``, ``fused_dse`` and ``int8_conv`` have no port
-yet, so the policy has no such fields.  ``packed_dse`` is a TPU lane layout
-of the same math and computes the plain DSE here.  Parameters are always
-fp32 and the entropy math always runs in fp32.
+Routing flags name the hand-written CUDA kernels of ``ops/kernels``:
+``fused_win_attn``, ``fused_gdn``, ``fused_gate_chain`` and ``fused_dse``,
+all inference only.  The JAX flag ``int8_conv`` has no port yet, so the
+policy has no such field.  ``packed_dse`` is a TPU lane layout of the same
+math and computes the plain DSE here; as in the JAX package it wins over
+``fused_dse`` when the batch divides by 4, so a policy that wants the DSE
+kernel sets ``packed_dse=False``.  Parameters are always fp32 and the
+entropy math always runs in fp32.
 """
 
 from __future__ import annotations
@@ -27,11 +30,18 @@ class Policy:
     # inference-only kernel routing (ops/kernels); no backward yet
     fused_win_attn: bool = False
     fused_gdn: bool = False
+    fused_gate_chain: bool = False
+    fused_dse: bool = False
     packed_dse: bool = False
 
     @property
     def exact(self) -> bool:
         return self.compute_dtype == torch.float32
+
+    @property
+    def gelu_kind(self) -> str:
+        """The GELU flavour as the conv-chain kernel names it."""
+        return "gelu_erf" if self.exact else "gelu_tanh"
 
     def cast_in(self, x):
         return x.to(self.compute_dtype)

@@ -5,7 +5,8 @@ The per-channel CDF is a chain of K+1 monotone layers,
 logits_{k+1} = softplus(M_k) @ logits_k + b_k [+ tanh(a_k) * tanh(...)];
 an integer bin's likelihood is CDF(v+0.5) - CDF(v-0.5), taken with the
 sign trick.  Parameter names follow compressai (``_matrix0``, ``quantiles``).
-The CDF tables of the real codec are later work.  All math is fp32.
+``cdf_tables`` builds the codec's per-channel CDF rows on the host, in fp32
+on the CPU.  All math is fp32.
 
 ``F.softplus`` returns x itself above its threshold of 20, where
 log1p(exp(x)) - x < 2.1e-9: below fp32 resolution of x.
@@ -15,11 +16,13 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 from torch import nn
 import torch.nn.functional as F
 
 from ..ops.math import lower_bound, ste_round
+from .cdf import build_cdf_rows
 
 _LIKELIHOOD_BOUND = 1e-9
 
@@ -45,15 +48,16 @@ class EntropyBottleneck(nn.Module):
         q = torch.tensor([-init_scale, 0.0, init_scale], device=device)
         self.quantiles = nn.Parameter(q.reshape(1, 1, 3).repeat(channels, 1, 1))
 
-    def _logits_cumulative(self, inputs):
-        """inputs: (C, 1, N) -> logits of the cumulative at those points."""
+    def _logits_cumulative(self, inputs, params=None):
+        """inputs: (C, 1, N) -> logits of the cumulative at those points;
+        params: the module's parameters by name, or copies of them."""
+        p = dict(self.named_parameters()) if params is None else params
         logits = inputs
         for i in range(len(self.filters) + 1):
-            m = getattr(self, f"_matrix{i}")
-            logits = torch.bmm(F.softplus(m), logits) + getattr(self, f"_bias{i}")
+            logits = torch.bmm(F.softplus(p[f"_matrix{i}"]), logits) + \
+                p[f"_bias{i}"]
             if i < len(self.filters):
-                f = getattr(self, f"_factor{i}")
-                logits = logits + torch.tanh(f) * torch.tanh(logits)
+                logits = logits + torch.tanh(p[f"_factor{i}"]) * torch.tanh(logits)
         return logits
 
     def _likelihood(self, v):
@@ -64,6 +68,37 @@ class EntropyBottleneck(nn.Module):
 
     def medians(self):
         return self.quantiles[:, 0, 1]
+
+    @torch.no_grad()
+    def cdf_tables(self) -> dict:
+        """Integer CDF tables of the z coder: quantized_cdfs (C, L),
+        cdf_lengths (C,), offsets (C,), medians (C,) and pmf_length (C,).
+        The pmf is sampled between the quantiles around each median; the
+        logits run in fp32 on the CPU whatever the module's device."""
+        medians = self.medians().float().cpu().numpy()
+        quantiles = self.quantiles.float().cpu().numpy()
+        minima = np.maximum(
+            np.ceil(medians - quantiles[:, 0, 0]).astype(np.int32), 0)
+        maxima = np.maximum(
+            np.ceil(quantiles[:, 0, 2] - medians).astype(np.int32), 0)
+        pmf_start = medians - minima
+        pmf_length = maxima + minima + 1
+        max_length = int(pmf_length.max())
+        samples = np.arange(max_length, dtype=np.float32)[None, :] + \
+            pmf_start[:, None]
+        v = torch.from_numpy(samples.reshape(self.channels, 1, -1)).float()
+
+        cpu = {k: p.detach().float().cpu() for k, p in self.named_parameters()}
+        lower = self._logits_cumulative(v - 0.5, cpu)
+        upper = self._logits_cumulative(v + 0.5, cpu)
+        sign = -torch.sign(lower + upper)
+        pmf = torch.abs(torch.sigmoid(sign * upper) - torch.sigmoid(sign * lower))
+        tail = torch.sigmoid(lower[:, 0, :1]) + torch.sigmoid(-upper[:, 0, -1:])
+        cdfs, cdf_lengths = build_cdf_rows(pmf[:, 0, :].numpy(), pmf_length,
+                                           tail[:, 0].numpy())
+        return {"quantized_cdfs": cdfs, "cdf_lengths": cdf_lengths,
+                "offsets": -minima, "medians": medians,
+                "pmf_length": pmf_length}
 
     def forward(self, z):
         """Eval forward.  z: (B, C, H, W) -> (z_hat, likelihoods): the

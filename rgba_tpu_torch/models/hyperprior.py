@@ -29,6 +29,10 @@ HYPER_CH = (320, 288, 256, 224, 192)
 Z_CHANNELS = 192
 
 
+def _channels_last(t):
+    return t.contiguous(memory_format=torch.channels_last)
+
+
 def _hyper_analysis(m: int, policy, device, generator):
     kw = dict(policy=policy, device=device, generator=generator)
     layers, cin = [], m
@@ -85,6 +89,37 @@ class ChannelARPrior(nn.Module):
             Z_CHANNELS, device=device, generator=generator)
         self.gaussian = GaussianConditional()
 
+    # ------------------------------------------------------------ pieces
+    # shared by entropy_forward and the bitstream codec (eval/codec_io.py),
+    # so both compute (mu, scale, lrp) through one code path
+
+    def hyper_encode(self, y):
+        return self.h_a(y)
+
+    def hyper_decode(self, z_hat):
+        return self.h_mean_s(z_hat), self.h_scale_s(z_hat)
+
+    def slice_stats(self, latent_means, latent_scales, support, index: int,
+                    y_hw):
+        """(mu, scale) of slice ``index`` given the decoded support slices.
+        The conv inputs are channels_last whatever their parts were, so the
+        encoder and the decoder, which build them in separate calls, run
+        the same convolution kernels on them."""
+        h, w = y_hw
+        mean_in = torch.cat([latent_means] + support, dim=1)
+        scale_in = torch.cat([latent_scales] + support, dim=1)
+        mu = self.cc_mean_transforms[index](_channels_last(mean_in))
+        scale = self.cc_scale_transforms[index](_channels_last(scale_in))
+        return mu[:, :, :h, :w], scale[:, :, :h, :w]
+
+    def slice_lrp(self, latent_means, support, y_hat_slice, index: int):
+        lrp_in = torch.cat([latent_means] + support + [y_hat_slice], dim=1)
+        return 0.5 * torch.tanh(
+            self.lrp_transforms[index](_channels_last(lrp_in)))
+
+    def bottleneck_round(self, z):
+        return self.entropy_bottleneck(z)
+
     def entropy_forward(self, y, gate=None):
         """Eval entropy pass over y (B, M, H, W).
 
@@ -94,29 +129,25 @@ class ChannelARPrior(nn.Module):
         """
         y = y.float()
         b, m, h, w = y.shape
-        z = self.h_a(y)
-        z_hat, z_lik = self.entropy_bottleneck(z.float())
-        latent_means = self.h_mean_s(z_hat).float()
-        latent_scales = self.h_scale_s(z_hat).float()
+        z = self.hyper_encode(y)
+        z_hat, z_lik = self.bottleneck_round(z.float())
+        latent_means, latent_scales = self.hyper_decode(z_hat)
+        latent_means, latent_scales = latent_means.float(), latent_scales.float()
 
         sw = m // self.num_slices
         y_hat_slices, liks, mus, scales = [], [], [], []
         for i in range(self.num_slices):
             y_slice = y[:, i * sw:(i + 1) * sw]
             support = y_hat_slices[:self.max_support_slices]
-            mu = self.cc_mean_transforms[i](
-                torch.cat([latent_means] + support, dim=1))[:, :, :h, :w]
-            scale = self.cc_scale_transforms[i](
-                torch.cat([latent_scales] + support, dim=1))[:, :, :h, :w]
+            mu, scale = self.slice_stats(latent_means, latent_scales, support,
+                                         i, (h, w))
             lik = self.gaussian.likelihood(y_slice, scale, mu)
             if gate is not None:
                 lik = torch.where(gate > 0, lik, torch.ones_like(lik))
                 y_hat = ste_round((y_slice - mu) * gate) + mu
             else:
                 y_hat = ste_round(y_slice - mu) + mu
-            lrp = self.lrp_transforms[i](
-                torch.cat([latent_means] + support + [y_hat], dim=1))
-            y_hat = y_hat + 0.5 * torch.tanh(lrp)
+            y_hat = y_hat + self.slice_lrp(latent_means, support, y_hat, i)
             y_hat_slices.append(y_hat)
             liks.append(lik)
             mus.append(mu)

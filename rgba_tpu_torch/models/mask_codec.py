@@ -51,10 +51,9 @@ class MaskCodec(ChannelARPrior):
         """mask: (B, 1, H, W) in [0, 1] -> dict(x_hat, mse_loss, bpp,
         bpp_y, bpp_z, y_hat)."""
         b, _, h, w = mask.shape
-        y = self.EncoderMask(self.policy.cast_in(mask))
+        y = self.encode_latent(mask)
         ent = self.entropy_forward(y)
-        x_hat = self.DecoderMask(ent["y_hat"].to(self.policy.compute_dtype))
-        x_hat = x_hat.float()
+        x_hat = self.decode_latent(ent["y_hat"])
         bpp_y = bpp_of(ent["y_likelihoods"], b, h, w)
         bpp_z = bpp_of(ent["z_likelihoods"], b, h, w)
         return {
@@ -65,3 +64,10 @@ class MaskCodec(ChannelARPrior):
             "bpp_z": bpp_z,
             "y_hat": ent["y_hat"],
         }
+
+    # pieces of the bitstream codec (eval/codec_io.py)
+    def encode_latent(self, mask):
+        return self.EncoderMask(self.policy.cast_in(mask))
+
+    def decode_latent(self, y_hat):
+        return self.DecoderMask(y_hat.to(self.policy.compute_dtype)).float()

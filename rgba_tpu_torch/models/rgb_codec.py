@@ -100,11 +100,10 @@ class RGBCodec(ChannelARPrior):
         b, _, h, w = x.shape
         reconmask = torch.round(reconmask * 255.0) / 255.0
         md_pyr = mask_pyramid(reconmask)
-        y = self.Encoder(self.policy.cast_in(x), me_pyr[1], me_pyr[2])
+        y = self.encode_latent(x, me_pyr[1], me_pyr[2])
         gate = (md_pyr[2] > 0).float() if self.rate_gate else None
         ent = self.entropy_forward(y, gate=gate)
-        x_hat = self.Decoder(ent["y_hat"].to(self.policy.compute_dtype),
-                             md_pyr[1], md_pyr[2]).float()
+        x_hat = self.decode_latent(ent["y_hat"], md_pyr[1], md_pyr[2])
         bpp_y = bpp_of(ent["y_likelihoods"], b, h, w)
         bpp_z = bpp_of(ent["z_likelihoods"], b, h, w)
         return {
@@ -115,3 +114,11 @@ class RGBCodec(ChannelARPrior):
             "bpp_z": bpp_z,
             "y_hat": ent["y_hat"],
         }
+
+    # pieces of the bitstream codec (eval/codec_io.py)
+    def encode_latent(self, x, me2, me3):
+        return self.Encoder(self.policy.cast_in(x), me2, me3)
+
+    def decode_latent(self, y_hat, md2, md3):
+        return self.Decoder(y_hat.to(self.policy.compute_dtype),
+                            md2, md3).float()

@@ -5,8 +5,11 @@ Windows of alpha-empty pixels output exactly 0 before the residual add
 (the reference's ``remove_zero_windows``).  With ``policy.fused_win_attn``
 the attention runs in the CUDA kernel ``ops/kernels/win_attn.py``, which
 takes the shifted-window mask as region ids and the gate as ``alive``;
-otherwise the additive-bias formulation below runs in PyTorch.  The
-``fused_gate_chain`` kernel has no port yet: the gate chains are plain.
+otherwise the additive-bias formulation below runs in PyTorch.  With
+``policy.fused_gate_chain`` the whole gate, x + trunk(x) * sigmoid(1x1(
+chain(g))), of ``WinGateAttention`` and ``SimplifiedAttention`` runs in the
+CUDA kernel ``ops/kernels/gate_chain.py``, with the parameters of the same
+modules (the state-dict keys do not change).
 
 Module and parameter names follow the reference's state-dict keys
 (``attn.attn.qkv``, ``conv_a.0.conv.0``, ``trunk_ResBlock1.conv1`` ...).
@@ -21,6 +24,8 @@ import torch.nn.functional as F
 from ..core import init
 from ..core.precision import Policy
 from .conv import Conv, GELU
+from .kernels.gate_chain import GateChainWeights, fused_gate_chain
+from .kernels.nhwc import hwio3x3, io1x1
 from .kernels.win_attn import fused_window_attention
 from .window import (relative_position_index, swin_attention_bias,
                      swin_region_ids, window_alive, window_partition,
@@ -175,6 +180,32 @@ class ResidualUnit(nn.Module):
         return self.policy.gelu(x + self.conv(x))
 
 
+def _stack_chain(blocks) -> GateChainWeights:
+    """Three (1x1 C->C/2, 3x3, 1x1 C/2->C) conv triples -> the kernel's
+    stacked (in, out) weights and fp32 biases."""
+    return GateChainWeights(
+        torch.stack([io1x1(b[0].weight) for b in blocks]),
+        torch.stack([b[0].bias for b in blocks]).float(),
+        torch.stack([hwio3x3(b[1].weight) for b in blocks]),
+        torch.stack([b[1].bias for b in blocks]).float(),
+        torch.stack([io1x1(b[2].weight) for b in blocks]),
+        torch.stack([b[2].bias for b in blocks]).float())
+
+
+def _gate_kernel(policy: Policy, x, g, weights, act: str, post_act: bool):
+    """x + chain(trunk)(x) * sigmoid(final(chain(gate)(g))) through the
+    kernel, on NHWC views of NCHW (channels_last) tensors; weights as
+    ``gate_chain_weights`` returns them."""
+    dt = policy.compute_dtype
+
+    def rows(t):
+        return t.to(dt).permute(0, 2, 3, 1).contiguous()
+
+    out = fused_gate_chain(rows(x), None if g is None else rows(g), *weights,
+                           act, post_act)
+    return out.permute(0, 3, 1, 2)
+
+
 class WinGateAttention(nn.Module):
     """out = x + conv_a(x) * sigmoid(conv_b(masked_win_attn(x, alpha)))."""
 
@@ -182,6 +213,7 @@ class WinGateAttention(nn.Module):
                  shift_size: int = 0, *, policy: Policy, device, generator):
         super().__init__()
         kw = dict(policy=policy, device=device, generator=generator)
+        self.policy = policy
         conv_a = [ResidualUnit(dim, **kw) for _ in range(3)]
         self.attn = MaskedWinBlock(dim, num_heads, window_size, shift_size,
                                    **kw)
@@ -190,9 +222,22 @@ class WinGateAttention(nn.Module):
         self.conv_a = nn.Sequential(*conv_a)
         self.conv_b = nn.Sequential(*conv_b)
 
+    def gate_chain_weights(self):
+        """(trunk, gate, final (C, C) [in, out], final bias): conv_a and
+        conv_b as the gate-chain kernel takes them."""
+        def chain(units):
+            return _stack_chain([(u.conv[0], u.conv[2], u.conv[4])
+                                 for u in units])
+        final = self.conv_b[3]
+        return (chain(self.conv_a), chain(self.conv_b[:3]),
+                io1x1(final.weight), final.bias)
+
     def forward(self, x, alpha=None):
-        b = self.conv_b(self.attn(x, alpha))
-        return x + self.conv_a(x) * torch.sigmoid(b)
+        b = self.attn(x, alpha)
+        if self.policy.fused_gate_chain:
+            return _gate_kernel(self.policy, x, b, self.gate_chain_weights(),
+                                self.policy.gelu_kind, True)
+        return x + self.conv_a(x) * torch.sigmoid(self.conv_b(b))
 
 
 class ResBlock(nn.Module):
@@ -217,6 +262,7 @@ class SimplifiedAttention(nn.Module):
     def __init__(self, dim: int, *, policy: Policy, device, generator):
         super().__init__()
         kw = dict(policy=policy, device=device, generator=generator)
+        self.policy = policy
         self.trunk_ResBlock1 = ResBlock(dim, **kw)
         self.trunk_ResBlock2 = ResBlock(dim, **kw)
         self.trunk_ResBlock3 = ResBlock(dim, **kw)
@@ -225,7 +271,19 @@ class SimplifiedAttention(nn.Module):
         self.attention_ResBlock3 = ResBlock(dim, **kw)
         self.conv1 = Conv(dim, dim, 1, 1, **kw)
 
+    def gate_chain_weights(self):
+        """(trunk, gate, final (C, C) [in, out], final bias): the trunk and
+        attention ResBlocks as the gate-chain kernel takes them."""
+        def chain(prefix):
+            return _stack_chain([(rb.conv1, rb.conv2, rb.conv3) for rb in (
+                getattr(self, f"{prefix}_ResBlock{i}") for i in (1, 2, 3))])
+        return (chain("trunk"), chain("attention"), io1x1(self.conv1.weight),
+                self.conv1.bias)
+
     def forward(self, x):
+        if self.policy.fused_gate_chain:
+            return _gate_kernel(self.policy, x, None,
+                                self.gate_chain_weights(), "relu", False)
         t = self.trunk_ResBlock3(self.trunk_ResBlock2(self.trunk_ResBlock1(x)))
         a = self.attention_ResBlock3(self.attention_ResBlock2(
             self.attention_ResBlock1(x)))

@@ -1,0 +1,99 @@
+"""Fused DSE enhancement tail: the CUDA kernel ``csrc/dse.cu`` and its
+plain version.
+
+Port of ``rgba_tpu/ops/pallas/dse.py::fused_dse``: first = 1x1 cio->32,
+three blocks y += 3x3(act(3x3(y))), y += first, out = 1x1 32->cio (y) + x;
+ReLU (RGB) or LeakyReLU 0.01 (mask).  The TPU kernel's 4-image lane
+packing is TPU layout and not part of the function.  The kernel takes any
+H and W.  Inference only.
+
+Weights: w_in (cio, 32), b_in (32,), w3 (6, 288, 32) with rows (dy, dx,
+ci) in the order enh1.conv1, enh1.conv2, ..., enh3.conv2, b3 (6, 32),
+w_out (32, cio), b_out (cio,).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from .build import CudaKernel
+from .nhwc import conv1x1, conv3x3
+
+KERNEL = CudaKernel("dse.cu", "rgba_dse", [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_void_p])
+
+_DTYPES = (torch.float32, torch.bfloat16)
+FILTERS = 32
+MAX_CIO = 4
+
+
+def dse_plain(x, w_in, b_in, w3, b3, w_out, b_out, leaky: bool):
+    """The kernel's arithmetic in PyTorch: every product accumulates in
+    fp32; first, each inner activation and each block's output are cast to
+    x's dtype where the kernel casts them, and so is y + first before the
+    output 1x1."""
+    dt = x.dtype
+
+    def act(v):
+        return F.leaky_relu(v, 0.01) if leaky else F.relu(v)
+
+    first = conv1x1(x, w_in, b_in).to(dt)
+    y = first
+    for blk in range(3):
+        z = act(conv3x3(y, w3[2 * blk], b3[2 * blk])).to(dt)
+        y = (conv3x3(z, w3[2 * blk + 1], b3[2 * blk + 1]) + y.float()).to(dt)
+    merged = (y.float() + first.float()).to(dt)
+    return (conv1x1(merged, w_out, b_out) + x.float()).to(dt)
+
+
+def fused_dse(x, w_in, b_in, w3, b3, w_out, b_out, leaky: bool):
+    """x: (B, H, W, cio) NHWC, fp32 or bf16, cio <= 4.  Returns x's shape
+    and dtype.  CPU tensors take the plain version; CUDA tensors launch the
+    kernel."""
+    if x.device.type == "cpu":
+        return dse_plain(x, w_in, b_in, w3, b3, w_out, b_out, leaky)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_dse: unsupported device {x.device}")
+    dt = x.dtype
+    if dt not in _DTYPES:
+        raise TypeError(f"fused_dse: dtype {dt} not in {_DTYPES}")
+    if x.dim() != 4 or x.shape[-1] > MAX_CIO:
+        raise ValueError(f"fused_dse: x must be (B, H, W, cio <= {MAX_CIO}),"
+                         f" got {tuple(x.shape)}")
+    b, h, w, cio = x.shape
+    f = FILTERS
+    shapes = {"w_in": (w_in, (cio, f)), "b_in": (b_in, (f,)),
+              "w3": (w3, (6, 9 * f, f)), "b3": (b3, (6, f)),
+              "w_out": (w_out, (f, cio)), "b_out": (b_out, (cio,))}
+    for name, (t, want) in shapes.items():
+        if tuple(t.shape) != want:
+            raise ValueError(f"fused_dse: {name} shape {tuple(t.shape)} != "
+                             f"{want}")
+        if t.device != x.device:
+            raise ValueError(f"fused_dse: {name} is on {t.device}, x on "
+                             f"{x.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, w_in, b_in, w3, b3, w_out, b_out)):
+        raise RuntimeError("fused_dse is inference-only (no backward yet): "
+                           "call it under torch.inference_mode()")
+    if not x.is_contiguous():
+        raise ValueError("fused_dse: x must be contiguous NHWC")
+    # bf16 runs the 3x3s on the tensor cores, which read [out][in] weights
+    if dt == torch.bfloat16:
+        w3 = w3.transpose(1, 2)
+    ws = [t.to(dt).contiguous() for t in (w_in, w3, w_out)]
+    bs = [t.float().contiguous() for t in (b_in, b3, b_out)]
+    out = torch.empty_like(x)
+    if x.numel():
+        KERNEL.launch(x.data_ptr(), ws[0].data_ptr(), bs[0].data_ptr(),
+                      ws[1].data_ptr(), bs[1].data_ptr(), ws[2].data_ptr(),
+                      bs[2].data_ptr(), out.data_ptr(), b, h, w, cio,
+                      int(leaky), int(dt == torch.bfloat16),
+                      torch.cuda.current_stream(x.device).cuda_stream)
+    return out

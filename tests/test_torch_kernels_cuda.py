@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card.
 
 Every test here needs an NVIDIA GPU with nvcc (the kernels have no CPU
-mode) and skips without one.  The file imports no JAX, so it also runs on
+mode) and skips without one; the codec test also builds the host rANS
+coder with g++.  The file imports no JAX, so it also runs on
 a machine that has only PyTorch:
 
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
@@ -21,7 +22,7 @@ torch = pytest.importorskip("torch")
 from rgba_tpu_torch.core.precision import SERVE_POLICY  # noqa: E402
 from rgba_tpu_torch.data.synthetic import synthetic_rgba_batch  # noqa: E402
 from rgba_tpu_torch.models.pipeline import RGBAPipeline  # noqa: E402
-from rgba_tpu_torch.ops.kernels import gdn, win_attn  # noqa: E402
+from rgba_tpu_torch.ops.kernels import dse, gate_chain, gdn, win_attn  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -125,3 +126,123 @@ def test_pipeline_on_the_card_goes_through_both_kernels(card):
     assert (win_attn.KERNEL.launches, gdn.KERNEL.launches) == (4, 12)
     assert out["x_hat"].shape == (1, 64, 128, 3)
     assert all(bool(torch.isfinite(v).all()) for v in out.values())
+
+
+def _gate_args(b, h, w, c, dtype, dev, separate, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    half = c // 2
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=g)).to(dev)
+
+    def chain():
+        return gate_chain.GateChainWeights(
+            rnd(3, c, half, scale=c ** -0.5), rnd(3, half, scale=0.1),
+            rnd(3, 9 * half, half, scale=(9 * half) ** -0.5),
+            rnd(3, half, scale=0.1), rnd(3, half, c, scale=0.5 * half ** -0.5),
+            rnd(3, c, scale=0.1))
+    x = rnd(b, h, w, c).to(dtype)
+    gg = rnd(b, h, w, c).to(dtype) if separate else None
+    return (x, gg, chain(), chain(), rnd(c, c, scale=c ** -0.5),
+            rnd(c, scale=0.1))
+
+
+def _dse_args(b, h, w, cio, dtype, dev, seed=0):
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=g)).to(dev)
+    return (torch.rand(b, h, w, cio, generator=g).to(dev, dtype),
+            rnd(cio, 32, scale=cio ** -0.5), rnd(32, scale=0.1),
+            rnd(6, 288, 32, scale=288 ** -0.5), rnd(6, 32, scale=0.1),
+            rnd(32, cio, scale=32 ** -0.5), rnd(cio, scale=0.1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act,post,separate", [("gelu_erf", True, True),
+                                               ("gelu_tanh", True, True),
+                                               ("relu", False, False)])
+@pytest.mark.parametrize("b,h,w,c", [(2, 128, 192, 192), (2, 64, 96, 80),
+                                     (1, 13, 21, 64), (1, 5, 7, 16)])
+def test_gate_chain_kernel_matches_plain(card, dtype, act, post, separate,
+                                         b, h, w, c):
+    """The path's shapes and ragged ones (partial tiles, a tile larger than
+    the image)."""
+    args = _gate_args(b, h, w, c, dtype, card, separate)
+    with torch.inference_mode():
+        _assert_close(gate_chain.fused_gate_chain(*args, act, post),
+                      gate_chain.gate_chain_plain(*args, act, post), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cio,leaky", [(3, False), (1, True)])
+@pytest.mark.parametrize("b,h,w", [(2, 512, 768), (1, 37, 50), (1, 5, 9)])
+def test_dse_kernel_matches_plain(card, dtype, cio, leaky, b, h, w):
+    args = _dse_args(b, h, w, cio, dtype, card)
+    with torch.inference_mode():
+        _assert_close(dse.fused_dse(*args, leaky=leaky),
+                      dse.dse_plain(*args, leaky=leaky), dtype)
+
+
+def test_conv_chain_kernels_are_deterministic(card):
+    """The codec rebuilds the alpha in separate calls: the same inputs give
+    the same bits."""
+    gargs = _gate_args(2, 32, 48, 80, torch.float32, card, True)
+    dargs = _dse_args(2, 64, 64, 3, torch.float32, card)
+    with torch.inference_mode():
+        a = gate_chain.fused_gate_chain(*gargs, "gelu_erf", True)
+        b = gate_chain.fused_gate_chain(*gargs, "gelu_erf", True)
+        c = dse.fused_dse(*dargs, leaky=False)
+        d = dse.fused_dse(*dargs, leaky=False)
+    assert torch.equal(a, b) and torch.equal(c, d)
+
+
+def _all_kernels(policy):
+    return dataclasses.replace(policy, fused_win_attn=True, fused_gdn=True,
+                               fused_gate_chain=True, fused_dse=True,
+                               packed_dse=False)
+
+
+def _launches():
+    return tuple(k.KERNEL.launches for k in (win_attn, gdn, gate_chain, dse))
+
+
+def test_forward_with_all_four_kernels(card):
+    from rgba_tpu_torch.core.precision import BF16_POLICY
+    pipe = RGBAPipeline(_all_kernels(BF16_POLICY), seed=0)
+    d = synthetic_rgba_batch(1, 64, 128, seed=0)
+    before = _launches()
+    out = pipe(d["masked_image"], d["alpha"])
+    assert tuple(a - b for a, b in zip(_launches(), before)) == (4, 12, 8, 2)
+    assert all(bool(torch.isfinite(v).all()) for v in out.values())
+
+
+def test_codec_round_trip_on_the_card(card):
+    """fp32 with all four kernels: bit-exact re-encode, the launches of one
+    encode + decode, and the decoded RGB against the codec's forward."""
+    import numpy as np
+    from rgba_tpu_torch.core.precision import DEFAULT_POLICY
+    from rgba_tpu_torch.eval.codec_io import CodecIO
+    from rgba_tpu_torch.eval.container import RGBAFileCodec
+    from rgba_tpu_torch.ops.mask_pyramid import mask_pyramid
+
+    pipe = RGBAPipeline(_all_kernels(DEFAULT_POLICY), seed=0)
+    codec = RGBAFileCodec(CodecIO(pipe.rgb_codec, "rgb"),
+                          CodecIO(pipe.mask_codec, "mask"))
+    d = synthetic_rgba_batch(2, 64, 128, seed=1)
+    img = np.round(d["image"] * 255).astype(np.uint8)
+    alpha = np.round(d["alpha"] * 255).astype(np.uint8)
+    before = _launches()
+    blobs = codec.encode_batch(img, alpha)
+    dec = codec.decode_batch(blobs)
+    assert tuple(a - b for a, b in zip(_launches(), before)) == (4, 15, 10, 3)
+    assert codec.encode_batch(img, alpha) == blobs
+    assert dec.shape == (2, 64, 128, 4)
+    rgb_io = codec.rgb_io
+    with rgb_io._scope():
+        recon = torch.from_numpy(dec[..., 3:]).cuda().permute(0, 3, 1, 2)
+        x = torch.from_numpy(img).cuda().float().permute(0, 3, 1, 2) / 255.0
+        fwd = rgb_io.model(torch.where(recon > 0, x, recon), recon, recon,
+                           mask_pyramid(recon))
+        want = torch.clamp(fwd["x_hat"], 0, 1).permute(0, 2, 3, 1).cpu().numpy()
+    np.testing.assert_allclose(dec[..., :3], want, atol=1e-5)

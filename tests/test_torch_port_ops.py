@@ -90,14 +90,16 @@ def test_policy_mirrors_jax():
         tp, jp = tprec.policy_from_str(name), j_policy_from_str(name)
         assert tp.fused_win_attn == jp.fused_win_attn
         assert tp.fused_gdn == jp.fused_gdn
+        assert tp.fused_gate_chain == jp.fused_gate_chain
+        assert tp.fused_dse == jp.fused_dse
         assert tp.packed_dse == jp.packed_dse
+        assert tp.gelu_kind == jp.gelu_kind
         assert str(tp.compute_dtype).split(".")[-1] == jnp.dtype(jp.compute_dtype).name
     with pytest.raises(ValueError):
         tprec.policy_from_str("nope")
-    # kernels without a port have no routing flag to set
-    for flag in ("fused_dse", "fused_gate_chain", "int8_conv"):
-        with pytest.raises(TypeError):
-            tprec.Policy(**{flag: True})
+    # a kernel without a port has no routing flag to set
+    with pytest.raises(TypeError):
+        tprec.Policy(int8_conv=True)
 
 
 @pytest.mark.parametrize("policy", ["fp32", "bf16"])
