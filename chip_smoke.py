@@ -13,14 +13,19 @@ failure:
    coder from ``rgba_tpu_torch/native/rans.cpp`` with g++;
 2. kernels: each kernel at the main paths' shapes (batch 16, 512x768), in
    fp32 and bf16, against its plain PyTorch version on the same inputs
-   within the printed tolerance; times the kernel, the plain version, one
+   within the printed tolerance (attention also fed a zeroed and a
+   transposed rel_bias, which that check must fail); times the kernel
+   (attention with its weights laid out once, as ``WindowAttention``
+   keeps them), the plain version, one
    PyTorch library call of the same function (a yardstick the port never
    calls) and the bound (the larger of bytes over 3.35 TB/s and operations
    over the H100 SXM peak for their type);
 3. forward: ``RGBAPipeline`` at batch 16, 512x768, bf16 with all four
    kernels on: shapes, finiteness, the launch count of each kernel in one
    forward, images/s (kernels on, then off, twice each), one profiled
-   forward (device time by kernel, device busy share); then fp32 with the
+   forward (device time by kernel, device busy share); images/s and the
+   launch counts of the default serving route (``SERVE_POLICY``: bf16 with
+   the attention kernel only) on the same weights; then fp32 with the
    kernels on against fp32 with them off (TF32 off) on x_hat and bpp;
 4. codec: ``RGBAFileCodec`` over two ``CodecIO`` at batch 16, 512x768,
    fp32 with all four kernels on, uint8 RGBA in and out: launch counts of
@@ -33,6 +38,14 @@ The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}.  Without CUDA, or without
 the rest of the repository beside it, the script exits non-zero and prints
 no result.
+
+    python3 chip_smoke.py --base DIR [--iters 20]
+
+compares the window-attention and GDN kernels of another checkout DIR
+(for example a parent commit unpacked with ``git archive``) with this one's
+on the same card: each tree builds its two kernels and runs its own
+``gdn_cases`` and ``attention_cases`` in a process of its own, in turns
+base, head, head, base; it prints each case's kernel time per turn.
 """
 
 from __future__ import annotations
@@ -44,6 +57,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM
 PEAK_FLOPS = {"bfloat16": 989e12,    # dense bf16 tensor cores
@@ -81,7 +95,8 @@ def _bound(nbytes: float, flops: float, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _check(torch, got, want, dtype: str, what: str) -> dict:
+def _within(torch, got, want, dtype: str):
+    """(within tolerance, max_abs_err, max_rel_err, the tolerance)."""
     got, want = got.float(), want.float()
     err = (got - want).abs()
     scale = max(1.0, float(want.abs().max()))
@@ -93,11 +108,26 @@ def _check(torch, got, want, dtype: str, what: str) -> dict:
     else:
         ok = max_abs <= BF16_TOL * scale
         tol = f"{BF16_TOL * scale:.4g}"
+    return ok, max_abs, max_rel, tol
+
+
+def _check(torch, got, want, dtype: str, what: str) -> dict:
+    ok, max_abs, max_rel, tol = _within(torch, got, want, dtype)
     print(f"  {what}: max_abs_err {max_abs:.3g} max_rel_err {max_rel:.3g} "
           f"tol {tol} -> {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{what}: kernel disagrees with its plain version")
     return {"max_abs_err": max_abs, "max_rel_err": max_rel}
+
+
+def _must_differ(torch, got, want, dtype: str, what: str) -> None:
+    """The check above must fail a kernel fed a wrong input: else it could
+    not see that input go missing or astray."""
+    ok, max_abs, _, tol = _within(torch, got, want, dtype)
+    print(f"  {what}: max_abs_err {max_abs:.3g} tol {tol} -> "
+          f"{'FAIL (the check cannot see it)' if ok else 'seen'}")
+    if ok:
+        raise AssertionError(f"{what}: within tolerance of the right output")
 
 
 def gdn_cases(torch, batch: int, iters: int):
@@ -175,11 +205,21 @@ def attention_cases(torch, batch: int, iters: int):
                     (0.1 * torch.randn(3 * c, generator=g)).to(dev),
                     (torch.randn(c, c, generator=g) / c ** 0.5).to(dev, dt),
                     (0.1 * torch.randn(c, generator=g)).to(dev),
-                    (0.02 * torch.randn(nh, n, n, generator=g)).to(dev)]
+                    torch.randn(nh, n, n, generator=g).to(dev)]
             what = f"fused_window_attention nW={nw} N={n} C={c} {dtype}"
-            res = _check(torch, k.fused_window_attention(*args, num_heads=nh),
-                         k.window_attention_plain(*args, num_heads=nh),
-                         dtype, what)
+            # the weights' kernel layout, which WindowAttention builds once
+            wts = k.kernel_weights(*args[3:7], nh, dt)
+            want = k.window_attention_plain(*args, num_heads=nh)
+            res = _check(torch, k.fused_window_attention(
+                *args, num_heads=nh, prepared=wts), want, dtype, what)
+            # rel_bias at unit scale moves the output by far more than the
+            # tolerance: a kernel that drops or transposes it fails the check
+            rb = args[-1]
+            for wrong, t in (("zeroed", torch.zeros_like(rb)),
+                             ("transposed", rb.transpose(1, 2).contiguous())):
+                _must_differ(torch, k.fused_window_attention(
+                    *args[:-1], t, num_heads=nh), want, dtype,
+                    f"  the same with rel_bias {wrong}")
             tokens, _, _, wq, bq, wp, bp, rb = args
             mask = (rb[None] + torch.where(
                 region[:, None, :, None] != region[:, None, None, :],
@@ -203,12 +243,15 @@ def attention_cases(torch, batch: int, iters: int):
                 shape=f"nW={nw},N={n},C={c},heads={nh},alive={n_alive}",
                 dtype=dtype,
                 ms=_time_ms(torch, lambda: k.fused_window_attention(
-                    *args, num_heads=nh), iters),
+                    *args, num_heads=nh, prepared=wts), iters),
+                layout_ms=_time_ms(torch, lambda: k.kernel_weights(
+                    *args[3:7], nh, dt), iters),
                 plain_ms=_time_ms(torch, lambda: k.window_attention_plain(
                     *args, num_heads=nh), iters),
                 library_ms=_time_ms(torch, library, iters),
                 bound_ms=bound, bound_by=by)
-            print(f"    ms {res['ms']:.4f} plain_ms {res['plain_ms']:.4f} "
+            print(f"    ms {res['ms']:.4f} (weight layout, once per weights: "
+                  f"{res['layout_ms']:.4f}) plain_ms {res['plain_ms']:.4f} "
                   f"library_ms {res['library_ms']:.4f} bound_ms {bound:.4f} ({by})")
             cases.append(res)
     return cases
@@ -396,6 +439,8 @@ KERNEL_NAMES = ("fused_window_attention", "fused_gdn", "fused_gate_chain",
                 "fused_dse")
 FORWARD_LAUNCHES = {"fused_window_attention": 4, "fused_gdn": 12,
                     "fused_gate_chain": 8, "fused_dse": 2}
+SERVE_LAUNCHES = {"fused_window_attention": 4, "fused_gdn": 0,
+                  "fused_gate_chain": 0, "fused_dse": 0}
 CODEC_LAUNCHES = {"fused_window_attention": 4, "fused_gdn": 15,
                   "fused_gate_chain": 10, "fused_dse": 3}
 
@@ -426,7 +471,8 @@ def _read_launches(want: dict, what: str) -> dict:
 
 
 def path_phase(torch, batch: int, iters: int) -> dict:
-    from rgba_tpu_torch.core.precision import BF16_POLICY, DEFAULT_POLICY
+    from rgba_tpu_torch.core.precision import (BF16_POLICY, DEFAULT_POLICY,
+                                               SERVE_POLICY)
     from rgba_tpu_torch.data.synthetic import synthetic_rgba_batch
     from rgba_tpu_torch.models.pipeline import RGBAPipeline
 
@@ -470,15 +516,24 @@ def path_phase(torch, batch: int, iters: int) -> dict:
     plain = RGBAPipeline(BF16_POLICY, seed=0)
     plain.load_state_dict(state)
     plain(*ins[1])
+    # the default serving route: bf16, the attention kernel only
+    serve = RGBAPipeline(SERVE_POLICY, seed=0)
+    serve.load_state_dict(state)
+    serve(*ins[1])
+    torch.cuda.synchronize()
+    _reset_launches()
+    serve(*ins[0])
+    torch.cuda.synchronize()
+    serve_launches = _read_launches(SERVE_LAUNCHES, "one serving forward")
     fwd = {}
     for name, p in (("bf16 all kernels", pipe), ("bf16 plain", plain),
-                    ("bf16 all kernels again", pipe),
-                    ("bf16 plain again", plain)):
+                    ("bf16 serve", serve), ("bf16 all kernels again", pipe),
+                    ("bf16 plain again", plain), ("bf16 serve again", serve)):
         fwd[name] = img_per_s(p)
         print(f"  forward {name}: {fwd[name]:.3f} img/s "
               f"(batch {batch}, 512x768, {iters} iters)")
     profile = profile_run(torch, lambda: pipe(*ins[0]), "forward")
-    del plain, pipe
+    del plain, pipe, serve
 
     # fp32, kernels on vs off, TF32 off (precision_scope): x_hat and bpp
     fp32_on = RGBAPipeline(_all_kernels(DEFAULT_POLICY), seed=0)
@@ -492,7 +547,8 @@ def path_phase(torch, batch: int, iters: int) -> dict:
           f"(rel {bpp_rel:.3g})")
     if not (bulk["ok"] and bpp_rel <= 1e-4):
         raise AssertionError("fp32 pipeline with kernels disagrees with plain")
-    return {"launches": launches, "img_per_s": fwd, "profile": profile,
+    return {"launches": launches, "serve_launches": serve_launches,
+            "img_per_s": fwd, "profile": profile,
             "fp32_x_hat_max_abs": bulk["max_abs"],
             "fp32_x_hat_mean_abs": bulk["mean_abs"], "fp32_bpp_rel": bpp_rel}
 
@@ -612,10 +668,48 @@ def codec_phase(torch, batch: int, iters: int) -> dict:
             "profile": profile}
 
 
+# runs in either checkout, through that checkout's own chip_smoke.py
+AB_WORKER = """
+import json, sys, torch
+import chip_smoke as cs
+from rgba_tpu_torch.ops.kernels import build, gdn, win_attn
+build.build_all([gdn.KERNEL, win_attn.KERNEL])
+batch, iters = int(sys.argv[1]), int(sys.argv[2])
+cases = cs.gdn_cases(torch, batch, iters) + cs.attention_cases(torch, batch,
+                                                               iters)
+print("RESULT " + json.dumps(cases))
+"""
+
+
+def ab_phase(base: Path, batch: int, iters: int) -> dict:
+    import os
+    head = Path(__file__).resolve().parent
+    turns = []
+    for name, tree in (("base", base), ("head", head), ("head", head),
+                       ("base", base)):
+        proc = subprocess.run(
+            [sys.executable, "-c", AB_WORKER, str(batch), str(iters)],
+            cwd=tree, env=dict(os.environ, PYTHONPATH=str(tree)),
+            capture_output=True, text=True, timeout=900)
+        res = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")]
+        if proc.returncode or not res:
+            raise RuntimeError(f"the kernels of {tree} failed:\n"
+                               f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        cases = json.loads(res[-1][len("RESULT "):])
+        for c in cases:
+            print(f"  {name} {c['dtype']} {c['shape']}: ms {c['ms']:.4f} "
+                  f"(max_abs_err {c['max_abs_err']:.3g})")
+        turns.append({"tree": name, "cases": cases})
+    return {"base": str(base), "batch": batch, "iters": iters, "turns": turns}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--base", type=Path, default=None,
+                    help="another checkout whose attention and GDN kernels "
+                         "to time against this one's")
     args = ap.parse_args(argv)
 
     import torch
@@ -633,6 +727,12 @@ def main(argv=None) -> int:
     card = _card_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
+    if args.base is not None:
+        print(f"attention and GDN kernels, {args.base} against this tree:")
+        report = ab_phase(args.base.resolve(), args.batch, args.iters)
+        print(card)
+        print(json.dumps(report))
+        return 0
     t0 = time.perf_counter()
     with ThreadPoolExecutor(1) as pool:
         rans_build = pool.submit(rans.build)       # g++ beside the nvccs

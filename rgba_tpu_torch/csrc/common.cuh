@@ -7,6 +7,7 @@
 #pragma once
 
 #include <cmath>
+#include <cstddef>
 #include <cstdint>
 
 #include <cuda_bf16.h>
@@ -46,6 +47,128 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 // Two consecutive bf16 as one 32-bit fragment register (4-byte aligned).
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Four 8x8 bf16 matrices from shared memory (ldmatrix): lanes 8i .. 8i+7
+// give the 16-byte rows of matrix i, and r[i] holds, in lane l, row l / 4,
+// columns 2 (l % 4) and 2 (l % 4) + 1 of matrix i: the fragment layout of
+// mma m16n8k16.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* row) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
+}
+
+// This lane's row address for ldsm_x4 of an A fragment (16 rows x 16 k at
+// a, row stride ld): matrices (rows 0-7, k 0-7), (8-15, 0-7), (0-7, 8-15),
+// (8-15, 8-15), which load as a[0..3].
+__device__ __forceinline__ const __nv_bfloat16* a_row(const __nv_bfloat16* a,
+                                                      int ld) {
+  const int l = threadIdx.x % 32;
+  return a + (l % 8 + 8 * ((l / 8) % 2)) * ld + 8 * (l / 16);
+}
+
+// This lane's row address for ldsm_x4 of the B fragments of two n-tiles
+// (w is [n][k] at n-tile row 0 and k 0, row stride ld): matrices (n 0-7,
+// k 0-7), (0-7, 8-15), (8-15, 0-7), (8-15, 8-15), which load as b0, b1 of
+// the first n-tile and b0, b1 of the second.
+__device__ __forceinline__ const __nv_bfloat16* b_row(const __nv_bfloat16* w,
+                                                      int ld) {
+  const int l = threadIdx.x % 32;
+  return w + (l % 8 + 8 * (l / 16)) * ld + 8 * ((l / 8) % 2);
+}
+
+// Two fp32 values rounded to nearest even and packed as one fragment
+// register (the first in the low half).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 16 bytes from device memory to shared memory without passing through
+// registers; with valid == false the 16 bytes are zero-filled and src is
+// not read.  Both addresses 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most `pending` of this thread's committed groups are in
+// flight; a barrier must follow before other threads read the data.
+template <int pending> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(pending));
+}
+
+// bytes (a multiple of 16) from shared to device memory by the bulk-copy
+// engine (the async proxy: a fence.proxy.async must follow the generic
+// writes of src), as one bulk group per commit.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(src));
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               :: "l"(dst), "r"(s), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most `pending` of this thread's bulk groups still read
+// their shared-memory source.
+template <int pending> __device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(pending) : "memory");
+}
+
+// Shared-memory descriptor of a K-major wgmma operand without swizzle: 8 x 8
+// core matrices of 128 contiguous bytes, K-adjacent ones 128 bytes apart
+// and 8-row groups sbo bytes apart.  Adding 16 moves it 256 bytes, one
+// 16-deep k step.
+__device__ __forceinline__ uint64_t kmajor_desc(const void* p, int sbo) {
+  const uint64_t a = static_cast<uint64_t>(__cvta_generic_to_shared(p));
+  return ((a & 0x3FFFF) >> 4) | (static_cast<uint64_t>(128 >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+// Element offset of (r, k) in that layout, kb = K / 8 core matrices per
+// 8-row group.
+__device__ __forceinline__ int core_off(int r, int k, int kb) {
+  return (r >> 3) * kb * 64 + (k >> 3) * 64 + (r & 7) * 8 + (k & 7);
+}
+
+// Keep the compiler from moving accumulator reads or writes across the
+// wgmma fence and wait.
+template <int R>
+__device__ __forceinline__ void fence_operands(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+// Commit the warpgroup's wgmma issued so far and wait for all of them.
+__device__ __forceinline__ void wgmma_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Resident blocks per SM times the SM count: the grid of a persistent
+// kernel (at least 1).
+template <typename K>
+inline int persistent_grid(K kernel, int threads, size_t smem) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                smem);
+  return sms * (per_sm > 0 ? per_sm : 1);
 }
 
 }  // namespace rgba

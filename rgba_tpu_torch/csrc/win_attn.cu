@@ -16,18 +16,44 @@
 // ~135 GFLOP against ~0.30 GB in bf16, so the op is bound by operations
 // (0.14 ms on bf16 tensor cores).  Only alive windows need the work.
 //
-// Design: one block per window.  A dead window (alive == 0) writes zeros
-// and returns, as the reference's remove_zero_windows drops it (about half
-// the windows on blob-shaped alpha).  An alive window stages its tokens in
-// shared memory as fp32 (64x192 is 48 KB, so the launch opts in to
-// dynamic shared memory above 48 KB), loops over heads, and keeps q/k/v of
-// one head (N x 3hd), the N x N fp32 scores and the concatenated head
-// outputs (N x C) in shared memory; device memory sees the tokens once and
-// the output once.  Both projections stream weight columns through a
-// C x 32 shared tile and give each thread a 4-row register tile.  This
-// first version runs its products on the fp32 CUDA cores: hd = 24 and 10
-// are not multiples of the 16-deep bf16 MMA step, so a tensor-core version
-// must pad the heads (later work).
+// bf16 design (win_attn_mma_kernel): all four products on the tensor cores
+// (bf16 in, fp32 accumulate), on a persistent grid of 8-warp blocks.
+// - Alive list on the device: every block scans `alive` once (a block-wide
+//   prefix count, no host sync) and keeps the windows it owns: alive
+//   windows in groups of `wb` consecutive ranks (2 windows of N=64, 8 of
+//   N=16: 128 token rows), dealt round robin over the blocks, and dead
+//   windows, which it fills with zeros.
+// - Projections on wgmma: per group, the tokens stay in shared memory in
+//   bf16 as K-major core matrices (C padded with zero columns to the
+//   16-deep K step), and the qkv projection runs head by head, each of the
+//   two warpgroups taking 64 rows in one m64n96k16 (hd=24) or m64n48k16
+//   (hd=10) per k step.  Head dims are padded with zero weight rows to 32
+//   or 16: zero q/k columns leave the scores unchanged.  q and k of the
+//   head go to shared memory in bf16, v transposed (the B operand of P.V).
+//   The output projection reads the concatenated head outputs, also kept
+//   as core matrices, in chunks of the same width.
+// - Scores and softmax in registers, as flash attention, on mma.sync
+//   m16n8k16: a warp owns 16 query rows of one window, S = Q K^T stays in
+//   accumulator fragments, takes the fp32 scale, rel_bias (fp32, loaded
+//   into registers while the head's projection runs) and the -100 region
+//   mask (bits made once per group), reduces max and sum over the quad with
+//   shuffles, and P, rounded to bf16, is reused in registers as the A
+//   fragments of P.V.  Bias and gate end the projection; the output goes
+//   back into the token buffer and out 16 bytes a thread.
+// - Weights: the wrapper lays them out [out][in] as core matrices (per
+//   head, q|k|v rows of hdp each), so each stage (one head's qkv weights,
+//   or one chunk of the projection's) is one contiguous block, copied by
+//   cp.async into one of two shared buffers while the previous stage
+//   computes.  Biases and the group's alive gates sit in shared memory.
+// - Sums in a fixed order, no atomics: the same inputs give the same bits.
+//
+// fp32 design (win_attn_kernel): one block per window on the CUDA cores
+// (TF32 would break the fp32 tolerance).  A dead window writes zeros and
+// returns; an alive one stages its tokens in shared memory as fp32, loops
+// over heads, and keeps q/k/v of one head, the N x N fp32 scores and the
+// concatenated head outputs in shared memory.  Both projections stream
+// weight columns through a C x 32 shared tile and give each thread a 4-row
+// register tile.
 #include <algorithm>
 
 #include "common.cuh"
@@ -41,9 +67,9 @@ constexpr int kMaxThreads = 512;  // caps registers at 128 a thread
 // out[n][j] = sum_k a[n][k] * W[k][col(j)] for n < n_rows, j < ncols;
 // a: shared, row stride lda (multiple of 4, 16-byte aligned rows);
 // W: global (K x ldw) row-major; epi(n, j, acc) consumes each result.
-template <typename T, typename ColMap, typename Epi>
+template <typename ColMap, typename Epi>
 __device__ __forceinline__ void gemm_cols(const float* a, int lda, int n_rows,
-                                          int k_dim, const T* __restrict__ w,
+                                          int k_dim, const float* __restrict__ w,
                                           int ldw, int ncols, ColMap col,
                                           float* bs, Epi epi) {
   const int groups = n_rows / kRowTile;
@@ -51,8 +77,7 @@ __device__ __forceinline__ void gemm_cols(const float* a, int lda, int n_rows,
     const int jt = min(kCols, ncols - j0);
     for (int i = threadIdx.x; i < k_dim * jt; i += blockDim.x) {
       const int k = i / jt, jj = i - k * jt;
-      bs[k * kCols + jj] =
-          rgba::to_float(w[static_cast<long long>(k) * ldw + col(j0 + jj)]);
+      bs[k * kCols + jj] = w[static_cast<long long>(k) * ldw + col(j0 + jj)];
     }
     __syncthreads();
     for (int i = threadIdx.x; i < groups * jt; i += blockDim.x) {
@@ -84,22 +109,21 @@ __device__ __forceinline__ void gemm_cols(const float* a, int lda, int n_rows,
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)
-win_attn_kernel(const T* __restrict__ tokens, const int* __restrict__ region,
-                const float* __restrict__ alive, const T* __restrict__ wqkv,
-                const float* __restrict__ bqkv, const T* __restrict__ wproj,
+win_attn_kernel(const float* __restrict__ tokens, const int* __restrict__ region,
+                const float* __restrict__ alive, const float* __restrict__ wqkv,
+                const float* __restrict__ bqkv, const float* __restrict__ wproj,
                 const float* __restrict__ bproj,
-                const float* __restrict__ rel_bias, T* __restrict__ out,
+                const float* __restrict__ rel_bias, float* __restrict__ out,
                 int n, int c, int nh, float scale) {
   extern __shared__ __align__(16) float smem[];
   const long long win = blockIdx.x;
-  const T* tok = tokens + win * n * c;
-  T* o = out + win * n * c;
+  const float* tok = tokens + win * n * c;
+  float* o = out + win * n * c;
   const float gate = alive[win];
   if (gate == 0.f) {  // dead window: exact zeros, no work
     for (int i = threadIdx.x; i < n * c; i += blockDim.x)
-      o[i] = rgba::from_float<T>(0.f);
+      o[i] = 0.f;
     return;
   }
 
@@ -115,7 +139,7 @@ win_attn_kernel(const T* __restrict__ tokens, const int* __restrict__ region,
 
   for (int i = threadIdx.x; i < n * c; i += blockDim.x) {
     const int r = i / c;
-    xs[r * lda + (i - r * c)] = rgba::to_float(tok[i]);
+    xs[r * lda + (i - r * c)] = tok[i];
   }
   for (int i = threadIdx.x; i < n; i += blockDim.x) reg[i] = region[win * n + i];
   __syncthreads();
@@ -125,10 +149,10 @@ win_attn_kernel(const T* __restrict__ tokens, const int* __restrict__ region,
   for (int h = 0; h < nh; ++h) {
     // q | k | v of head h: columns part*C + h*hd + d of wqkv
     auto qkv_col = [=](int j) { return (j / hd) * c + h * hd + j % hd; };
-    gemm_cols<T>(xs, lda, n, c, wqkv, 3 * c, 3 * hd, qkv_col, bs,
-                 [=](int row, int j, float acc) {
-                   qkv[row * lq + j] = rgba::round_to<T>(acc + bqkv[qkv_col(j)]);
-                 });
+    gemm_cols(xs, lda, n, c, wqkv, 3 * c, 3 * hd, qkv_col, bs,
+              [=](int row, int j, float acc) {
+                qkv[row * lq + j] = acc + bqkv[qkv_col(j)];
+              });
     // gemm_cols ends with a barrier: qkv is complete
     const float* rb = rel_bias + static_cast<long long>(h) * n * n;
     for (int i = threadIdx.x; i < n * n; i += blockDim.x) {
@@ -156,7 +180,7 @@ win_attn_kernel(const T* __restrict__ tokens, const int* __restrict__ region,
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      for (int j = lane; j < n; j += 32) sr[j] = rgba::round_to<T>(sr[j] / sum);
+      for (int j = lane; j < n; j += 32) sr[j] /= sum;
     }
     __syncthreads();
     for (int i = threadIdx.x; i < n * hd; i += blockDim.x) {
@@ -165,15 +189,15 @@ win_attn_kernel(const T* __restrict__ tokens, const int* __restrict__ region,
       const float* v = qkv + 2 * hd + d;
       float acc = 0.f;
       for (int j = 0; j < n; ++j) acc = fmaf(p[j], v[j * lq], acc);
-      os[qi * lda + h * hd + d] = rgba::round_to<T>(acc);
+      os[qi * lda + h * hd + d] = acc;
     }
     __syncthreads();
   }
 
-  gemm_cols<T>(os, lda, n, c, wproj, c, c, [](int j) { return j; }, bs,
-               [=](int row, int j, float acc) {
-                 o[row * c + j] = rgba::from_float<T>((acc + bproj[j]) * gate);
-               });
+  gemm_cols(os, lda, n, c, wproj, c, c, [](int j) { return j; }, bs,
+            [=](int row, int j, float acc) {
+              o[row * c + j] = (acc + bproj[j]) * gate;
+            });
 }
 
 size_t smem_bytes(int n, int c, int nh) {
@@ -184,34 +208,491 @@ size_t smem_bytes(int n, int c, int nh) {
   return floats * sizeof(float) + n * sizeof(int);
 }
 
-template <typename T>
 int launch(const void* tokens, const void* region, const void* alive,
            const void* wqkv, const void* bqkv, const void* wproj,
            const void* bproj, const void* rel_bias, void* out, int nw, int n,
            int c, int nh, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes(n, c, nh);
-  cudaFuncSetAttribute(win_attn_kernel<T>,
+  cudaFuncSetAttribute(win_attn_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(smem));
   // one 4-row group per thread and weight column of a tile
   const int threads =
       std::max(64, std::min(kMaxThreads, (n / kRowTile) * kCols));
-  win_attn_kernel<T><<<nw, threads, smem, stream>>>(
-      static_cast<const T*>(tokens), static_cast<const int*>(region),
-      static_cast<const float*>(alive), static_cast<const T*>(wqkv),
-      static_cast<const float*>(bqkv), static_cast<const T*>(wproj),
+  win_attn_kernel<<<nw, threads, smem, stream>>>(
+      static_cast<const float*>(tokens), static_cast<const int*>(region),
+      static_cast<const float*>(alive), static_cast<const float*>(wqkv),
+      static_cast<const float*>(bqkv), static_cast<const float*>(wproj),
       static_cast<const float*>(bproj), static_cast<const float*>(rel_bias),
-      static_cast<T*>(out), n, c, nh, scale);
+      static_cast<float*>(out), n, c, nh, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------- bf16 path
+using bf16 = __nv_bfloat16;
+constexpr int kThreadsM = 256;   // 8 warps: 2 warpgroups of 64 token rows
+constexpr int kRowsM = 128;      // token rows per group of windows
+constexpr int kMaxKT = 8;        // key tiles of 8: N <= 64 (see the kernel)
+constexpr int kMaxHT = 4;        // head-dim tiles of 8: hdp <= 32
+
+struct Geo {
+  int nw, n, np, c, cp, nh, hd, hdp;  // np, cp, hdp: n, c, hd padded to 16
+  int wb;                             // windows per group (wb * np <= 128)
+  int ldq, ldv;                       // row strides of q, k and v^T (bf16)
+  int stages;                         // nh + projection chunks of 3 hdp
+  int cap_a, cap_d;                   // alive / dead list entries per block
+};
+
+// d (64 x N fp32 over the warpgroup; this thread's registers run over
+// n-tiles of 8 as mma m16n8k16's do) += A (64 x 16) x B (16 x N), both
+// K-major core-matrix operands in shared memory: wgmma.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_ss<48>(float (&d)[24], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23}, "
+      "%24, %25, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(da), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_ss<96>(float (&d)[48], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "%48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d = A (the warpgroup's 64 rows of a, k_len deep) x B^T (ws: N rows): one
+// wgmma per 16-deep k step, issued together, then waited for.
+template <int N>
+__device__ __forceinline__ void group_gemm(float (&d)[N / 2], const bf16* a,
+                                           const bf16* w, int k_len) {
+  const int sbo = k_len / 8 * 128;
+  const uint64_t da = rgba::kmajor_desc(a, sbo), db = rgba::kmajor_desc(w, sbo);
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) d[i] = 0.f;
+  rgba::fence_operands(d);
+  rgba::wgmma_fence();
+  for (int ks = 0; ks < k_len / 16; ++ks)
+    wgmma_ss<N>(d, da + 16 * ks, db + 16 * ks);
+  rgba::wgmma_commit_wait();
+  rgba::fence_operands(d);
+}
+
+// Copy weight stage st into ws: a head's q|k|v rows (st < nh) or a chunk
+// of the projection's output rows, both in core-matrix layout with cp
+// columns, so the stage is one contiguous block.
+template <int NS>
+__device__ __forceinline__ void issue_stage(const Geo& g, int st,
+                                            const bf16* __restrict__ wqkv,
+                                            const bf16* __restrict__ wproj,
+                                            bf16* ws) {
+  const bf16* src;
+  int rows;
+  if (st < g.nh) {
+    src = wqkv + static_cast<size_t>(st) * NS * g.cp;
+    rows = NS;
+  } else {
+    const int n0 = (st - g.nh) * NS;
+    src = wproj + static_cast<size_t>(n0) * g.cp;
+    rows = min(NS, g.c - n0);
+  }
+  for (int i = threadIdx.x; i < rows * g.cp / 8; i += kThreadsM)
+    rgba::cp_async16(ws + 8 * i, src + 8 * i, true);
+  rgba::cp_async_commit();
+}
+
+// KT: key tiles of 8 held in registers (np <= 8 KT).  Windows of 16 tokens
+// keep few registers, so two blocks share an SM where shared memory allows.
+// NS = 3 hdp: the width of a weight stage and of its wgmma.
+template <int KT, int NS>
+__global__ void __launch_bounds__(kThreadsM, KT <= 2 ? 2 : 1)
+win_attn_mma_kernel(const bf16* __restrict__ tokens,
+                    const int* __restrict__ region,
+                    const float* __restrict__ alive,
+                    const bf16* __restrict__ wqkv,
+                    const float* __restrict__ bqkv,
+                    const bf16* __restrict__ wproj,
+                    const float* __restrict__ bproj,
+                    const float* __restrict__ rel_bias, bf16* __restrict__ out,
+                    Geo g, float scale) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __shared__ int warp_count[kThreadsM / 32];
+  const int cb = g.cp / 8;                       // core matrices per 8 rows
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // kRowsM x cp tokens, then out
+  bf16* os = xs + kRowsM * g.cp;                 // kRowsM x cp head outputs
+  bf16* qs = os + kRowsM * g.cp;                 // kRowsM x ldq
+  bf16* ks = qs + kRowsM * g.ldq;                // kRowsM x ldq
+  bf16* vt = ks + kRowsM * g.ldq;                // hdp x ldv (v transposed)
+  bf16* ws = vt + g.hdp * g.ldv;                 // 2 x NS x cp
+  int* reg = reinterpret_cast<int*>(ws + 2 * NS * g.cp);  // kRowsM
+  int* alist = reg + kRowsM;                     // cap_a
+  int* dlist = alist + g.cap_a;                  // cap_d
+  float* bsm = reinterpret_cast<float*>(dlist + g.cap_d);  // bqkv | bproj
+  float* gates = bsm + 4 * g.c;                  // wb: alive of the group
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane / 4, t2 = 2 * (lane % 4);
+  const int nblk = gridDim.x;
+
+  // alive windows by rank: group r / wb belongs to block (r / wb) % nblk;
+  // dead windows by rank: block rank % nblk
+  int n_alive = 0;
+  float next = threadIdx.x < g.nw ? alive[threadIdx.x] : 0.f;
+  for (int w0 = 0; w0 < g.nw; w0 += kThreadsM) {
+    const int w = w0 + threadIdx.x;
+    const bool a = w < g.nw && next != 0.f;
+    if (w + kThreadsM < g.nw) next = alive[w + kThreadsM];  // in flight
+    const unsigned bal = __ballot_sync(0xffffffffu, a);
+    if (lane == 0) warp_count[warp] = __popc(bal);
+    __syncthreads();
+    int before = n_alive + __popc(bal & ((1u << lane) - 1u)), total = 0;
+    for (int i = 0; i < kThreadsM / 32; ++i) {
+      if (i < warp) before += warp_count[i];
+      total += warp_count[i];
+    }
+    if (w < g.nw) {
+      if (a) {
+        const int grp = before / g.wb;
+        if (grp % nblk == static_cast<int>(blockIdx.x))
+          alist[(grp / nblk) * g.wb + before % g.wb] = w;
+      } else {
+        const int rd = w - before;
+        if (rd % nblk == static_cast<int>(blockIdx.x)) dlist[rd / nblk] = w;
+      }
+    }
+    n_alive += total;
+    __syncthreads();  // warp_count is rewritten; the lists are complete
+  }
+
+  // dead windows: exact zeros
+  const int vec = g.n * g.c / 8;  // 16-byte pieces of a window
+  for (int i = 0; static_cast<int>(blockIdx.x) + i * nblk < g.nw - n_alive; ++i) {
+    uint4* o = reinterpret_cast<uint4*>(out + static_cast<size_t>(dlist[i]) *
+                                                  g.n * g.c);
+    for (int e = threadIdx.x; e < vec; e += kThreadsM) o[e] = make_uint4(0, 0, 0, 0);
+  }
+
+  const int n_groups = (n_alive + g.wb - 1) / g.wb;
+  if (static_cast<int>(blockIdx.x) >= n_groups) return;
+
+  // K padding columns of the token and head-output buffers: read against
+  // zero weights and never written, so zero them (0 * NaN is NaN)
+  const int padc = g.cp - g.c;
+  for (int i = threadIdx.x; i < 2 * kRowsM * padc; i += kThreadsM) {
+    const int r = i / padc;
+    xs[rgba::core_off(r, g.c + i % padc, cb)] = __float2bfloat16(0.f);
+  }
+
+  for (int i = threadIdx.x; i < 4 * g.c; i += kThreadsM)
+    bsm[i] = i < 3 * g.c ? bqkv[i] : bproj[i - 3 * g.c];
+  int buf = 0;
+  issue_stage<NS>(g, 0, wqkv, wproj, ws);
+  const int chunks = g.c / 8;
+  const int wg = warp / 4;                       // warpgroup: rows 64 wg ..
+  unsigned diff[2] = {0u, 0u};  // this thread's region-mask bits, per group
+  for (int gi = 0, grp = blockIdx.x; grp < n_groups; ++gi, grp += nblk) {
+    const int nwin = min(g.wb, n_alive - grp * g.wb);
+    const int* wins = alist + gi * g.wb;
+    __syncthreads();  // the previous group's output rows are stored
+    for (int i = threadIdx.x; i < kRowsM * chunks; i += kThreadsM) {
+      const int r = i / chunks, q = i - r * chunks;
+      const int wi = r / g.np, rr = r - wi * g.np;
+      const bool ok = wi < nwin && rr < g.n;
+      const bf16* src =
+          ok ? tokens + (static_cast<size_t>(wins[wi]) * g.n + rr) * g.c + 8 * q
+             : tokens;
+      rgba::cp_async16(xs + rgba::core_off(r, 8 * q, cb), src, ok);
+    }
+    rgba::cp_async_commit();
+    if (threadIdx.x < g.wb)
+      gates[threadIdx.x] = threadIdx.x < nwin ? alive[wins[threadIdx.x]] : 0.f;
+    for (int r = threadIdx.x; r < kRowsM; r += kThreadsM) {
+      const int wi = r / g.np, rr = r - wi * g.np;
+      reg[r] = (wi < nwin && rr < g.n)
+                   ? region[static_cast<size_t>(wins[wi]) * g.n + rr] : 0;
+    }
+
+    for (int st = 0; st < g.stages; ++st, buf ^= 1) {
+      rgba::cp_async_wait<0>();
+      // generic-proxy writes (cp.async, head outputs) before wgmma reads
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();  // stage st (and the tokens) landed; stage st-1 done
+      if (st + 1 < g.stages || grp + nblk < n_groups)
+        issue_stage<NS>(g, (st + 1) % g.stages, wqkv, wproj,
+                        ws + (buf ^ 1) * NS * g.cp);
+      const bf16* w = ws + buf * NS * g.cp;
+      float acc[NS / 2];   // n-tile j: acc[4 j .. 4 j + 3], as mma's
+      if (st >= g.nh) {  // output projection chunk: (O W^T + b) * gate -> xs
+        const int n0 = (st - g.nh) * NS;
+        const int nt = min(NS, g.c - n0) / 8;
+        group_gemm<NS>(acc, os + 64 * wg * g.cp, w, g.cp);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = 16 * warp + gq + 8 * r, wi = row / g.np;
+          const float gate = wi < g.wb ? gates[wi] : 0.f;
+#pragma unroll
+          for (int j = 0; j < NS / 8; ++j) {
+            if (j >= nt) continue;
+            const int o = n0 + 8 * j + t2;
+            *reinterpret_cast<uint32_t*>(xs + rgba::core_off(row, o, cb)) =
+                rgba::pack_bf16((acc[4 * j + 2 * r] + bsm[3 * g.c + o]) * gate,
+                                (acc[4 * j + 2 * r + 1] + bsm[3 * g.c + o + 1]) * gate);
+          }
+        }
+        continue;
+      }
+
+      // head h = st: this warp's rel_bias values load now and land while
+      // the q | k | v projection of every row runs
+      const int h = st;
+      const int q0 = 16 * warp, wi = q0 / g.np, kb = wi * g.np;
+      const int nkt = g.np / 8;
+      float2 rbv[KT][2];
+#pragma unroll
+      for (int j = 0; j < KT; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int qi = q0 - kb + gq + 8 * r, kc = 8 * j + t2;
+          rbv[j][r] = (j < nkt && qi < g.n && kc < g.n)
+              ? __ldg(reinterpret_cast<const float2*>(
+                    rel_bias + (static_cast<size_t>(h) * g.n + qi) * g.n + kc))
+              : make_float2(0.f, 0.f);
+        }
+      group_gemm<NS>(acc, xs + 64 * wg * g.cp, w, g.cp);
+#pragma unroll
+      for (int j = 0; j < NS / 8; ++j) {
+        const int part = 8 * j / g.hdp, d = 8 * j + t2 - part * g.hdp;
+        const float* bq = bsm + part * g.c + h * g.hd;
+        const float b0 = d < g.hd ? bq[d] : 0.f;
+        const float b1 = d + 1 < g.hd ? bq[d + 1] : 0.f;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = 16 * warp + gq + 8 * r;
+          const float v0 = acc[4 * j + 2 * r] + b0, v1 = acc[4 * j + 2 * r + 1] + b1;
+          if (part < 2) {
+            *reinterpret_cast<uint32_t*>((part ? ks : qs) + row * g.ldq + d) =
+                rgba::pack_bf16(v0, v1);
+          } else {
+            vt[d * g.ldv + row] = __float2bfloat16(v0);
+            vt[(d + 1) * g.ldv + row] = __float2bfloat16(v1);
+          }
+        }
+      }
+      __syncthreads();  // q, k, v of head h complete
+
+      if (wi >= nwin) continue;
+      if (h == 0) {  // region ids differ: bit 2j+e for key 8j+t2+e, per row
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int rq = reg[q0 + gq + 8 * r];
+          diff[r] = 0u;
+          for (int kc = t2, bit = 0; kc < g.np; kc += 8, bit += 2)
+            diff[r] |= (static_cast<unsigned>(rq != reg[kb + kc]) |
+                        static_cast<unsigned>(rq != reg[kb + kc + 1]) << 1) << bit;
+        }
+      }
+      // S = Q K^T for this warp's 16 query rows against the window's keys
+      float s[KT][4];
+#pragma unroll
+      for (int j = 0; j < KT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+      const bf16* qrow = rgba::a_row(qs + q0 * g.ldq, g.ldq);
+      const bf16* krow = rgba::b_row(ks + kb * g.ldq, g.ldq);
+      for (int kk = 0; kk < g.hdp; kk += 16) {
+        uint32_t a[4];
+        rgba::ldsm_x4(a, qrow + kk);
+#pragma unroll
+        for (int j = 0; j < KT; j += 2) {
+          if (j < nkt) {  // nkt is even: np % 16 == 0
+            uint32_t b[4];
+            rgba::ldsm_x4(b, krow + 8 * j * g.ldq + kk);
+            rgba::mma_bf16(s[j], a, b[0], b[1]);
+            rgba::mma_bf16(s[j + 1], a, b[2], b[3]);
+          }
+        }
+      }
+      // scale, bias, region mask, padded keys out; softmax over the quad
+      float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+#pragma unroll
+        for (int j = 0; j < KT; ++j) {
+          if (j >= nkt) continue;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int kc = 8 * j + t2 + e;
+            float v = -INFINITY;
+            if (kc < g.n)
+              v = s[j][2 * r + e] * scale + (e ? rbv[j][r].y : rbv[j][r].x) +
+                  ((diff[r] >> (2 * j + e)) & 1u ? -100.f : 0.f);
+            s[j][2 * r + e] = v;
+            mx[r] = fmaxf(mx[r], v);
+          }
+        }
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1)
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], off));
+#pragma unroll
+        for (int j = 0; j < KT; ++j) {
+          if (j >= nkt) continue;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float ex = expf(s[j][2 * r + e] - mx[r]);
+            s[j][2 * r + e] = ex;
+            sum[r] += ex;
+          }
+        }
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1)
+          sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], off);
+      }
+      // O = P V: P rounded to bf16 as A fragments, V^T rows as B fragments
+      const float inv[2] = {1.f / sum[0], 1.f / sum[1]};
+      float o[kMaxHT][4];
+      const int nht = g.hdp / 8;
+#pragma unroll
+      for (int j = 0; j < kMaxHT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+#pragma unroll
+      for (int ks16 = 0; ks16 < KT / 2; ++ks16) {
+        if (2 * ks16 >= nkt) continue;
+        const uint32_t a[4] = {
+            rgba::pack_bf16(s[2 * ks16][0] * inv[0], s[2 * ks16][1] * inv[0]),
+            rgba::pack_bf16(s[2 * ks16][2] * inv[1], s[2 * ks16][3] * inv[1]),
+            rgba::pack_bf16(s[2 * ks16 + 1][0] * inv[0], s[2 * ks16 + 1][1] * inv[0]),
+            rgba::pack_bf16(s[2 * ks16 + 1][2] * inv[1], s[2 * ks16 + 1][3] * inv[1])};
+        const bf16* vrow = rgba::b_row(vt + kb + 16 * ks16, g.ldv);
+#pragma unroll
+        for (int j = 0; j < kMaxHT; j += 2) {
+          if (j < nht) {  // nht is even: hdp % 16 == 0
+            uint32_t b[4];
+            rgba::ldsm_x4(b, vrow + 8 * j * g.ldv);
+            rgba::mma_bf16(o[j], a, b[0], b[1]);
+            rgba::mma_bf16(o[j + 1], a, b[2], b[3]);
+          }
+        }
+      }
+      // head outputs into the concat buffer at columns h * hd + d
+#pragma unroll
+      for (int j = 0; j < kMaxHT; ++j) {
+        if (j >= nht) continue;
+        const int d = 8 * j + t2;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = q0 + gq + 8 * r, col = h * g.hd + d;
+          if (d < g.hd)
+            os[rgba::core_off(row, col, cb)] = __float2bfloat16(o[j][2 * r]);
+          if (d + 1 < g.hd)
+            os[rgba::core_off(row, col + 1, cb)] = __float2bfloat16(o[j][2 * r + 1]);
+        }
+      }
+    }
+
+    __syncthreads();  // the group's output rows are in xs
+    for (int i = threadIdx.x; i < nwin * g.n * chunks; i += kThreadsM) {
+      const int wi = i / (g.n * chunks), rem = i - wi * g.n * chunks;
+      const int rr = rem / chunks, q = rem - rr * chunks;
+      bf16* dst = out + (static_cast<size_t>(wins[wi]) * g.n + rr) * g.c + 8 * q;
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(
+          xs + rgba::core_off(wi * g.np + rr, 8 * q, cb));
+    }
+  }
+}
+
+int launch_mma(const void* tokens, const void* region, const void* alive,
+               const void* wqkv, const void* bqkv, const void* wproj,
+               const void* bproj, const void* rel_bias, void* out, int nw,
+               int n, int c, int nh, float scale, cudaStream_t stream) {
+  auto up16 = [](int v) { return (v + 15) / 16 * 16; };
+  Geo g;
+  g.nw = nw; g.n = n; g.np = up16(n); g.c = c; g.cp = up16(c); g.nh = nh;
+  g.hd = c / nh; g.hdp = up16(g.hd);
+  g.wb = std::max(1, kRowsM / g.np);
+  g.ldq = g.hdp + 8; g.ldv = kRowsM + 8;
+  const int ns = 3 * g.hdp;
+  g.stages = nh + (c + ns - 1) / ns;
+  if (g.np > 8 * kMaxKT || (ns != 48 && ns != 96) || c % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto smem_for = [&](int blocks) {
+    g.cap_a = ((nw + g.wb - 1) / g.wb + blocks - 1) / blocks * g.wb;
+    g.cap_d = (nw + blocks - 1) / blocks;
+    return sizeof(bf16) * (2 * kRowsM * g.cp + 2 * kRowsM * g.ldq +
+                           g.hdp * g.ldv + 2 * ns * g.cp) +
+           sizeof(int) * (kRowsM + g.cap_a + g.cap_d) +
+           sizeof(float) * (4 * c + g.wb);
+  };
+  using Kernel = void (*)(const bf16*, const int*, const float*, const bf16*,
+                          const float*, const bf16*, const float*,
+                          const float*, bf16*, Geo, float);
+  static const Kernel kernels[3][2] = {
+      {win_attn_mma_kernel<2, 48>, win_attn_mma_kernel<2, 96>},
+      {win_attn_mma_kernel<4, 48>, win_attn_mma_kernel<4, 96>},
+      {win_attn_mma_kernel<kMaxKT, 48>, win_attn_mma_kernel<kMaxKT, 96>}};
+  const Kernel kernel = kernels[g.np <= 16 ? 0 : g.np <= 32 ? 1 : 2][ns == 96];
+  // the lists shrink as the grid grows: size the grid with the lists of
+  // one block per SM, then the lists for that grid
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const size_t probe = smem_for(std::max(1, sms));
+  cudaFuncSetAttribute(kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       static_cast<int>(probe));
+  const int groups = (nw + g.wb - 1) / g.wb;
+  const int grid = std::max(1, std::min(groups, rgba::persistent_grid(
+      kernel, kThreadsM, probe)));
+  const size_t smem = smem_for(grid);
+  cudaFuncSetAttribute(kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       static_cast<int>(smem));
+  kernel<<<grid, kThreadsM, smem, stream>>>(
+      static_cast<const bf16*>(tokens), static_cast<const int*>(region),
+      static_cast<const float*>(alive), static_cast<const bf16*>(wqkv),
+      static_cast<const float*>(bqkv), static_cast<const bf16*>(wproj),
+      static_cast<const float*>(bproj), static_cast<const float*>(rel_bias),
+      static_cast<bf16*>(out), g, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // tokens, out: (nw, n, c) in the activation dtype (fp32 or bf16); region:
-// (nw, n) int32; alive: (nw,) fp32; wqkv: (c, 3c) and wproj: (c, c) in the
-// activation dtype; bqkv (3c,), bproj (c,), rel_bias (nh, n, n) fp32;
-// scale = hd^-0.5 rounded to fp32 by the caller.
-// The Python wrapper checks n % 4 == 0, c % 4 == 0, c % nh == 0, nh >= 3.
+// (nw, n) int32; alive: (nw,) fp32; bqkv (3c,), bproj (c,), rel_bias (nh,
+// n, n) fp32; scale = hd^-0.5 rounded to fp32 by the caller.  The dtype
+// picks the kernel, and the weights' layout:
+// - fp32: wqkv (c, 3c) and wproj (c, c) [in][out];
+// - bf16: wqkv (nh, 3 hdp, cp) [head][q|k|v, d][in] and wproj (c, cp)
+//   [out][in], with hdp, cp = hd, c rounded up to 16 and zero padding, each
+//   (rows, cp) matrix in K-major core-matrix order (8 x 8 blocks, see
+//   core_off); tokens and out 16-byte aligned.
+// The Python wrapper checks n % 4 == 0, c % 4 == 0, c % nh == 0, nh >= 3,
+// and in bf16 also n <= 64, hd <= 32, c % 8 == 0.
 extern "C" int rgba_win_attn(const void* tokens, const void* region,
                              const void* alive, const void* wqkv,
                              const void* bqkv, const void* wproj,
@@ -220,9 +701,8 @@ extern "C" int rgba_win_attn(const void* tokens, const void* region,
                              float scale, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return launch<__nv_bfloat16>(tokens, region, alive, wqkv, bqkv, wproj,
-                                 bproj, rel_bias, out, nw, n, c, nh, scale,
-                                 s);
-  return launch<float>(tokens, region, alive, wqkv, bqkv, wproj, bproj,
-                       rel_bias, out, nw, n, c, nh, scale, s);
+    return launch_mma(tokens, region, alive, wqkv, bqkv, wproj, bproj,
+                      rel_bias, out, nw, n, c, nh, scale, s);
+  return launch(tokens, region, alive, wqkv, bqkv, wproj, bproj, rel_bias,
+                out, nw, n, c, nh, scale, s);
 }

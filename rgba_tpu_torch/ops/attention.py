@@ -26,7 +26,7 @@ from ..core.precision import Policy
 from .conv import Conv, GELU
 from .kernels.gate_chain import GateChainWeights, fused_gate_chain
 from .kernels.nhwc import hwio3x3, io1x1
-from .kernels.win_attn import fused_window_attention
+from .kernels.win_attn import fused_window_attention, kernel_weights
 from .window import (relative_position_index, swin_attention_bias,
                      swin_region_ids, window_alive, window_partition,
                      window_reverse)
@@ -57,12 +57,30 @@ class WindowAttention(nn.Module):
         idx = torch.from_numpy(relative_position_index(window_size).reshape(-1))
         self.register_buffer("relative_position_index", idx.to(device),
                              persistent=False)
+        self._kernel_cache = (None, None)   # (key, (AttnWeights, rel_bias))
 
     def rel_bias(self):
         """(nh, N, N) fp32 gather of the bias table."""
         n = self.window_size ** 2
         rb = self.relative_position_bias_table[self.relative_position_index]
         return rb.reshape(n, n, self.num_heads).permute(2, 0, 1).float()
+
+    def kernel_inputs(self, dtype):
+        """The kernel's weight layout for ``dtype`` and the contiguous
+        rel_bias, built once and kept until a parameter is written or
+        moved (its version or storage changes; inference tensors keep no
+        version, so only a move counts for them)."""
+        params = (self.qkv.weight, self.qkv.bias, self.proj.weight,
+                  self.proj.bias, self.relative_position_bias_table)
+        key = (dtype, *((p.data_ptr(), -1 if p.is_inference() else p._version)
+                        for p in params))
+        if self._kernel_cache[0] != key:
+            with torch.no_grad():
+                wts = kernel_weights(self.qkv.weight.t(), self.qkv.bias,
+                                     self.proj.weight.t(), self.proj.bias,
+                                     self.num_heads, dtype)
+                self._kernel_cache = (key, (wts, self.rel_bias().contiguous()))
+        return self._kernel_cache[1]
 
     def forward(self, x, bias=None, fused=None):
         """x: (nWB, N, C).  ``bias``: optional (nW, N, N) additive shifted-
@@ -75,11 +93,11 @@ class WindowAttention(nn.Module):
         dt = self.policy.compute_dtype
         if fused is not None:
             region, alive = fused
+            wts, rel_bias = self.kernel_inputs(dt)
             return fused_window_attention(
-                x.to(dt).contiguous(), region, alive,
-                self.qkv.weight.t().to(dt), self.qkv.bias.float(),
-                self.proj.weight.t().to(dt), self.proj.bias.float(),
-                self.rel_bias(), num_heads=nh)
+                x.to(dt).contiguous(), region, alive, self.qkv.weight.t(),
+                self.qkv.bias, self.proj.weight.t(), self.proj.bias,
+                rel_bias, num_heads=nh, prepared=wts)
 
         qkv = F.linear(x.to(dt), self.qkv.weight.to(dt), self.qkv.bias.to(dt))
         q = qkv[..., :c].reshape(nwb, n, nh, hd)

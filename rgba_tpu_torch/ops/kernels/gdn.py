@@ -19,7 +19,7 @@ KERNEL = CudaKernel("gdn.cu", "rgba_gdn", [
     ctypes.c_void_p])
 
 _DTYPES = (torch.float32, torch.bfloat16)
-MAX_CHANNELS = 192   # 12 column groups of 16 per thread in csrc/gdn.cu
+MAX_CHANNELS = 192   # csrc/gdn.cu: 12 column groups of 16 (fp32), one m64n192 wgmma (bf16)
 
 
 def gdn_plain(x, gamma_t, beta, inverse: bool = False):
@@ -39,7 +39,7 @@ def fused_gdn(x, gamma_t, beta, inverse: bool = False):
     """x: (..., C) contiguous, fp32 or bf16; gamma_t: (C, C) post-reparam,
     transposed so norm = x^2 @ gamma_t; beta: (C,) post-reparam.  Returns
     x's shape and dtype.  CPU tensors take the plain version; CUDA tensors
-    launch the kernel."""
+    launch the kernel: fp32 on the CUDA cores, bf16 on the tensor cores."""
     if x.device.type == "cpu":
         return gdn_plain(x, gamma_t, beta, inverse)
     c = x.shape[-1]
@@ -64,6 +64,8 @@ def fused_gdn(x, gamma_t, beta, inverse: bool = False):
     for t in (g, b):
         if t.device != x.device:
             raise ValueError("fused_gdn: all inputs must be on x's device")
+    if x.dtype == torch.bfloat16 and x.data_ptr() % 16:
+        x = x.clone()                    # 16-byte copies of x rows
     y = torch.empty_like(x)
     m = x.numel() // c
     if m:

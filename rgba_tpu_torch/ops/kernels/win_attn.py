@@ -11,8 +11,10 @@ are exactly zero.  Inference only.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from .build import CudaKernel
 
@@ -23,6 +25,63 @@ KERNEL = CudaKernel("win_attn.cu", "rgba_win_attn", [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 _DTYPES = (torch.float32, torch.bfloat16)
+# the bf16 kernel's register tiles: scores of at most 64 keys, head dims
+# padded to at most 32
+MMA_MAX_TOKENS = 64
+MMA_MAX_HEAD_DIM = 32
+
+
+def _up16(v: int) -> int:
+    return (v + 15) // 16 * 16
+
+
+def mma_weights(wqkv, wproj, num_heads: int):
+    """The bf16 kernel's weight layout: wqkv (C, 3C) [in][out] becomes
+    (nh, 3, hdp, Cp) [head][q|k|v][d][in] and wproj (C, C) becomes (C, Cp)
+    [out][in], hdp and Cp being hd and C rounded up to 16, zero padded."""
+    c = wqkv.shape[0]
+    nh = num_heads
+    hd, hdp, cp = c // nh, _up16(c // nh), _up16(c)
+    w = wqkv.to(torch.bfloat16).t().reshape(3, nh, hd, c).transpose(0, 1)
+    wq = F.pad(w, (0, cp - c, 0, hdp - hd)).contiguous()
+    wp = F.pad(wproj.to(torch.bfloat16).t(), (0, cp - c)).contiguous()
+    return wq, wp
+
+
+def core_matrices(w):
+    """(..., n, k) -> the same values in wgmma's K-major core-matrix order:
+    8 x 8 blocks of 8 rows of 8 k each, k-blocks of one 8-row group
+    adjacent, so element (r, k) lands at (r // 8) * 8k + (k // 8) * 64 +
+    (r % 8) * 8 + k % 8; n and k multiples of 8."""
+    *lead, n, k = w.shape
+    return w.reshape(*lead, n // 8, 8, k // 8, 8).transpose(-3, -2).contiguous()
+
+
+class AttnWeights(NamedTuple):
+    """The kernel's weights in the layout of one dtype (``kernel_weights``):
+    fp32 keeps wqkv (C, 3C) and wproj (C, C) [in][out]; bf16 holds the
+    padded ``mma_weights`` in core-matrix order.  Biases are fp32."""
+    wqkv: torch.Tensor
+    bqkv: torch.Tensor
+    wproj: torch.Tensor
+    bproj: torch.Tensor
+
+
+def kernel_weights(wqkv, bqkv, wproj, bproj, num_heads: int,
+                   dtype) -> AttnWeights:
+    """wqkv (C, 3C), bqkv (3C,), wproj (C, C), bproj (C,) -> the layout
+    the kernel reads for tokens of ``dtype``.  The caller that owns the
+    weights builds it once and passes it as ``fused_window_attention(...,
+    prepared=)``."""
+    if dtype == torch.bfloat16:
+        wq, wp = mma_weights(wqkv, wproj, num_heads)
+        wq = core_matrices(wq.reshape(num_heads, 3 * wq.shape[2], wq.shape[3]))
+        wp = core_matrices(wp)
+    else:
+        wq = wqkv.to(dtype).contiguous()
+        wp = wproj.to(dtype).contiguous()
+    return AttnWeights(wq, bqkv.float().contiguous(), wp,
+                       bproj.float().contiguous())
 
 
 def window_attention_plain(tokens, region, alive, wqkv, bqkv, wproj, bproj,
@@ -49,12 +108,16 @@ def window_attention_plain(tokens, region, alive, wqkv, bqkv, wproj, bproj,
 
 
 def fused_window_attention(tokens, region, alive, wqkv, bqkv, wproj, bproj,
-                           rel_bias, num_heads: int):
+                           rel_bias, num_heads: int,
+                           prepared: AttnWeights | None = None):
     """tokens: (nW, N, C) fp32 or bf16; region: (nW, N) int32 region ids
     (zeros when unshifted); alive: (nW, 1) gate; wqkv (C, 3C), bqkv (3C,),
     wproj (C, C), bproj (C,); rel_bias: (nh, N, N) fp32.  Returns (nW, N, C)
     in tokens' dtype.  CPU tensors take the plain version; CUDA tensors
-    launch the kernel."""
+    launch the kernel: fp32 on the CUDA cores, bf16 on the tensor cores
+    (N <= 64, C / heads <= 32, C % 8 == 0).  ``prepared``: the weights'
+    ``kernel_weights`` for tokens' dtype, which the kernel then reads
+    instead of laying the weights out again on every call."""
     if tokens.device.type == "cpu":
         return window_attention_plain(tokens, region, alive, wqkv, bqkv,
                                       wproj, bproj, rel_bias, num_heads)
@@ -91,18 +154,29 @@ def fused_window_attention(tokens, region, alive, wqkv, bqkv, wproj, bproj,
     if region.dtype != torch.int32:
         raise TypeError("fused_window_attention: region must be int32")
     hd = c // nh
+    bf16 = dt == torch.bfloat16
+    if bf16 and (n > MMA_MAX_TOKENS or hd > MMA_MAX_HEAD_DIM or c % 8):
+        raise ValueError(f"fused_window_attention: bf16 needs N <= "
+                         f"{MMA_MAX_TOKENS}, C / heads <= {MMA_MAX_HEAD_DIM}"
+                         f" and C % 8 == 0 (N={n}, C={c}, heads={nh})")
+    if bf16 and tokens.data_ptr() % 16:   # 16-byte copies of token rows
+        tokens = tokens.clone()
     reg = region.contiguous()
     gate = alive.float().contiguous()
-    wq = wqkv.to(dt).contiguous()
-    wp = wproj.to(dt).contiguous()
-    bq = bqkv.float().contiguous()
-    bp = bproj.float().contiguous()
+    if prepared is None:
+        prepared = kernel_weights(wqkv, bqkv, wproj, bproj, nh, dt)
+    elif (prepared.wqkv.dtype != dt or prepared.wqkv.device != tokens.device
+          or prepared.wqkv.numel() != (nh * 3 * _up16(hd) * _up16(c)
+                                       if bf16 else 3 * c * c)):
+        raise ValueError("fused_window_attention: prepared weights do not "
+                         "match tokens' dtype, device or width")
+    wq, bq, wp, bp = prepared
     rb = rel_bias.float().contiguous()
     out = torch.empty_like(tokens)
     if nw:
         KERNEL.launch(tokens.data_ptr(), reg.data_ptr(), gate.data_ptr(),
                       wq.data_ptr(), bq.data_ptr(), wp.data_ptr(),
                       bp.data_ptr(), rb.data_ptr(), out.data_ptr(),
-                      nw, n, c, nh, hd ** -0.5, int(dt == torch.bfloat16),
+                      nw, n, c, nh, hd ** -0.5, int(bf16),
                       torch.cuda.current_stream(tokens.device).cuda_stream)
     return out

@@ -63,7 +63,7 @@ def _attn_args(nw, n, c, nh, dtype, dev, seed=0):
             (0.1 * torch.randn(3 * c, generator=g)).to(dev),
             (torch.randn(c, c, generator=g) / c ** 0.5).to(dev, dtype),
             (0.1 * torch.randn(c, generator=g)).to(dev),
-            (0.02 * torch.randn(nh, n, n, generator=g)).to(dev)]
+            torch.randn(nh, n, n, generator=g).to(dev)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -83,6 +83,98 @@ def test_window_attention_kernel_matches_plain(card, dtype, n, c, nh):
     _assert_close(got, win_attn.window_attention_plain(*args, num_heads=nh),
                   dtype)
     assert not got[0::3].any()          # dead windows are exactly zero
+
+
+def _within(got, want, dtype):
+    try:
+        _assert_close(got, want, dtype)
+    except AssertionError:
+        return False
+    return True
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c", [(64, 192), (16, 80)])
+@pytest.mark.parametrize("wrong", ["zeroed", "transposed", "other head"])
+def test_window_attention_check_sees_a_wrong_rel_bias(card, dtype, n, c,
+                                                      wrong):
+    """rel_bias at unit scale moves the output by more than the tolerance,
+    so the checks above fail a kernel that drops, transposes or mis-indexes
+    it: here the kernel is fed such a bias and must miss the plain output."""
+    args = _attn_args(30, n, c, 8, dtype, card)
+    rb = args[-1]
+    bad = {"zeroed": torch.zeros_like(rb),
+           "transposed": rb.transpose(1, 2).contiguous(),
+           "other head": rb.roll(1, 0).contiguous()}[wrong]
+    want = win_attn.window_attention_plain(*args, num_heads=8)
+    assert _within(win_attn.fused_window_attention(*args, num_heads=8), want,
+                   dtype)
+    assert not _within(win_attn.fused_window_attention(
+        *args[:-1], bad, num_heads=8), want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_attention_prepared_weights_give_the_same_bits(card, dtype):
+    """The module's cached kernel layout gives the bits the wrapper's own
+    per-call layout gives, and a layout for the other dtype is refused."""
+    args = _attn_args(31, 64, 192, 8, dtype, card)
+    wts = win_attn.kernel_weights(*args[3:7], 8, dtype)
+    a = win_attn.fused_window_attention(*args, num_heads=8)
+    b = win_attn.fused_window_attention(*args, num_heads=8, prepared=wts)
+    assert torch.equal(a, b)
+    other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+    with pytest.raises(ValueError, match="prepared"):
+        win_attn.fused_window_attention(
+            *args, num_heads=8,
+            prepared=win_attn.kernel_weights(*args[3:7], 8, other))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("m", [1, 127, 129, 1001, "loops"])
+def test_gdn_kernel_ragged_rows(card, dtype, inverse, m):
+    """Row counts around the bf16 kernel's 64-row tiles (a lone row, a
+    ragged second tile), and one large enough that every tile stream of
+    the persistent grid takes several tiles."""
+    if m == "loops":
+        sms = torch.cuda.get_device_properties(card).multi_processor_count
+        m = 3 * 128 * sms + 77
+    x, gt, beta = _gdn_args(m, 192, dtype, card, seed=m % 7)
+    _assert_close(gdn.fused_gdn(x, gt, beta, inverse),
+                  gdn.gdn_plain(x, gt, beta, inverse), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c", [(64, 192), (16, 80)])
+@pytest.mark.parametrize("nw,pattern", [(1, "alive"), (3, "mixed"),
+                                        (31, "mixed"), (31, "alive"),
+                                        (31, "dead")])
+def test_window_attention_kernel_window_counts(card, dtype, n, c, nw,
+                                               pattern):
+    """Window counts that are not a multiple of the bf16 kernel's windows
+    per group (2 at N=64, 8 at N=16), with every window alive, every
+    window dead, or a mix."""
+    args = _attn_args(nw, n, c, 8, dtype, card, seed=nw)
+    alive = {"alive": torch.ones(nw), "dead": torch.zeros(nw),
+             "mixed": (torch.arange(nw) % 3 != 0).float()}[pattern]
+    args[2] = alive.reshape(nw, 1).to(card)
+    got = win_attn.fused_window_attention(*args, num_heads=8)
+    _assert_close(got, win_attn.window_attention_plain(*args, num_heads=8),
+                  dtype)
+    assert not got[alive == 0].any()    # dead windows are exactly zero
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_and_gdn_kernels_are_deterministic(card, dtype):
+    """The codec recomputes in separate calls: the same inputs give the
+    same bits."""
+    x, gt, beta = _gdn_args(3 * 128 * 132 + 5, 192, dtype, card)
+    args = _attn_args(301, 64, 192, 8, dtype, card)
+    a = gdn.fused_gdn(x, gt, beta)
+    b = gdn.fused_gdn(x, gt, beta)
+    c = win_attn.fused_window_attention(*args, num_heads=8)
+    d = win_attn.fused_window_attention(*args, num_heads=8)
+    assert torch.equal(a, b) and torch.equal(c, d)
 
 
 def test_launch_counts_only_kernel_launches(card):
