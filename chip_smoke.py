@@ -32,7 +32,32 @@ failure:
    one encode + decode, byte-identical re-encode, the decoded RGB against
    the fp32 RGB codec forward on the same masked input and decoded alpha,
    real bpp from the blob bytes, encode / decode / round-trip images/s
-   (kernels on, then off, twice each) and one profiled round trip.
+   (kernels on, then off, twice each) and one profiled round trip;
+5. train: the full-width codecs on synthetic 256x256 RGBA at batch 8
+   (train_lambda 1024, aux_lr 1e-3, no curriculum).  First each kernel
+   against its plain version, as in phase 2, at the shapes this path gives
+   it (GDN M=131072; attention 512 windows of N=64 and of N=16; the gate
+   chain at 64x64 and 32x32; the DSE at 256x256 with cio 3 and with cio 1
+   and LeakyReLU), in bf16 and fp32.  fp32, TF32 off: one training loss and
+   its gradients with the kernels on against off, on the same weights and
+   noise seed, for ``RGBCodec`` and ``MaskCodec`` (loss within 1e-4
+   relative; per parameter mean |dg| <= 1e-4 * mean |g| + 1e-7; at most 2
+   latents that the two routes round to different integers; every gradient
+   present and finite; the plain route's gap to its own second run, cuDNN's
+   unordered sums, is printed beside), with the launch counts of one forward + backward
+   (the forward's, none more in backward).  bf16: ``RGBTrainer`` and
+   ``MaskTrainer`` take 20 steps through ``Trainer.train`` with the
+   kernels on and with them off on the same data; every loss finite, the
+   mean of the last 5 below the mean of the first 5; the losses of steps
+   1-3 within 1% of each other for both trainers and the RGB final losses
+   within 5% (the mask codec's later steps are too rough for that: its
+   final gap is printed); launches per run; steps/s and images/s (through
+   ``Trainer.train``, and compute only) and peak memory of each run; one
+   profiled RGB step with the kernels off, for the device time the two
+   routes take.  After the last step the stepped ``WindowAttention``
+   modules must hold the kernel layout of their new weights and agree with
+   their plain path (a stale layout would train silently wrong).  Then one
+   profiled RGB step, and its forward and backward apart.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is {"ok": true, "device": {...}}.  Without CUDA, or without
@@ -53,6 +78,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -130,13 +156,13 @@ def _must_differ(torch, got, want, dtype: str, what: str) -> None:
         raise AssertionError(f"{what}: within tolerance of the right output")
 
 
-def gdn_cases(torch, batch: int, iters: int):
-    """GDN at the main path's largest site (H/2 of 512x768, C=192)."""
+def gdn_cases(torch, batch: int, iters: int, h: int = 512, w: int = 768):
+    """GDN at a path's largest site (H/2 of batch h x w images, C=192)."""
     from rgba_tpu_torch.ops.kernels import gdn as k
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(1)
     c = 192
-    m = batch * 256 * 384
+    m = batch * (h // 2) * (w // 2)
     cases = []
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
@@ -170,9 +196,10 @@ def gdn_cases(torch, batch: int, iters: int):
     return cases
 
 
-def attention_cases(torch, batch: int, iters: int):
-    """Window attention at both main-path shapes, with the shifted region
-    ids and the alive gate that the path's alpha gives."""
+def attention_cases(torch, batch: int, iters: int, h: int = 512,
+                    w: int = 768):
+    """Window attention at both shapes of a path over batch h x w images,
+    with the shifted region ids and the alive gate that its alpha gives."""
     import torch.nn.functional as F
     from rgba_tpu_torch.data.synthetic import synthetic_rgba_batch
     from rgba_tpu_torch.ops import window
@@ -182,15 +209,15 @@ def attention_cases(torch, batch: int, iters: int):
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(2)
     alpha = torch.from_numpy(
-        synthetic_rgba_batch(batch, 512, 768, seed=0)["alpha"]).to(dev)
+        synthetic_rgba_batch(batch, h, w, seed=0)["alpha"]).to(dev)
     pyr = mask_pyramid(alpha.permute(0, 3, 1, 2))
     cases = []
     # (level, window, shift, C): H/4 8x8 windows at C=192, H/8 4x4 at C=80
     for level, ws, ss, c in ((1, 8, 4, 192), (2, 4, 2, 80)):
         a = torch.roll(pyr[level].permute(0, 2, 3, 1), (-ss, -ss), (1, 2))
-        h, w = a.shape[1:3]
+        lh, lw = a.shape[1:3]
         alive = window.window_alive(window.window_partition(a, ws))[:, None]
-        region = torch.from_numpy(window.swin_region_ids(h, w, ws, ss)).to(
+        region = torch.from_numpy(window.swin_region_ids(lh, lw, ws, ss)).to(
             dev).repeat(batch, 1)
         nw, n, nh = alive.shape[0], ws * ws, 8
         n_alive = int(alive.sum())
@@ -270,9 +297,10 @@ def _cl(torch, t):
     return t.contiguous(memory_format=torch.channels_last)
 
 
-def gate_chain_cases(torch, batch: int, iters: int):
-    """The gate chain at both main-path sites (C=192 at H/4, C=80 at H/8 of
-    512x768) in both flavours: WinGate (GELU, post-act, separate g) and
+def gate_chain_cases(torch, batch: int, iters: int, height: int = 512,
+                     width: int = 768):
+    """The gate chain at both sites of a path over batch height x width
+    images (C=192 at H/4, C=80 at H/8) in both flavours: WinGate (GELU, post-act, separate g) and
     Simplified (ReLU, g = x).  The library yardstick is the module's own
     path with the kernel flag off (cuDNN convs)."""
     from rgba_tpu_torch.core.precision import Policy, precision_scope
@@ -281,7 +309,8 @@ def gate_chain_cases(torch, batch: int, iters: int):
 
     dev = torch.device("cuda")
     cases = []
-    for c, h, w in ((192, 128, 192), (80, 64, 96)):
+    for c, h, w in ((192, height // 4, width // 4),
+                    (80, height // 8, width // 8)):
         for flavour in ("wingate", "simplified"):
             for dtype in ("bfloat16", "float32"):
                 dt = getattr(torch, dtype)
@@ -340,8 +369,8 @@ def gate_chain_cases(torch, batch: int, iters: int):
     return cases
 
 
-def dse_cases(torch, batch: int, iters: int):
-    """The DSE tail at full resolution (512x768): cio=3 ReLU (RGB decoder)
+def dse_cases(torch, batch: int, iters: int, h: int = 512, w: int = 768):
+    """The DSE tail at full resolution (batch h x w images): cio=3 ReLU (RGB decoder)
     and cio=1 LeakyReLU (mask decoder).  Library yardstick: the module's
     plain path (cuDNN convs)."""
     from rgba_tpu_torch.core.precision import Policy, precision_scope
@@ -349,7 +378,6 @@ def dse_cases(torch, batch: int, iters: int):
     from rgba_tpu_torch.ops.kernels import dse as k
 
     dev = torch.device("cuda")
-    h, w = 512, 768
     cases = []
     for cio, leaky in ((3, False), (1, True)):
         for dtype in ("bfloat16", "float32"):
@@ -421,9 +449,13 @@ def profile_run(torch, fn, what: str, top: int = 15) -> dict:
     # device-side events only (kernels, copies): an aten op's device time
     # is the sum of its kernels', so counting both would count twice
     cuda = torch.autograd.DeviceType.CUDA
+    # (an optimizer's step is annotated on the device timeline as well: its
+    # span covers its kernels, which are counted themselves)
     rows = sorted(((e.key, e.count, e.self_device_time_total / 1e3)
                    for e in prof.key_averages()
-                   if e.device_type == cuda and e.self_device_time_total > 0),
+                   if e.device_type == cuda and e.self_device_time_total > 0
+                   and not getattr(e, "is_user_annotation", False)
+                   and not e.key.startswith("Optimizer.")),
                   key=lambda r: -r[2])
     busy_ms = sum(r[2] for r in rows)
     print(f"  profiled {what}: wall {wall_ms:.3f} ms, device busy "
@@ -443,6 +475,13 @@ SERVE_LAUNCHES = {"fused_window_attention": 4, "fused_gdn": 0,
                   "fused_gate_chain": 0, "fused_dse": 0}
 CODEC_LAUNCHES = {"fused_window_attention": 4, "fused_gdn": 15,
                   "fused_gate_chain": 10, "fused_dse": 3}
+# one training forward + backward (the backward launches no kernel)
+MAX_FLIPS = 2      # latents the two fp32 routes may round apart (train phase)
+RGB_STEP_LAUNCHES = {"fused_window_attention": 4, "fused_gdn": 6,
+                     "fused_gate_chain": 4, "fused_dse": 1}
+MASK_STEP_LAUNCHES = {"fused_window_attention": 0, "fused_gdn": 6,
+                      "fused_gate_chain": 4, "fused_dse": 1}
+TRAIN_BATCH, TRAIN_SIZE, TRAIN_STEPS = 8, 256, 20
 
 
 def _kernels():
@@ -668,6 +707,373 @@ def codec_phase(torch, batch: int, iters: int) -> dict:
             "profile": profile}
 
 
+class _SynthDataset:
+    """Synthetic RGBA samples by index, as the trainers' loader reads them;
+    drawn once (0.07 s a sample), so that the loader is not what a run's
+    steps/s measures."""
+
+    def __init__(self, n: int, hw: int):
+        from rgba_tpu_torch.data.synthetic import synthetic_rgba_batch
+        self.samples = [{k: v[0] for k, v in
+                         synthetic_rgba_batch(1, hw, hw, seed=i).items()}
+                        for i in range(n)]
+
+    def __len__(self):
+        return len(self.samples)
+
+    def get(self, idx, epoch_seed=0):
+        return self.samples[idx]
+
+
+class _Curve:
+    """Stands in for a TensorBoard writer: with print_freq = cal_step = 1
+    ``Trainer.train`` hands it every step's rd_loss; it also keeps the time
+    at which each arrived."""
+
+    def __init__(self):
+        self.losses, self.times = [], []
+
+    def add_scalar(self, tag, value, step):
+        if tag == "rd_loss":
+            self.losses.append(float(value))
+            self.times.append(time.perf_counter())
+
+
+def _train_gradients(torch, kind: str, want_launches: dict) -> dict:
+    """fp32: the training loss and every gradient of one codec with the
+    kernels on against off, same weights, same noise seed."""
+    from rgba_tpu_torch.core.config import TrainConfig
+    from rgba_tpu_torch.core.precision import DEFAULT_POLICY, precision_scope
+    from rgba_tpu_torch.data.synthetic import synthetic_rgba_batch
+    from rgba_tpu_torch.models.mask_codec import MaskCodec
+    from rgba_tpu_torch.models.rgb_codec import RGBCodec
+    from rgba_tpu_torch.ops.mask_pyramid import mask_pyramid
+    from rgba_tpu_torch.train.loops import _mask_loss_fn, _rgb_loss_fn
+
+    dev = torch.device("cuda")
+    cfg = TrainConfig(train_lambda=1024)
+    cls, loss_fn = ((RGBCodec, _rgb_loss_fn(cfg)) if kind == "rgb"
+                    else (MaskCodec, _mask_loss_fn(cfg)))
+    d = synthetic_rgba_batch(TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, seed=3)
+    batch = {k: torch.from_numpy(d[k]).to(dev).permute(0, 3, 1, 2)
+             for k in ("masked_image", "alpha")}
+    models = {}
+    for which, policy in (("on", _all_kernels(DEFAULT_POLICY)),
+                          ("off", DEFAULT_POLICY)):
+        models[which] = cls(policy=policy, device=dev,
+                            generator=torch.Generator().manual_seed(0))
+    _bias_noise(torch, models["on"], 7)
+    # Random init leaves every latent inside the bin of 0.  A gain of 3 on
+    # the encoder's last 1x1 conv puts a share of them in the bins of +-1
+    # (the std of y_hat is printed) and keeps them clear of the half
+    # integers, where the two routes may round apart.
+    with torch.no_grad():
+        (models["on"].Encoder.x4 if kind == "rgb"
+         else models["on"].EncoderMask[7]).weight.mul_(3.0)
+    models["off"].load_state_dict(models["on"].state_dict())
+
+    def y_hat(model):
+        noise = torch.Generator(device=dev).manual_seed(11)
+        with torch.no_grad(), precision_scope(model.policy):
+            a = batch["alpha"]
+            out = (model(batch["masked_image"], a, a, mask_pyramid(a),
+                         training=True, generator=noise) if kind == "rgb"
+                   else model(a, training=True, generator=noise))
+        return out["y_hat"]
+
+    # A latent within fp32 noise of a half integer may round the other way
+    # under the other route; it then moves a patch of x_hat and, through
+    # it, every gradient a little.  At this gain none should; at most
+    # MAX_FLIPS are let through, and the tolerances below stay as they are.
+    y_on = y_hat(models["on"])
+    dy = (y_on - y_hat(models["off"])).abs()
+    flips = int((dy > 0.5).sum())
+    print(f"  {kind}: y_hat std {float(y_on.std()):.4f}, "
+          f"{100.0 * float((y_on.abs() > 0.5).float().mean()):.1f}% outside "
+          f"the bin of 0; {flips} of {dy.numel()} latents round differently "
+          f"with the kernels on and off (at most {MAX_FLIPS})")
+    if flips > MAX_FLIPS:
+        raise AssertionError(f"{kind}: {flips} latents round differently "
+                             f"with the kernels on and off")
+
+    # "off again" repeats the plain route on the same model: cuDNN's
+    # backward sums in no fixed order, so the plain gradients differ from
+    # themselves, and that floor is printed beside each group's gap
+    res = {}
+    for which, model in (*models.items(), ("off again", models["off"])):
+        model.zero_grad(set_to_none=True)
+        noise = torch.Generator(device=dev).manual_seed(11)
+        with precision_scope(model.policy):
+            _reset_launches()
+            rd, _ = loss_fn(model, batch, noise)
+            torch.cuda.synchronize()
+            fwd = {n: k.launches for n, k in _kernels().items()}
+            rd.backward()
+            torch.cuda.synchronize()
+        if which == "on":
+            if fwd != want_launches:
+                raise AssertionError(f"{kind} training forward: expected "
+                                     f"launches {want_launches}, got {fwd}")
+            launches = _read_launches(want_launches,
+                                      f"one {kind} forward + backward")
+        res[which] = (float(rd.detach()),
+                      {n: p.grad for n, p in model.named_parameters()})
+    (l_on, g_on), (l_off, g_off) = res["on"], res["off"]
+    loss_rel = abs(l_on - l_off) / abs(l_off)
+    print(f"  {kind} fp32 training loss kernels on {l_on:.6f} off {l_off:.6f} "
+          f"(rel {loss_rel:.3g}, tol 1e-4)")
+    groups, bad = {}, []
+    for name, g in g_on.items():
+        if name.endswith("quantiles"):      # the RD loss never reaches them
+            continue
+        ref = g_off[name]
+        if g is None or ref is None or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{kind}: gradient of {name} missing or "
+                                 f"not finite")
+        diff = float((g - ref).abs().mean())
+        floor = float((res["off again"][1][name] - ref).abs().mean())
+        mean_g = float(ref.abs().mean())
+        tol = 1e-4 * mean_g + 1e-7
+        top = name.split(".")[0]
+        worst = groups.setdefault(top, [0.0, 0, "", 0.0, 0.0])
+        worst[1] += 1
+        worst[4] = max(worst[4], floor / tol)
+        if diff / tol >= worst[0]:
+            worst[0], worst[2], worst[3] = diff / tol, name, mean_g
+        if diff > tol:
+            bad.append((name, diff, tol))
+    for top, (ratio, count, name, mean_g, floor) in groups.items():
+        print(f"    {top}: {count} gradients, worst mean|dg| / tol "
+              f"{ratio:.3g} ({name}, mean|g| {mean_g:.3g}); plain against "
+              f"itself {floor:.3g}")
+    if loss_rel > 1e-4 or bad:
+        raise AssertionError(f"{kind} fp32 training with kernels disagrees "
+                             f"with plain: loss rel {loss_rel:.3g}, "
+                             f"gradients off: {bad[:5]}")
+    return {"loss_on": l_on, "loss_off": l_off, "loss_rel": loss_rel,
+            "latents_rounded_differently": flips, "launches": launches,
+            "worst_grad_ratio": max(g[0] for g in groups.values()),
+            "worst_plain_against_itself": max(g[4] for g in groups.values())}
+
+
+def _make_trainer(torch, kind: str, kernels: bool, tmp: str):
+    """A bf16 trainer at the full width, with every kernel on or none."""
+    from rgba_tpu_torch.core.config import TrainConfig
+    from rgba_tpu_torch.core.precision import BF16_POLICY
+    from rgba_tpu_torch.models.mask_codec import MaskCodec
+    from rgba_tpu_torch.models.rgb_codec import RGBCodec
+    from rgba_tpu_torch.train.loops import MaskTrainer, RGBTrainer
+
+    cfg = TrainConfig(train_lambda=1024, batch_size=TRAIN_BATCH, cal_step=1,
+                      print_freq=1, tot_step=TRAIN_STEPS, aux_lr=1e-3,
+                      curriculum_step=0, snapshot_freq=10 ** 9,
+                      save_model_freq=10 ** 9, compute_dtype="bfloat16",
+                      image_size=TRAIN_SIZE)
+    model = None
+    if kernels:     # cfg.compute_dtype alone gives the plain bf16 policy
+        model = (RGBCodec if kind == "rgb" else MaskCodec)(
+            policy=_all_kernels(BF16_POLICY), device=torch.device("cuda"),
+            generator=torch.Generator().manual_seed(cfg.seed))
+    return (RGBTrainer if kind == "rgb" else MaskTrainer)(
+        cfg, f"{tmp}/{kind}_{'on' if kernels else 'off'}", model=model)
+
+
+def _train_run(torch, trainer, dataset, name: str):
+    """TRAIN_STEPS steps of ``trainer`` through ``Trainer.train`` (loader,
+    one host sync a step for the meters), then 10 more through
+    ``Trainer.step`` on one host batch with a single sync at the end."""
+    from rgba_tpu_torch.data.loader import BatchLoader
+
+    steps = TRAIN_STEPS
+    loader = BatchLoader(dataset, batch_size=TRAIN_BATCH, shuffle=False,
+                         num_workers=4)
+    state = trainer.init_state()
+    curve = _Curve()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    trainer.train(loader, state, tb_writer=curve, max_steps=steps)
+    torch.cuda.synchronize()
+    launches = {n: k.launches for n, k in _kernels().items()}
+    peak = torch.cuda.max_memory_allocated()
+    losses = curve.losses
+    if state.step != steps or len(losses) != steps:
+        raise AssertionError(f"{name}: {state.step} steps, {len(losses)} losses")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{name}: a loss is not finite: {losses}")
+    head, tail = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    # the first two steps load libraries and set cuDNN up
+    warm = 2
+    rate = (steps - 1 - warm) / (curve.times[-1] - curve.times[warm])
+    host = _host_batch(dataset, trainer.batch_keys)
+    t = time.perf_counter()
+    for _ in range(10):
+        trainer.step(state, host)
+    torch.cuda.synchronize()
+    compute = 10 / (time.perf_counter() - t)
+    print(f"  {name}: rd {losses[0]:.3f} -> {losses[-1]:.3f} (first 5 "
+          f"{head:.3f}, last 5 {tail:.3f}); {rate:.3f} steps/s, "
+          f"{rate * TRAIN_BATCH:.2f} img/s through Trainer.train; "
+          f"{compute:.3f} steps/s, {compute * TRAIN_BATCH:.2f} img/s compute "
+          f"only; peak memory {peak / 2 ** 30:.3f} GiB (batch {TRAIN_BATCH}, "
+          f"{TRAIN_SIZE}x{TRAIN_SIZE}, bf16, {steps} steps)")
+    if not tail < head:
+        raise AssertionError(f"{name}: the loss did not descend")
+    return state, {"losses": losses, "steps_per_s": rate,
+                   "img_per_s": rate * TRAIN_BATCH,
+                   "compute_steps_per_s": compute,
+                   "compute_img_per_s": compute * TRAIN_BATCH,
+                   "peak_memory_bytes": peak, "launches": launches}
+
+
+def _host_batch(dataset, keys) -> dict:
+    """The dataset's first batch, as the loader stacks it."""
+    import numpy as np
+    return {k: np.stack([dataset.get(i)[k] for i in range(TRAIN_BATCH)])
+            for k in keys}
+
+
+def _attention_layouts(torch, model) -> list:
+    """The bf16 kernel layout of every window attention's qkv weights."""
+    from rgba_tpu_torch.ops.attention import MaskedWinBlock
+    return [m.attn.kernel_inputs(torch.bfloat16)[0].wqkv.clone()
+            for m in model.modules() if isinstance(m, MaskedWinBlock)]
+
+
+def _stale_layout_check(torch, model, before: list) -> dict:
+    """After the optimizer's in-place updates every ``WindowAttention``
+    must hand the kernel the layout of its *new* weights, and its kernel
+    route must agree with its plain path on them."""
+    import dataclasses as dc
+    from rgba_tpu_torch.ops.attention import MaskedWinBlock
+    from rgba_tpu_torch.ops.kernels.win_attn import kernel_weights
+
+    blocks = [m for m in model.modules() if isinstance(m, MaskedWinBlock)]
+    g = torch.Generator().manual_seed(9)
+    worst = 0.0
+    with torch.inference_mode():
+        for blk, old in zip(blocks, before):
+            a = blk.attn
+            cached, _ = a.kernel_inputs(torch.bfloat16)
+            fresh = kernel_weights(a.qkv.weight.t(), a.qkv.bias,
+                                   a.proj.weight.t(), a.proj.bias,
+                                   a.num_heads, torch.bfloat16)
+            if not all(torch.equal(c, f) for c, f in zip(cached, fresh)):
+                raise AssertionError("a stepped WindowAttention still holds "
+                                     "the kernel layout of its old weights")
+            if torch.equal(cached.wqkv, old):
+                raise AssertionError("the steps did not move the attention "
+                                     "weights: the check compares nothing")
+            size = 8 * blk.window_size
+            x = torch.randn(2, a.dim, size, size, generator=g).cuda()
+            alpha = (torch.rand(2, 1, size, size, generator=g) > 0.3).float().cuda()
+            on = blk(x, alpha)
+            blk.policy = a.policy = dc.replace(blk.policy, fused_win_attn=False)
+            off = blk(x, alpha)
+            blk.policy = a.policy = dc.replace(blk.policy, fused_win_attn=True)
+            ok, max_abs, _, tol = _within(torch, on, off, "bfloat16")
+            worst = max(worst, max_abs)
+            print(f"  stepped attention C={a.dim} N={blk.window_size ** 2}: "
+                  f"layout fresh, kernel vs plain max_abs {max_abs:.3g} "
+                  f"tol {tol} -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("stepped attention: kernel route "
+                                     "disagrees with the plain path")
+    return {"blocks": len(blocks), "max_abs_err": worst}
+
+
+def train_phase(torch) -> dict:
+    import tempfile
+    from rgba_tpu_torch.core.precision import precision_scope
+
+    steps = TRAIN_STEPS
+    out = {"batch": TRAIN_BATCH, "size": TRAIN_SIZE, "steps": steps,
+           "gradients": {"rgb": _train_gradients(torch, "rgb",
+                                                 RGB_STEP_LAUNCHES),
+                         "mask": _train_gradients(torch, "mask",
+                                                  MASK_STEP_LAUNCHES)}}
+    dataset = _SynthDataset(4 * TRAIN_BATCH, TRAIN_SIZE)
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # the main path: both trainers with the kernels on
+        for kind, per_step in (("rgb", RGB_STEP_LAUNCHES),
+                               ("mask", MASK_STEP_LAUNCHES)):
+            trainer = _make_trainer(torch, kind, True, tmp)
+            layouts = _attention_layouts(torch, trainer.model)
+            state, runs[f"{kind}_on"] = _train_run(
+                torch, trainer, dataset, f"{kind} trainer, kernels on")
+            want = {n: steps * c for n, c in per_step.items()}
+            if runs[f"{kind}_on"]["launches"] != want:
+                raise AssertionError(
+                    f"{kind} trainer: expected launches {want}, got "
+                    f"{runs[f'{kind}_on']['launches']}")
+            print(f"  launches in {steps} {kind} steps: {want}")
+            if kind == "rgb":
+                out["stale_layout"] = _stale_layout_check(
+                    torch, trainer.model, layouts)
+                host = _host_batch(dataset, trainer.batch_keys)
+                out["profile_step"] = profile_run(
+                    torch, lambda: trainer.step(state, host),
+                    "RGB train step (kernels on)", top=12)
+                dev_batch = trainer.device_batch(host)
+                holder = {}
+
+                def forward():
+                    trainer.model.zero_grad(set_to_none=True)
+                    with precision_scope(trainer.model.policy):
+                        holder["rd"], _ = trainer.loss_fn(
+                            trainer.model, dev_batch, trainer.noise)
+
+                out["profile_forward"] = profile_run(
+                    torch, forward, "its forward", top=8)
+                out["profile_backward"] = profile_run(
+                    torch, lambda: holder["rd"].backward(),
+                    "its backward", top=8)
+            del trainer, state
+        for kind in ("rgb", "mask"):
+            trainer = _make_trainer(torch, kind, False, tmp)
+            state, runs[f"{kind}_off"] = _train_run(
+                torch, trainer, dataset, f"{kind} trainer, kernels off")
+            if any(runs[f"{kind}_off"]["launches"].values()):
+                raise AssertionError("a kernel launched with the flags off")
+            if kind == "rgb":
+                # steps/s follow the host's pace, which moves from call to
+                # call; the device's share of a step is read here
+                host = _host_batch(dataset, trainer.batch_keys)
+                out["profile_step_off"] = profile_run(
+                    torch, lambda: trainer.step(state, host),
+                    "RGB train step (kernels off)", top=6)
+            del trainer, state
+    # Both routes start from the same weights, data and noise seed, so their
+    # first losses must agree.  The RGB codec's steps are smooth enough to
+    # hold the final losses together as well.  The mask codec's are not:
+    # from the fourth step on its loss falls tenfold with spikes, and runs
+    # that differ in rounding alone end far apart; its final gap is printed.
+    for kind in ("rgb", "mask"):
+        on, off = runs[f"{kind}_on"]["losses"], runs[f"{kind}_off"]["losses"]
+        first = max(abs(a - b) / abs(b) for a, b in zip(on[:3], off[:3]))
+        final = abs(on[-1] - off[-1]) / max(abs(off[-1]), 1e-6)
+        out[f"{kind}_first_steps_gap"], out[f"{kind}_final_gap"] = first, final
+        print(f"  {kind} losses, kernels on against off: steps 1-3 "
+              f"{[round(v, 3) for v in on[:3]]} / "
+              f"{[round(v, 3) for v in off[:3]]}, largest gap {first:.5f} "
+              f"(tol 0.01); final gap {final:.4f}"
+              + (" (tol 0.05)" if kind == "rgb" else " (reported, not held)"))
+        if first >= 0.01:
+            raise AssertionError(f"{kind}: the first losses with the kernels "
+                                 f"on and off differ by {first}")
+    if out["rgb_final_gap"] >= 0.05:
+        raise AssertionError(f"rgb: final losses differ by "
+                             f"{out['rgb_final_gap']}")
+    out["runs"] = runs
+    # each trainer's kernels-on run: counts set to 0 before, read after
+    out["launches_train"] = {
+        n: {"rgb": runs["rgb_on"]["launches"][n],
+            "mask": runs["mask_on"]["launches"][n], "steps": steps}
+        for n in KERNEL_NAMES}
+    return out
+
+
 # runs in either checkout, through that checkout's own chip_smoke.py
 AB_WORKER = """
 import json, sys, torch
@@ -754,6 +1160,16 @@ def main(argv=None) -> int:
     path = path_phase(torch, args.batch, args.iters)
     print("codec path:")
     codec = codec_phase(torch, args.batch, args.iters)
+    print(f"kernels at the train path's shapes (batch {TRAIN_BATCH}, "
+          f"{TRAIN_SIZE}x{TRAIN_SIZE}):")
+    size = (TRAIN_BATCH, args.iters, TRAIN_SIZE, TRAIN_SIZE)
+    for name, cases in (("fused_gdn", gdn_cases),
+                        ("fused_window_attention", attention_cases),
+                        ("fused_gate_chain", gate_chain_cases),
+                        ("fused_dse", dse_cases)):
+        res[name] += cases(torch, *size)
+    print("train path:")
+    train = train_phase(torch)
 
     meta = {
         "fused_window_attention": ("rgba_tpu_torch/csrc/win_attn.cu",
@@ -777,6 +1193,7 @@ def main(argv=None) -> int:
                 "replaces": replaces, "status": "ported",
                 "launches": path["launches"][name],
                 "launches_codec": codec["launches"][name],
+                "launches_train": train["launches_train"][name],
                 "max_abs_err": h["max_abs_err"], "ms": h["ms"],
                 "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
                 "bound_by": h["bound_by"], "library_ms": h["library_ms"],
@@ -787,6 +1204,7 @@ def main(argv=None) -> int:
         "pending": [],
         "path": {k: v for k, v in path.items() if k != "launches"},
         "codec": {k: v for k, v in codec.items() if k != "launches"},
+        "train": {k: v for k, v in train.items() if k != "launches_train"},
     }
     print(card)
     print(json.dumps(line))

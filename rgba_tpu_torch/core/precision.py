@@ -6,8 +6,11 @@ passes; the CUDA twin is TF32, which cuDNN convolutions use by default.
 ``precision_scope`` turns TF32 off for fp32 policies while a forward runs.
 
 Routing flags name the hand-written CUDA kernels of ``ops/kernels``:
-``fused_win_attn``, ``fused_gdn``, ``fused_gate_chain`` and ``fused_dse``,
-all inference only.  The JAX flag ``int8_conv`` has no port yet, so the
+``fused_win_attn``, ``fused_gdn``, ``fused_gate_chain`` and ``fused_dse``.
+They serve and train: under autograd a routed op runs its kernel in the
+forward and takes its gradients from the plain formulation
+(``ops/kernels/remat.py``).  Training keeps fp32 parameters and explicit
+casts (``cast_in``): no autocast, no gradient scaling.  The JAX flag ``int8_conv`` has no port yet, so the
 policy has no such field.  ``packed_dse`` is a TPU lane layout of the same
 math and computes the plain DSE here; as in the JAX package it wins over
 ``fused_dse`` when the batch divides by 4, so a policy that wants the DSE
@@ -27,7 +30,7 @@ import torch.nn.functional as F
 @dataclasses.dataclass(frozen=True)
 class Policy:
     compute_dtype: torch.dtype = torch.float32
-    # inference-only kernel routing (ops/kernels); no backward yet
+    # kernel routing (ops/kernels), in serving and in training
     fused_win_attn: bool = False
     fused_gdn: bool = False
     fused_gate_chain: bool = False
@@ -69,7 +72,7 @@ def precision_scope(policy: Policy):
 
 DEFAULT_POLICY = Policy()
 BF16_POLICY = Policy(compute_dtype=torch.bfloat16)
-# serving: bf16 + the fused window-attention kernel (inference only)
+# serving: bf16 + the fused window-attention kernel
 SERVE_POLICY = Policy(compute_dtype=torch.bfloat16, fused_win_attn=True,
                       packed_dse=True)
 

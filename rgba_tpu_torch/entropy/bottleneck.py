@@ -6,7 +6,9 @@ logits_{k+1} = softplus(M_k) @ logits_k + b_k [+ tanh(a_k) * tanh(...)];
 an integer bin's likelihood is CDF(v+0.5) - CDF(v-0.5), taken with the
 sign trick.  Parameter names follow compressai (``_matrix0``, ``quantiles``).
 ``cdf_tables`` builds the codec's per-channel CDF rows on the host, in fp32
-on the CPU.  All math is fp32.
+on the CPU.  ``quantiles`` (C, 1, 3) track the tail-mass quantiles and the
+median; ``aux_loss`` trains them, with an optimizer of their own
+(``train/state.py``).  All math is fp32.
 
 ``F.softplus`` returns x itself above its threshold of 20, where
 log1p(exp(x)) - x < 2.1e-9: below fp32 resolution of x.
@@ -21,7 +23,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-from ..ops.math import lower_bound, ste_round
+from ..ops.math import lower_bound, ste_round, uniform_noise
 from .cdf import build_cdf_rows
 
 _LIKELIHOOD_BOUND = 1e-9
@@ -29,9 +31,11 @@ _LIKELIHOOD_BOUND = 1e-9
 
 class EntropyBottleneck(nn.Module):
     def __init__(self, channels: int, filters=(3, 3, 3, 3),
-                 init_scale: float = 10.0, *, device, generator):
+                 init_scale: float = 10.0, tail_mass: float = 1e-9, *,
+                 device, generator):
         super().__init__()
         self.channels = channels
+        self.tail_mass = tail_mass
         self.filters = tuple(filters)
         fs = (1,) + self.filters + (1,)
         scale = init_scale ** (1 / (len(self.filters) + 1))
@@ -100,14 +104,27 @@ class EntropyBottleneck(nn.Module):
                 "offsets": -minima, "medians": medians,
                 "pmf_length": pmf_length}
 
-    def forward(self, z):
-        """Eval forward.  z: (B, C, H, W) -> (z_hat, likelihoods): the
-        likelihoods of round(z - median) + median, and z_hat the
-        straight-through rounding around the medians."""
+    def aux_loss(self):
+        """sum |logits_cumulative(quantiles) - target|; the gradient reaches
+        the quantiles only (the chain's parameters are detached)."""
+        chain = {k: p.detach() for k, p in self.named_parameters()}
+        logits = self._logits_cumulative(self.quantiles, chain)
+        t = math.log(2 / self.tail_mass - 1)
+        target = torch.tensor([-t, 0.0, t], device=logits.device)
+        return torch.sum(torch.abs(logits - target))
+
+    def forward(self, z, training: bool = False, generator=None):
+        """z: (B, C, H, W) -> (z_hat, likelihoods).  Eval: the likelihoods
+        of round(z - median) + median.  Training: of z + U(-0.5, 0.5) drawn
+        from ``generator`` (see ``ops.math.uniform_noise``).  z_hat is the
+        straight-through rounding around the medians either way."""
         z = z.float()
         b, c, h, w = z.shape
         med = self.medians().reshape(1, c, 1, 1)
-        perturbed = torch.round(z - med) + med
+        if training:
+            perturbed = z + uniform_noise(z.shape, generator, z.device)
+        else:
+            perturbed = torch.round(z - med) + med
         v = perturbed.permute(1, 0, 2, 3).reshape(c, 1, -1)
         lik = lower_bound(self._likelihood(v), _LIKELIHOOD_BOUND)
         lik = lik.reshape(c, b, h, w).permute(1, 0, 2, 3)

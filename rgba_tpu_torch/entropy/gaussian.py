@@ -1,7 +1,7 @@
 """Conditional Gaussian entropy model over the y-latent slices (port of
 ``rgba_tpu/entropy/gaussian.py``).
 
-Eval likelihood (fp32), and the codec's tables: the 64-entry log-spaced
+Training and eval likelihoods (fp32), and the codec's tables: the 64-entry log-spaced
 scale table (0.11 -> 256), one quantized CDF row per table scale built with
 numpy float64 on the host as the JAX package builds it, and the map from a
 scale to its row (``build_indexes``).
@@ -14,7 +14,7 @@ import math
 import numpy as np
 import torch
 
-from ..ops.math import lower_bound
+from ..ops.math import lower_bound, uniform_noise
 from .cdf import build_cdf_rows
 
 SCALES_MIN = 0.11
@@ -73,11 +73,19 @@ class GaussianConditional:
         self.tail_mass = tail_mass
         self._table_f32 = {}    # device -> fp32 table[:-1] for build_indexes
 
-    def likelihood(self, y, scales, means):
-        """Likelihood of round(y - means), the value the decoder sees."""
+    def likelihood(self, y, scales, means, training: bool = False,
+                   generator=None):
+        """Eval: the likelihood of round(y - means), the value the decoder
+        sees.  Training: of y - means + U(-0.5, 0.5) drawn from
+        ``generator`` (the additive-noise relaxation)."""
         y = y.float()
         scales = lower_bound(scales.float(), self.scale_bound)
-        v = torch.abs(torch.round(y - means.float()))
+        values = y - means.float()
+        if training:
+            values = values + uniform_noise(y.shape, generator, y.device)
+        else:
+            values = torch.round(values)
+        v = torch.abs(values)
         upper = _std_cumulative((0.5 - v) / scales)
         lower = _std_cumulative((-0.5 - v) / scales)
         return lower_bound(upper - lower, _LIKELIHOOD_BOUND)

@@ -117,20 +117,28 @@ class ChannelARPrior(nn.Module):
         return 0.5 * torch.tanh(
             self.lrp_transforms[index](_channels_last(lrp_in)))
 
-    def bottleneck_round(self, z):
-        return self.entropy_bottleneck(z)
+    def bottleneck_round(self, z, training: bool = False, generator=None):
+        return self.entropy_bottleneck(z, training=training,
+                                       generator=generator)
 
-    def entropy_forward(self, y, gate=None):
-        """Eval entropy pass over y (B, M, H, W).
+    def aux_loss(self):
+        return self.entropy_bottleneck.aux_loss()
+
+    def entropy_forward(self, y, gate=None, training: bool = False,
+                        generator=None):
+        """Training or eval entropy pass over y (B, M, H, W).
 
         Returns dict(y_hat, y_likelihoods, z_likelihoods, means, scales).
         gate: optional (B, 1, H, W) {0, 1} alpha-rate gate; where it is 0
-        the symbol is pinned to 0 (y_hat = mu + lrp) at likelihood 1.
+        the symbol is pinned to 0 (y_hat = mu + lrp) at likelihood 1.  A
+        serving and eval knob: None in training.
+        training: the likelihoods are those of the noise-relaxed latents;
+        ``generator`` supplies all the noise, z first, then slice by slice.
         """
         y = y.float()
         b, m, h, w = y.shape
         z = self.hyper_encode(y)
-        z_hat, z_lik = self.bottleneck_round(z.float())
+        z_hat, z_lik = self.bottleneck_round(z.float(), training, generator)
         latent_means, latent_scales = self.hyper_decode(z_hat)
         latent_means, latent_scales = latent_means.float(), latent_scales.float()
 
@@ -141,7 +149,8 @@ class ChannelARPrior(nn.Module):
             support = y_hat_slices[:self.max_support_slices]
             mu, scale = self.slice_stats(latent_means, latent_scales, support,
                                          i, (h, w))
-            lik = self.gaussian.likelihood(y_slice, scale, mu)
+            lik = self.gaussian.likelihood(y_slice, scale, mu, training,
+                                           generator)
             if gate is not None:
                 lik = torch.where(gate > 0, lik, torch.ones_like(lik))
                 y_hat = ste_round((y_slice - mu) * gate) + mu
@@ -160,5 +169,5 @@ class ChannelARPrior(nn.Module):
             "scales": torch.cat(scales, dim=1),
         }
 
-    def forward(self, y, gate=None):
-        return self.entropy_forward(y, gate)
+    def forward(self, y, gate=None, training: bool = False, generator=None):
+        return self.entropy_forward(y, gate, training, generator)

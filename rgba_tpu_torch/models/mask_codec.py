@@ -47,12 +47,13 @@ class MaskCodec(ChannelARPrior):
             ConvTranspose(n, 1, 5, 2, **kw),
             DSE(in_ch=1, leaky=True, **kw))
 
-    def forward(self, mask):
+    def forward(self, mask, training: bool = False, generator=None):
         """mask: (B, 1, H, W) in [0, 1] -> dict(x_hat, mse_loss, bpp,
-        bpp_y, bpp_z, y_hat)."""
+        bpp_y, bpp_z, y_hat).  training: noise-relaxed likelihoods, the
+        noise drawn from ``generator`` (``ChannelARPrior.entropy_forward``)."""
         b, _, h, w = mask.shape
         y = self.encode_latent(mask)
-        ent = self.entropy_forward(y)
+        ent = self.entropy_forward(y, training=training, generator=generator)
         x_hat = self.decode_latent(ent["y_hat"])
         bpp_y = bpp_of(ent["y_likelihoods"], b, h, w)
         bpp_z = bpp_of(ent["z_likelihoods"], b, h, w)

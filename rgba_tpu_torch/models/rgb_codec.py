@@ -92,17 +92,21 @@ class RGBCodec(ChannelARPrior):
         self.Encoder = AnalysisTransform(**kw)
         self.Decoder = SynthesisTransform(**kw)
 
-    def forward(self, x, mask, reconmask, me_pyr):
+    def forward(self, x, mask, reconmask, me_pyr, training: bool = False,
+                generator=None):
         """x: (B, 3, H, W) pre-masked RGB; mask: GT alpha (B, 1, H, W);
         reconmask: decoded alpha that gates the decoder; me_pyr: pyramid of
         the GT alpha.  Returns dict(x_hat, mse_loss, bpp, bpp_y, bpp_z,
-        y_hat)."""
+        y_hat).  training: noise-relaxed likelihoods, the noise drawn from
+        ``generator``; the rate gate is off in training."""
         b, _, h, w = x.shape
         reconmask = torch.round(reconmask * 255.0) / 255.0
         md_pyr = mask_pyramid(reconmask)
         y = self.encode_latent(x, me_pyr[1], me_pyr[2])
-        gate = (md_pyr[2] > 0).float() if self.rate_gate else None
-        ent = self.entropy_forward(y, gate=gate)
+        gate = ((md_pyr[2] > 0).float()
+                if self.rate_gate and not training else None)
+        ent = self.entropy_forward(y, gate=gate, training=training,
+                                   generator=generator)
         x_hat = self.decode_latent(ent["y_hat"], md_pyr[1], md_pyr[2])
         bpp_y = bpp_of(ent["y_likelihoods"], b, h, w)
         bpp_z = bpp_of(ent["z_likelihoods"], b, h, w)

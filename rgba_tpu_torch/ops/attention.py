@@ -9,7 +9,10 @@ otherwise the additive-bias formulation below runs in PyTorch.  With
 ``policy.fused_gate_chain`` the whole gate, x + trunk(x) * sigmoid(1x1(
 chain(g))), of ``WinGateAttention`` and ``SimplifiedAttention`` runs in the
 CUDA kernel ``ops/kernels/gate_chain.py``, with the parameters of the same
-modules (the state-dict keys do not change).
+modules (the state-dict keys do not change).  Under autograd each kernel
+site runs its kernel in the forward and takes its gradients from the
+module's own plain path, a pure function of the weights
+(``ops/kernels/remat.py``), as the JAX modules do.
 
 Module and parameter names follow the reference's state-dict keys
 (``attn.attn.qkv``, ``conv_a.0.conv.0``, ``trunk_ResBlock1.conv1`` ...).
@@ -23,9 +26,11 @@ import torch.nn.functional as F
 
 from ..core import init
 from ..core.precision import Policy
-from .conv import Conv, GELU
-from .kernels.gate_chain import GateChainWeights, fused_gate_chain
+from .conv import Conv, GELU, conv2d
+from .kernels.gate_chain import (GateChainWeights, activation,
+                                 fused_gate_chain)
 from .kernels.nhwc import hwio3x3, io1x1
+from .kernels.remat import fused_primal_plain_grad
 from .kernels.win_attn import fused_window_attention, kernel_weights
 from .window import (relative_position_index, swin_attention_bias,
                      swin_region_ids, window_alive, window_partition,
@@ -82,31 +87,22 @@ class WindowAttention(nn.Module):
                 self._kernel_cache = (key, (wts, self.rel_bias().contiguous()))
         return self._kernel_cache[1]
 
-    def forward(self, x, bias=None, fused=None):
-        """x: (nWB, N, C).  ``bias``: optional (nW, N, N) additive shifted-
-        window mask, tiled over the batch.  ``fused=(region, alive)`` routes
-        through the kernel: region (nWB, N) int32, alive (nWB, 1)."""
+    def _dense(self, x, wqkv, bqkv, wproj, bproj, rel_bias, bias=None):
+        """The plain formulation on explicit weights in torch layout
+        ([out][in]); x: (nWB, N, C) in the compute dtype."""
         nwb, n, c = x.shape
         nh = self.num_heads
         hd = c // nh
         scale = hd ** -0.5
         dt = self.policy.compute_dtype
-        if fused is not None:
-            region, alive = fused
-            wts, rel_bias = self.kernel_inputs(dt)
-            return fused_window_attention(
-                x.to(dt).contiguous(), region, alive, self.qkv.weight.t(),
-                self.qkv.bias, self.proj.weight.t(), self.proj.bias,
-                rel_bias, num_heads=nh, prepared=wts)
-
-        qkv = F.linear(x.to(dt), self.qkv.weight.to(dt), self.qkv.bias.to(dt))
+        qkv = F.linear(x, wqkv.to(dt), bqkv.to(dt))
         q = qkv[..., :c].reshape(nwb, n, nh, hd)
         k = qkv[..., c:2 * c].reshape(nwb, n, nh, hd)
         v = qkv[..., 2 * c:].reshape(nwb, n, nh, hd)
         # fp32 accumulates scores in fp32; bf16 keeps them bf16 (the softmax
         # itself still reduces in fp32)
         attn = torch.einsum("wnhd,wmhd->whnm", q * scale, k)
-        attn = attn + self.rel_bias()[None].to(attn.dtype)
+        attn = attn + rel_bias[None].to(attn.dtype)
         if bias is not None:
             nw = bias.shape[0]
             attn = attn.reshape(nwb // nw, nw, nh, n, n) + \
@@ -114,8 +110,36 @@ class WindowAttention(nn.Module):
             attn = attn.reshape(nwb, nh, n, n)
         attn = torch.softmax(attn.float(), dim=-1).to(dt)
         out = torch.einsum("whnm,wmhd->wnhd", attn, v).to(dt)
-        return F.linear(out.reshape(nwb, n, c), self.proj.weight.to(dt),
-                        self.proj.bias.to(dt))
+        return F.linear(out.reshape(nwb, n, c), wproj.to(dt), bproj.to(dt))
+
+    def forward(self, x, bias=None, fused=None):
+        """x: (nWB, N, C).  ``bias``: optional (nW, N, N) additive shifted-
+        window mask, tiled over the batch.  ``fused=(region, alive)`` routes
+        through the kernel: region (nWB, N) int32, alive (nWB, 1)."""
+        dt = self.policy.compute_dtype
+        if fused is None:
+            return self._dense(x.to(dt), self.qkv.weight, self.qkv.bias,
+                               self.proj.weight, self.proj.bias,
+                               self.rel_bias(), bias)
+        region, alive = fused
+        wts, rel_bias = self.kernel_inputs(dt)
+        if torch.is_grad_enabled():
+            rel_bias = self.rel_bias()        # differentiable to the table
+
+        def plain(t, wq, bq, wp, bp, rb):
+            """The dense path above with the kernel's mask and gate: -100
+            wherever two tokens' region ids differ, times alive."""
+            mask = torch.where(region[:, :, None] == region[:, None, :],
+                               0.0, -100.0)
+            out = self._dense(t, wq.t(), bq, wp.t(), bp, rb, mask)
+            return out * alive[:, :, None].to(dt)
+
+        return fused_primal_plain_grad(
+            lambda t, *w: fused_window_attention(
+                t, region, alive, *w, num_heads=self.num_heads, prepared=wts),
+            plain,
+            (x.to(dt).contiguous(), self.qkv.weight.t(), self.qkv.bias,
+             self.proj.weight.t(), self.proj.bias, rel_bias))
 
 
 class MaskedWinBlock(nn.Module):
@@ -186,6 +210,80 @@ def _bottleneck(dim: int, policy, device, generator):
                          Conv(dim // 2, dim, 1, 1, **kw))
 
 
+def bottleneck_block(x, p, policy: Policy, act: str, post_act: bool):
+    """x + 1x1(act(3x3(act(1x1(x))))), then act if ``post_act``, as a pure
+    function of the three convs' (weight, bias) pairs p in torch layout."""
+    y = activation(conv2d(x, p[0], p[1], policy), act)
+    y = activation(conv2d(y, p[2], p[3], policy, padding=1), act)
+    y = x + conv2d(y, p[4], p[5], policy)
+    return activation(y, act) if post_act else y
+
+
+def gate_plain(x, g, p, policy: Policy, act: str, post_act: bool):
+    """The plain gate x + trunk(x) * sigmoid(1x1(chain(g))) (g = x when
+    None) as a pure function of the gate's 38 conv parameters: three trunk
+    blocks, three gate blocks (six tensors each) and the final 1x1."""
+    t, a = x, x if g is None else g
+    for i in range(0, 18, 6):
+        t = bottleneck_block(t, p[i:i + 6], policy, act, post_act)
+        a = bottleneck_block(a, p[18 + i:24 + i], policy, act, post_act)
+    return x + t * torch.sigmoid(conv2d(a, p[36], p[37], policy))
+
+
+def gate_kernel_weights(p):
+    """The same 38 parameters as the gate-chain kernel takes them: (trunk,
+    gate, final (C, C) [in, out], final bias), each chain's blocks stacked
+    into (in, out) weights and fp32 biases."""
+    def chain(q):
+        blocks = [q[i:i + 6] for i in range(0, 18, 6)]
+        return GateChainWeights(
+            torch.stack([io1x1(b[0]) for b in blocks]),
+            torch.stack([b[1] for b in blocks]).float(),
+            torch.stack([hwio3x3(b[2]) for b in blocks]),
+            torch.stack([b[3] for b in blocks]).float(),
+            torch.stack([io1x1(b[4]) for b in blocks]),
+            torch.stack([b[5] for b in blocks]).float())
+    return chain(p[:18]), chain(p[18:36]), io1x1(p[36]), p[37]
+
+
+class _Gate(nn.Module):
+    """What the two gate modules share: the plain gate and the kernel route
+    over ``gate_parameters()``, with the module's ``act`` and ``post_act``."""
+
+    def gate_chain_weights(self):
+        return gate_kernel_weights(self.gate_parameters())
+
+    def gate(self, x, g=None):
+        """The plain gate around g (the attention output, or x itself)."""
+        return gate_plain(x, g, self.gate_parameters(), self.policy,
+                          self.act, self.post_act)
+
+    def gate_kernel(self, x, g=None):
+        """The gate through the kernel, on NHWC views of NCHW
+        (channels_last) tensors.  The differentiable inputs are x, g and the
+        gate's parameters; their gradients come from ``gate_plain``."""
+        dt = self.policy.compute_dtype
+        act, post_act = self.act, self.post_act
+
+        def rows(t):
+            return (None if t is None
+                    else t.to(dt).permute(0, 2, 3, 1).contiguous())
+
+        def nchw(t):
+            return None if t is None else t.permute(0, 3, 1, 2)
+
+        def fused(xr, gr, *ps):
+            return fused_gate_chain(xr, gr, *gate_kernel_weights(ps), act,
+                                    post_act)
+
+        def plain(xr, gr, *ps):
+            return rows(gate_plain(nchw(xr), nchw(gr), ps, self.policy, act,
+                                   post_act))
+
+        return nchw(fused_primal_plain_grad(
+            fused, plain, (rows(x), rows(g), *self.gate_parameters())))
+
+
 class ResidualUnit(nn.Module):
     """gelu(x + conv1x1(gelu(conv3x3(gelu(conv1x1(x))))))."""
 
@@ -195,37 +293,13 @@ class ResidualUnit(nn.Module):
         self.conv = _bottleneck(dim, policy, device, generator)
 
     def forward(self, x):
-        return self.policy.gelu(x + self.conv(x))
+        return bottleneck_block(x, list(self.parameters()), self.policy,
+                                self.policy.gelu_kind, True)
 
 
-def _stack_chain(blocks) -> GateChainWeights:
-    """Three (1x1 C->C/2, 3x3, 1x1 C/2->C) conv triples -> the kernel's
-    stacked (in, out) weights and fp32 biases."""
-    return GateChainWeights(
-        torch.stack([io1x1(b[0].weight) for b in blocks]),
-        torch.stack([b[0].bias for b in blocks]).float(),
-        torch.stack([hwio3x3(b[1].weight) for b in blocks]),
-        torch.stack([b[1].bias for b in blocks]).float(),
-        torch.stack([io1x1(b[2].weight) for b in blocks]),
-        torch.stack([b[2].bias for b in blocks]).float())
-
-
-def _gate_kernel(policy: Policy, x, g, weights, act: str, post_act: bool):
-    """x + chain(trunk)(x) * sigmoid(final(chain(gate)(g))) through the
-    kernel, on NHWC views of NCHW (channels_last) tensors; weights as
-    ``gate_chain_weights`` returns them."""
-    dt = policy.compute_dtype
-
-    def rows(t):
-        return t.to(dt).permute(0, 2, 3, 1).contiguous()
-
-    out = fused_gate_chain(rows(x), None if g is None else rows(g), *weights,
-                           act, post_act)
-    return out.permute(0, 3, 1, 2)
-
-
-class WinGateAttention(nn.Module):
+class WinGateAttention(_Gate):
     """out = x + conv_a(x) * sigmoid(conv_b(masked_win_attn(x, alpha)))."""
+    post_act = True
 
     def __init__(self, dim: int, num_heads: int = 8, window_size: int = 8,
                  shift_size: int = 0, *, policy: Policy, device, generator):
@@ -240,22 +314,19 @@ class WinGateAttention(nn.Module):
         self.conv_a = nn.Sequential(*conv_a)
         self.conv_b = nn.Sequential(*conv_b)
 
-    def gate_chain_weights(self):
-        """(trunk, gate, final (C, C) [in, out], final bias): conv_a and
-        conv_b as the gate-chain kernel takes them."""
-        def chain(units):
-            return _stack_chain([(u.conv[0], u.conv[2], u.conv[4])
-                                 for u in units])
-        final = self.conv_b[3]
-        return (chain(self.conv_a), chain(self.conv_b[:3]),
-                io1x1(final.weight), final.bias)
+    @property
+    def act(self) -> str:
+        return self.policy.gelu_kind
+
+    def gate_parameters(self):
+        """The parameters of conv_a, then conv_b (not the attention's)."""
+        return [*self.conv_a.parameters(), *self.conv_b.parameters()]
 
     def forward(self, x, alpha=None):
         b = self.attn(x, alpha)
         if self.policy.fused_gate_chain:
-            return _gate_kernel(self.policy, x, b, self.gate_chain_weights(),
-                                self.policy.gelu_kind, True)
-        return x + self.conv_a(x) * torch.sigmoid(self.conv_b(b))
+            return self.gate_kernel(x, b)
+        return self.gate(x, b)
 
 
 class ResBlock(nn.Module):
@@ -264,18 +335,19 @@ class ResBlock(nn.Module):
     def __init__(self, dim: int, *, policy: Policy, device, generator):
         super().__init__()
         kw = dict(policy=policy, device=device, generator=generator)
+        self.policy = policy
         self.conv1 = Conv(dim, dim // 2, 1, 1, **kw)
         self.conv2 = Conv(dim // 2, dim // 2, 3, 1, **kw)
         self.conv3 = Conv(dim // 2, dim, 1, 1, **kw)
 
     def forward(self, x):
-        y = F.relu(self.conv1(x))
-        y = F.relu(self.conv2(y))
-        return x + self.conv3(y)
+        return bottleneck_block(x, list(self.parameters()), self.policy,
+                                "relu", False)
 
 
-class SimplifiedAttention(nn.Module):
+class SimplifiedAttention(_Gate):
     """The mask codec's convolutional gate: x + sigmoid(attn(x)) * trunk(x)."""
+    act, post_act = "relu", False
 
     def __init__(self, dim: int, *, policy: Policy, device, generator):
         super().__init__()
@@ -289,20 +361,11 @@ class SimplifiedAttention(nn.Module):
         self.attention_ResBlock3 = ResBlock(dim, **kw)
         self.conv1 = Conv(dim, dim, 1, 1, **kw)
 
-    def gate_chain_weights(self):
-        """(trunk, gate, final (C, C) [in, out], final bias): the trunk and
-        attention ResBlocks as the gate-chain kernel takes them."""
-        def chain(prefix):
-            return _stack_chain([(rb.conv1, rb.conv2, rb.conv3) for rb in (
-                getattr(self, f"{prefix}_ResBlock{i}") for i in (1, 2, 3))])
-        return (chain("trunk"), chain("attention"), io1x1(self.conv1.weight),
-                self.conv1.bias)
+    def gate_parameters(self):
+        """Trunk blocks, attention blocks, conv1: the registration order."""
+        return list(self.parameters())
 
     def forward(self, x):
         if self.policy.fused_gate_chain:
-            return _gate_kernel(self.policy, x, None,
-                                self.gate_chain_weights(), "relu", False)
-        t = self.trunk_ResBlock3(self.trunk_ResBlock2(self.trunk_ResBlock1(x)))
-        a = self.attention_ResBlock3(self.attention_ResBlock2(
-            self.attention_ResBlock1(x)))
-        return x + torch.sigmoid(self.conv1(a)) * t
+            return self.gate_kernel(x)
+        return self.gate(x)

@@ -19,6 +19,14 @@ from ..core import init
 from ..core.precision import Policy
 
 
+def conv2d(x, weight, bias, policy: Policy, stride: int = 1, padding: int = 0):
+    """``Conv`` on explicit fp32 parameters in torch layout, cast to the
+    policy's compute dtype: what the pure plain paths of the kernel sites
+    are written in."""
+    dt = policy.compute_dtype
+    return F.conv2d(x.to(dt), weight.to(dt), bias.to(dt), stride, padding)
+
+
 class Conv(nn.Module):
     """Conv2d(cin -> cout, k, stride, padding k//2 by default); zero bias."""
 
@@ -35,9 +43,8 @@ class Conv(nn.Module):
         self.bias = init.zeros((cout,), device)
 
     def forward(self, x):
-        dt = self.policy.compute_dtype
-        return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
-                        self.stride, self.padding)
+        return conv2d(x, self.weight, self.bias, self.policy, self.stride,
+                      self.padding)
 
 
 class ConvTranspose(nn.Module):

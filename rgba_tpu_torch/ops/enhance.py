@@ -5,7 +5,9 @@
 in the mask decoder.  With ``policy.fused_dse`` the whole tail runs in the
 CUDA kernel ``ops/kernels/dse.py``.  ``packed_dse`` (a TPU lane layout of
 the same math) computes the plain chain, and as in the JAX package it wins
-over ``fused_dse`` when the batch divides by 4.
+over ``fused_dse`` when the batch divides by 4.  Under autograd the kernel
+runs in the forward and the gradients come from the plain chain,
+a pure function of the parameters (``ops/kernels/remat.py``).
 """
 
 from __future__ import annotations
@@ -15,9 +17,10 @@ from torch import nn
 import torch.nn.functional as F
 
 from ..core.precision import Policy
-from .conv import Conv
+from .conv import Conv, conv2d
 from .kernels.dse import fused_dse
 from .kernels.nhwc import hwio3x3, io1x1
+from .kernels.remat import fused_primal_plain_grad
 
 PACK_GROUPS = 4
 
@@ -45,27 +48,53 @@ class DSE(nn.Module):
 
     def kernel_weights(self):
         """(w_in, b_in, w3, b3, w_out, b_out) as the DSE kernel takes them."""
-        convs = [c for enh in (self.enh1, self.enh2, self.enh3)
-                 for c in (enh.conv1, enh.conv2)]
-        return (io1x1(self.input_conv.weight), self.input_conv.bias,
-                torch.stack([hwio3x3(c.weight) for c in convs]),
-                torch.stack([c.bias for c in convs]),
-                io1x1(self.output_conv.weight), self.output_conv.bias)
-
-    def _kernel(self, x):
-        rows = x.to(self.policy.compute_dtype).permute(0, 2, 3, 1).contiguous()
-        out = fused_dse(rows, *self.kernel_weights(), leaky=self.leaky)
-        return out.permute(0, 3, 1, 2)
+        return dse_kernel_weights(list(self.parameters()))
 
     def forward(self, x):
         p = self.policy
         if p.fused_dse and not (p.packed_dse and x.shape[0] % PACK_GROUPS == 0):
             return self._kernel(x)
-        first = self.input_conv(x)
-        y = first
-        for enh in (self.enh1, self.enh2, self.enh3):
-            z = enh.conv1(y)
-            z = F.leaky_relu(z, 0.01) if self.leaky else F.relu(z)
-            y = y + enh.conv2(z)
-        y = y + first
-        return self.output_conv(y) + x
+        return self.chain(x)
+
+    def chain(self, x):
+        """The plain conv chain."""
+        return dse_chain(x, list(self.parameters()), self.policy, self.leaky)
+
+    def _kernel(self, x):
+        """The kernel on the NHWC view of x.  The differentiable inputs are
+        x and the module's parameters; their gradients come from
+        ``dse_chain``."""
+        dt = self.policy.compute_dtype
+
+        def fused(r, *ps):
+            return fused_dse(r, *dse_kernel_weights(ps), leaky=self.leaky)
+
+        def plain(r, *ps):
+            out = dse_chain(r.permute(0, 3, 1, 2), ps, self.policy, self.leaky)
+            return out.to(dt).permute(0, 2, 3, 1)
+
+        rows = x.to(dt).permute(0, 2, 3, 1).contiguous()
+        out = fused_primal_plain_grad(fused, plain, (rows, *self.parameters()))
+        return out.permute(0, 3, 1, 2)
+
+
+def dse_chain(x, p, policy: Policy, leaky: bool):
+    """The plain conv chain as a pure function of the module's 16 parameters
+    in registration order: (weight, bias) of input_conv, enh1.conv1,
+    enh1.conv2, ..., enh3.conv2, output_conv."""
+    first = conv2d(x, p[0], p[1], policy)
+    y = first
+    for i in range(2, 14, 4):
+        z = conv2d(y, p[i], p[i + 1], policy, padding=1)
+        z = F.leaky_relu(z, 0.01) if leaky else F.relu(z)
+        y = y + conv2d(z, p[i + 2], p[i + 3], policy, padding=1)
+    y = y + first
+    return conv2d(y, p[14], p[15], policy) + x
+
+
+def dse_kernel_weights(p):
+    """The same 16 parameters as the DSE kernel takes them."""
+    return (io1x1(p[0]), p[1],
+            torch.stack([hwio3x3(w) for w in p[2:14:2]]),
+            torch.stack(list(p[3:14:2])),
+            io1x1(p[14]), p[15])

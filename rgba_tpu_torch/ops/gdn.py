@@ -5,7 +5,8 @@ y_i = x_i / sqrt(beta_i + sum_j gamma_ij x_j^2)   (the inverse multiplies)
 beta and gamma are stored through a sqrt reparameterization with pedestal
 2^-36 and lower-bounded with the gradient-gated ``lower_bound``; that stays
 in PyTorch.  With ``policy.fused_gdn`` the normalization runs in the CUDA
-kernel ``ops/kernels/gdn.py`` on NHWC rows.
+kernel ``ops/kernels/gdn.py`` on NHWC rows; under autograd its gradients
+come from the plain path below (``ops/kernels/remat.py``).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch.nn.functional as F
 
 from ..core.precision import Policy
 from .kernels.gdn import fused_gdn
+from .kernels.remat import fused_primal_plain_grad
 from .math import lower_bound
 
 _REPARAM_OFFSET = 2.0 ** -18
@@ -46,12 +48,21 @@ class GDN(nn.Module):
         """x: (B, C, H, W); gamma[i, j] weights input channel j into output
         channel i, as torch's 1x1 conv of x^2 does."""
         beta, gamma = self.reparam()
-        dt = self.policy.compute_dtype
-        x = x.to(dt)
+        x = x.to(self.policy.compute_dtype)
         if self.policy.fused_gdn:
             rows = x.permute(0, 2, 3, 1).contiguous()     # free if channels_last
-            y = fused_gdn(rows, gamma.t(), beta, inverse=self.inverse)
+            y = fused_primal_plain_grad(
+                lambda r, gt, bt: fused_gdn(r, gt, bt, inverse=self.inverse),
+                lambda r, gt, bt: self.normalize(
+                    r.permute(0, 3, 1, 2), gt.t(), bt).permute(0, 2, 3, 1),
+                (rows, gamma.t(), beta))
             return y.permute(0, 3, 1, 2)
+        return self.normalize(x, gamma, beta)
+
+    def normalize(self, x, gamma, beta):
+        """The plain path: x (B, C, H, W) in the compute dtype, gamma and
+        beta after ``reparam``."""
+        dt = self.policy.compute_dtype
         norm = F.conv2d(x * x, gamma.to(dt)[:, :, None, None]).float() + \
             beta.float()[None, :, None, None]
         # fp32: exact sqrt/div; bf16: the elementwise tail in bf16

@@ -5,7 +5,8 @@ Port of ``rgba_tpu/ops/pallas/dse.py::fused_dse``: first = 1x1 cio->32,
 three blocks y += 3x3(act(3x3(y))), y += first, out = 1x1 32->cio (y) + x;
 ReLU (RGB) or LeakyReLU 0.01 (mask).  The TPU kernel's 4-image lane
 packing is TPU layout and not part of the function.  The kernel takes any
-H and W.  Inference only.
+H and W.  Under autograd the kernel runs in the forward and the gradients
+come from the plain version (``remat.py``).
 
 Weights: w_in (cio, 32), b_in (32,), w3 (6, 288, 32) with rows (dy, dx,
 ci) in the order enh1.conv1, enh1.conv2, ..., enh3.conv2, b3 (6, 32),
@@ -21,6 +22,7 @@ import torch.nn.functional as F
 
 from .build import CudaKernel
 from .nhwc import conv1x1, conv3x3
+from .remat import fused_primal_plain_grad, needs_grad
 
 KERNEL = CudaKernel("dse.cu", "rgba_dse", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -55,7 +57,12 @@ def dse_plain(x, w_in, b_in, w3, b3, w_out, b_out, leaky: bool):
 def fused_dse(x, w_in, b_in, w3, b3, w_out, b_out, leaky: bool):
     """x: (B, H, W, cio) NHWC, fp32 or bf16, cio <= 4.  Returns x's shape
     and dtype.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel."""
+    kernel.  Tensors that need a gradient get it from ``dse_plain``."""
+    diff = (x, w_in, b_in, w3, b3, w_out, b_out)
+    if needs_grad(diff):
+        return fused_primal_plain_grad(
+            lambda *a: fused_dse(*a, leaky=leaky),
+            lambda *a: dse_plain(*a, leaky=leaky), diff)
     if x.device.type == "cpu":
         return dse_plain(x, w_in, b_in, w3, b3, w_out, b_out, leaky)
     if x.device.type != "cuda":
@@ -78,10 +85,6 @@ def fused_dse(x, w_in, b_in, w3, b3, w_out, b_out, leaky: bool):
         if t.device != x.device:
             raise ValueError(f"fused_dse: {name} is on {t.device}, x on "
                              f"{x.device}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, w_in, b_in, w3, b3, w_out, b_out)):
-        raise RuntimeError("fused_dse is inference-only (no backward yet): "
-                           "call it under torch.inference_mode()")
     if not x.is_contiguous():
         raise ValueError("fused_dse: x must be contiguous NHWC")
     # bf16 runs the 3x3s on the tensor cores, which read [out][in] weights

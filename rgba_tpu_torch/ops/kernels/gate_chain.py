@@ -5,7 +5,8 @@ Port of ``rgba_tpu/ops/pallas/gate_chain.py::fused_gate_chain``:
 out = x + chain_t(x) * sigmoid(1x1(chain_g(g))), each chain three
 bottleneck blocks (1x1 C->C/2, act, 3x3, act, 1x1 C/2->C, + skip, optional
 post-act).  The kernel takes any H and W (the TPU tile gate is a limit of
-VMEM).  Inference only.
+VMEM).  Under autograd the kernel runs in the forward and the gradients
+come from the plain version (``remat.py``).
 
 A chain's weights are a ``GateChainWeights`` with the three blocks stacked:
 w0 (3, C, C/2), w1 (3, 9*C/2, C/2) with rows (dy, dx, ci), w2 (3, C/2, C)
@@ -22,6 +23,7 @@ import torch.nn.functional as F
 
 from .build import CudaKernel
 from .nhwc import conv1x1, conv3x3
+from .remat import fused_primal_plain_grad, needs_grad
 
 KERNEL = CudaKernel("gate_chain.cu", "rgba_gate_chain", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -95,9 +97,15 @@ def fused_gate_chain(x, g, trunk: GateChainWeights, gate: GateChainWeights,
                      fw, fb, act: str, post_act: bool):
     """x: (B, H, W, C) NHWC, fp32 or bf16; g: the same shape or None (g =
     x); fw (C, C) [in, out], fb (C,).  Returns x's shape and dtype.  CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
+    tensors take the plain version; CUDA tensors launch the kernel.
+    Tensors that need a gradient get it from ``gate_chain_plain``."""
     if act not in ACTS:
         raise ValueError(f"fused_gate_chain: act {act!r} not in {ACTS}")
+    diff = (x, g, trunk, gate, fw, fb)
+    if needs_grad((x, g, *trunk, *gate, fw, fb)):
+        return fused_primal_plain_grad(
+            lambda *a: fused_gate_chain(*a, act, post_act),
+            lambda *a: gate_chain_plain(*a, act, post_act), diff)
     if x.device.type == "cpu":
         return gate_chain_plain(x, g, trunk, gate, fw, fb, act, post_act)
     if x.device.type != "cuda":
@@ -132,9 +140,6 @@ def fused_gate_chain(x, g, trunk: GateChainWeights, gate: GateChainWeights,
         if t.device != x.device:
             raise ValueError(f"fused_gate_chain: an input is on {t.device}, "
                              f"x on {x.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError("fused_gate_chain is inference-only (no backward "
-                           "yet): call it under torch.inference_mode()")
     if not x.is_contiguous() or (g is not None and not g.is_contiguous()):
         raise ValueError("fused_gate_chain: x and g must be contiguous NHWC")
     bf16 = dt == torch.bfloat16

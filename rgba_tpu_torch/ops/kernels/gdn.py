@@ -2,7 +2,9 @@
 
 Port of ``rgba_tpu/ops/pallas/gdn.py::fused_gdn``:
 y = x * rsqrt(x^2 @ gamma_t + beta) over (M, C) rows (sqrt for IGDN).
-gamma_t and beta come in post-reparameterization.  Inference only.
+gamma_t and beta come in post-reparameterization.  Under autograd the
+kernel runs in the forward and the gradients come from the plain version
+(``remat.py``).
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ import ctypes
 import torch
 
 from .build import CudaKernel
+from .remat import fused_primal_plain_grad, needs_grad
 
 KERNEL = CudaKernel("gdn.cu", "rgba_gdn", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -39,7 +42,12 @@ def fused_gdn(x, gamma_t, beta, inverse: bool = False):
     """x: (..., C) contiguous, fp32 or bf16; gamma_t: (C, C) post-reparam,
     transposed so norm = x^2 @ gamma_t; beta: (C,) post-reparam.  Returns
     x's shape and dtype.  CPU tensors take the plain version; CUDA tensors
-    launch the kernel: fp32 on the CUDA cores, bf16 on the tensor cores."""
+    launch the kernel: fp32 on the CUDA cores, bf16 on the tensor cores.
+    Tensors that need a gradient get it from ``gdn_plain``."""
+    if needs_grad((x, gamma_t, beta)):
+        return fused_primal_plain_grad(
+            lambda *a: fused_gdn(*a, inverse=inverse),
+            lambda *a: gdn_plain(*a, inverse=inverse), (x, gamma_t, beta))
     if x.device.type == "cpu":
         return gdn_plain(x, gamma_t, beta, inverse)
     c = x.shape[-1]
@@ -55,10 +63,6 @@ def fused_gdn(x, gamma_t, beta, inverse: bool = False):
                          f"{tuple(beta.shape)} do not match C={c}")
     if not x.is_contiguous():
         raise ValueError("fused_gdn: x must be contiguous (NHWC rows)")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, gamma_t, beta)):
-        raise RuntimeError("fused_gdn is inference-only (no backward yet): "
-                           "call it under torch.inference_mode()")
     g = gamma_t.to(x.dtype).contiguous()
     b = beta.float().contiguous()
     for t in (g, b):

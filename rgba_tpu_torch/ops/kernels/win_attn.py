@@ -5,7 +5,8 @@ Port of ``rgba_tpu/ops/pallas/win_attn.py::fused_window_attention``.  Per
 window: qkv projection, per-head scores + relative-position bias - 100
 wherever two tokens' region ids differ, fp32 softmax, P.V, output
 projection, times the alive gate.  Output is pre-residual; dead windows
-are exactly zero.  Inference only.
+are exactly zero.  Under autograd the kernel runs in the forward and the
+gradients come from the plain version (``remat.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from .build import CudaKernel
+from .remat import fused_primal_plain_grad, needs_grad
 
 KERNEL = CudaKernel("win_attn.cu", "rgba_win_attn", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -117,7 +119,15 @@ def fused_window_attention(tokens, region, alive, wqkv, bqkv, wproj, bproj,
     launch the kernel: fp32 on the CUDA cores, bf16 on the tensor cores
     (N <= 64, C / heads <= 32, C % 8 == 0).  ``prepared``: the weights'
     ``kernel_weights`` for tokens' dtype, which the kernel then reads
-    instead of laying the weights out again on every call."""
+    instead of laying the weights out again on every call.  Tensors that
+    need a gradient get it from ``window_attention_plain``."""
+    diff = (tokens, wqkv, bqkv, wproj, bproj, rel_bias)
+    if needs_grad(diff):
+        return fused_primal_plain_grad(
+            lambda t, *w: fused_window_attention(
+                t, region, alive, *w, num_heads=num_heads, prepared=prepared),
+            lambda t, *w: window_attention_plain(
+                t, region, alive, *w, num_heads=num_heads), diff)
     if tokens.device.type == "cpu":
         return window_attention_plain(tokens, region, alive, wqkv, bqkv,
                                       wproj, bproj, rel_bias, num_heads)
@@ -146,11 +156,6 @@ def fused_window_attention(tokens, region, alive, wqkv, bqkv, wproj, bproj,
                              f"{t.device}, tokens on {tokens.device}")
     if not tokens.is_contiguous():
         raise ValueError("fused_window_attention: tokens must be contiguous")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (tokens, wqkv, bqkv, wproj, bproj,
-                                      rel_bias)):
-        raise RuntimeError("fused_window_attention is inference-only (no "
-                           "backward yet): call it under torch.inference_mode()")
     if region.dtype != torch.int32:
         raise TypeError("fused_window_attention: region must be int32")
     hd = c // nh

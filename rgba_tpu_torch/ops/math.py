@@ -4,6 +4,7 @@
   ``x >= bound`` or the incoming gradient is negative (the step would push
   x back up into the feasible set).
 * ``ste_round`` — round in the forward pass, identity gradient.
+* ``uniform_noise`` — the U(-0.5, 0.5) noise of the training relaxation.
 """
 
 from __future__ import annotations
@@ -30,3 +31,15 @@ def lower_bound(x, bound: float):
 def ste_round(x):
     """round(x) forward (half to even, as jnp.round), identity backward."""
     return x + (torch.round(x) - x).detach()
+
+
+def uniform_noise(shape, source, device):
+    """fp32 U(-0.5, 0.5) of ``shape`` on ``device``.  ``source`` is a
+    ``torch.Generator`` on that device, or a callable ``shape -> tensor``
+    that hands out noise made elsewhere (the parity tests give both
+    packages the same numpy-made noise)."""
+    if source is None:
+        raise ValueError("training needs a noise generator")
+    if callable(source):
+        return source(tuple(shape)).to(device=device, dtype=torch.float32)
+    return torch.rand(tuple(shape), generator=source, device=device) - 0.5

@@ -190,8 +190,12 @@ def test_launch_counts_only_kernel_launches(card):
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     x, gt, beta = _gdn_args(64, 192, torch.float32, card)
-    with pytest.raises(RuntimeError, match="inference-only"):
-        gdn.fused_gdn(x.requires_grad_(True), gt, beta)
+    # a tensor that needs a gradient is not refused: the kernel still runs
+    # the forward, and the remat Function supplies the backward
+    before = gdn.KERNEL.launches
+    out = gdn.fused_gdn(x.clone().requires_grad_(True), gt, beta)
+    assert type(out.grad_fn).__name__ == "_FusedPrimalPlainGradBackward"
+    assert gdn.KERNEL.launches == before + 1
     with pytest.raises(ValueError, match="multiple of 16"):
         gdn.fused_gdn(torch.zeros(8, 200, device=card),
                       torch.zeros(200, 200, device=card),
@@ -338,3 +342,132 @@ def test_codec_round_trip_on_the_card(card):
                            mask_pyramid(recon))
         want = torch.clamp(fwd["x_hat"], 0, 1).permute(0, 2, 3, 1).cpu().numpy()
     np.testing.assert_allclose(dec[..., :3], want, atol=1e-5)
+
+
+# ------------------------------------------------------------- training
+
+
+def _grad_cases(dev, dtype):
+    """name -> (wrapper call, plain call, tensors, index of the input);
+    both calls take the tensors in the wrapper's order."""
+    x, gt, beta = _gdn_args(2 * 64 * 96, 192, dtype, dev)
+    a = _attn_args(30, 64, 192, 8, dtype, dev)
+    a[3], a[5] = a[3].float(), a[5].float()        # fp32 parameters
+    region, alive = a[1], a[2]
+    gx, gg, trunk, gate, fw, fb = _gate_args(2, 32, 48, 80, dtype, dev, True)
+    d = _dse_args(2, 64, 96, 3, dtype, dev)
+    flat_gate = [gx, gg, *trunk, *gate, fw, fb]
+
+    def gate_call(fn):
+        def call(x_, g_, *w):
+            return fn(x_, g_, gate_chain.GateChainWeights(*w[:6]),
+                      gate_chain.GateChainWeights(*w[6:12]), w[12], w[13],
+                      "gelu_tanh", True)
+        return call
+    return {
+        "gdn": (lambda *t: gdn.fused_gdn(*t, inverse=True),
+                lambda *t: gdn.gdn_plain(*t, inverse=True), [x, gt, beta]),
+        "attention": (
+            lambda t, *w: win_attn.fused_window_attention(
+                t, region, alive, *w, num_heads=8),
+            lambda t, *w: win_attn.window_attention_plain(
+                t, region, alive, *w, num_heads=8),
+            [a[0], *a[3:]]),
+        "gate_chain": (gate_call(gate_chain.fused_gate_chain),
+                       gate_call(gate_chain.gate_chain_plain), flat_gate),
+        "dse": (lambda *t: dse.fused_dse(*t, leaky=False),
+                lambda *t: dse.dse_plain(*t, leaky=False), list(d)),
+    }
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("needs", ["all", "input only", "weights only"])
+@pytest.mark.parametrize("kernel", ["gdn", "attention", "gate_chain", "dse"])
+def test_wrapper_under_grad(card, kernel, needs, dtype):
+    """Under autograd a wrapper's forward is the kernel's no-grad output
+    bit for bit, its backward launches nothing, and its gradients are
+    autograd's through the plain version on the same inputs, for every
+    subset of inputs that needs one."""
+    fused, plain, tensors = _grad_cases(card, dtype)[kernel]
+    with torch.no_grad():
+        want_out = fused(*tensors)
+
+    def leaves():
+        return [t.clone().requires_grad_(
+            needs == "all" or (i == 0) == (needs == "input only"))
+            for i, t in enumerate(tensors)]
+    ins = leaves()
+    before = _launches()
+    out = fused(*ins)
+    assert type(out.grad_fn).__name__ == "_FusedPrimalPlainGradBackward"
+    assert torch.equal(out, want_out)
+    cot = torch.sin(torch.arange(out.numel(), device=card).reshape(out.shape)
+                    .float()).to(out.dtype)
+    out.backward(cot)
+    assert sum(a - b for a, b in zip(_launches(), before)) == 1
+    ref = leaves()
+    plain(*ref).backward(cot)
+    for i, (got, want) in enumerate(zip(ins, ref)):
+        if not want.requires_grad:
+            assert got.grad is None
+            continue
+        assert got.grad is not None and got.grad.dtype == want.grad.dtype
+        scale = float(want.grad.float().abs().max())
+        assert float((got.grad.float() - want.grad.float()).abs().max()) \
+            <= 1e-5 * scale, (kernel, i)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_layout_follows_an_in_place_update(card, dtype):
+    """A stale kernel layout would train silently wrong: after an
+    optimizer step the kernel route must agree with the plain path on the
+    new weights, and differ from its own output on the old ones."""
+    from rgba_tpu_torch.core.precision import Policy
+    from rgba_tpu_torch.ops.attention import MaskedWinBlock
+    g = torch.Generator().manual_seed(3)
+    kw = dict(device=card, generator=torch.Generator().manual_seed(4))
+    on = MaskedWinBlock(192, 8, 8, 4, policy=Policy(dtype, fused_win_attn=True),
+                        **kw)
+    off = MaskedWinBlock(192, 8, 8, 4, policy=Policy(dtype), **kw)
+    x = torch.randn(2, 192, 32, 48, generator=g).to(card)
+    alpha = (torch.rand(2, 1, 32, 48, generator=g) > 0.3).float().to(card)
+    with torch.no_grad():
+        old = on(x, alpha)
+    opt = torch.optim.Adam(on.parameters(), lr=0.05)
+    out = on(x, alpha)
+    torch.sum(out * torch.sin(out.float()).to(out.dtype)).backward()
+    assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+               for p in on.parameters())
+    opt.step()
+    off.load_state_dict(on.state_dict())
+    with torch.no_grad():
+        new, want = on(x, alpha), off(x, alpha)
+    _assert_close(new, want, dtype)
+    assert not _within(old, want, dtype)
+
+
+@pytest.mark.parametrize("kind", ["rgb", "mask"])
+def test_trainer_step_on_the_card(card, kind, tmp_path):
+    """bf16 steps with every kernel on: the launches of a training forward
+    and none in backward, finite losses and parameters."""
+    from rgba_tpu_torch.core.config import TrainConfig
+    from rgba_tpu_torch.core.precision import BF16_POLICY
+    from rgba_tpu_torch.models.mask_codec import MaskCodec
+    from rgba_tpu_torch.models.rgb_codec import RGBCodec
+    from rgba_tpu_torch.train.loops import MaskTrainer, RGBTrainer
+    cfg = TrainConfig(train_lambda=1024, batch_size=2, curriculum_step=0)
+    cls, trainer_cls, want = (
+        (RGBCodec, RGBTrainer, (4, 6, 4, 1)) if kind == "rgb"
+        else (MaskCodec, MaskTrainer, (0, 6, 4, 1)))
+    model = cls(policy=_all_kernels(BF16_POLICY), device=card,
+                generator=torch.Generator().manual_seed(0))
+    trainer = trainer_cls(cfg, str(tmp_path), model=model)
+    state = trainer.init_state()
+    batch = synthetic_rgba_batch(2, 64, 128, seed=0)
+    for step in range(3):
+        before = _launches()
+        m = trainer.step(state, batch)
+        assert tuple(a - b for a, b in zip(_launches(), before)) == want
+        assert all(bool(torch.isfinite(v)) for v in m.values())
+    assert state.step == 3
+    assert all(bool(torch.isfinite(p).all()) for p in model.parameters())
