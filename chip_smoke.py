@@ -15,8 +15,8 @@ failure:
    fp32 and bf16, against its plain PyTorch version on the same inputs
    within the printed tolerance (attention also fed a zeroed and a
    transposed rel_bias, which that check must fail); times the kernel
-   (attention with its weights laid out once, as ``WindowAttention``
-   keeps them), the plain version, one
+   (its weights laid out once, as the owning module keeps them; the
+   layout's own time is printed beside), the plain version, one
    PyTorch library call of the same function (a yardstick the port never
    calls) and the bound (the larger of bytes over 3.35 TB/s and operations
    over the H100 SXM peak for their type);
@@ -66,11 +66,12 @@ no result.
 
     python3 chip_smoke.py --base DIR [--iters 20]
 
-compares the window-attention and GDN kernels of another checkout DIR
-(for example a parent commit unpacked with ``git archive``) with this one's
-on the same card: each tree builds its two kernels and runs its own
-``gdn_cases`` and ``attention_cases`` in a process of its own, in turns
-base, head, head, base; it prints each case's kernel time per turn.
+compares all four kernels of another checkout DIR (for example a parent
+commit unpacked with ``git archive``) with this one's on the same card:
+each tree builds its four kernels and runs its own ``gdn_cases``,
+``attention_cases``, ``gate_chain_cases`` and ``dse_cases`` (the main
+paths' shapes, bf16 and fp32) in a process of its own, in turns base,
+head, head, base; it prints each case's kernel time per turn.
 """
 
 from __future__ import annotations
@@ -332,12 +333,13 @@ def gate_chain_cases(torch, batch: int, iters: int, height: int = 512,
                 # fp32: TF32 off, so the cuDNN yardstick is full fp32 too
                 with torch.inference_mode(), precision_scope(policy):
                     wts = m.gate_chain_weights()
+                    prep = m.kernel_layout(dt)     # once per weights
                     xr = x.permute(0, 2, 3, 1).contiguous()
                     gr = None if g is None else g.permute(0, 2, 3, 1).contiguous()
                     args = (xr, gr, *wts, act, post)
                     what = (f"fused_gate_chain {flavour} B={batch} {h}x{w} "
                             f"C={c} {dtype}")
-                    res = _check(torch, k.fused_gate_chain(*args),
+                    res = _check(torch, k.fused_gate_chain(*args, prep),
                                  k.gate_chain_plain(*args), dtype, what)
 
                     if flavour == "wingate":
@@ -355,17 +357,20 @@ def gate_chain_cases(torch, batch: int, iters: int, height: int = 512,
                     res.update(
                         shape=f"{flavour},B={batch},{h}x{w},C={c}",
                         dtype=dtype,
-                        ms=_time_ms(torch, lambda: k.fused_gate_chain(*args),
-                                    iters),
+                        ms=_time_ms(torch, lambda: k.fused_gate_chain(
+                            *args, prep), iters),
+                        layout_ms=_time_ms(torch, lambda: k.kernel_weights(
+                            *wts, dt), iters),
                         plain_ms=_time_ms(torch, lambda: k.gate_chain_plain(
                             *args), iters),
                         library_ms=_time_ms(torch, library, iters),
                         bound_ms=bound, bound_by=by)
-                print(f"    ms {res['ms']:.4f} plain_ms {res['plain_ms']:.4f} "
+                print(f"    ms {res['ms']:.4f} (weight layout, once per weights: "
+                      f"{res['layout_ms']:.4f}) plain_ms {res['plain_ms']:.4f} "
                       f"library_ms {res['library_ms']:.4f} bound_ms "
                       f"{bound:.4f} ({by})")
                 cases.append(res)
-                del m, x, g, args
+                del m, x, g, args, prep
     return cases
 
 
@@ -391,8 +396,10 @@ def dse_cases(torch, batch: int, iters: int, h: int = 512, w: int = 768):
                     .to(dev, dt))
             with torch.inference_mode(), precision_scope(policy):
                 args = (x.permute(0, 2, 3, 1).contiguous(), *m.kernel_weights())
+                prep = m.kernel_layout(dt)         # once per weights
                 what = f"fused_dse B={batch} {h}x{w} cio={cio} {dtype}"
-                res = _check(torch, k.fused_dse(*args, leaky=leaky),
+                res = _check(torch, k.fused_dse(*args, leaky=leaky,
+                                                prepared=prep),
                              k.dse_plain(*args, leaky=leaky), dtype, what)
                 pix = batch * h * w
                 flops = pix * (4.0 * cio * 32 + 6 * 2.0 * 9 * 32 * 32)
@@ -401,17 +408,20 @@ def dse_cases(torch, batch: int, iters: int, h: int = 512, w: int = 768):
                 bound, by = _bound(nbytes, flops, dtype)
                 res.update(
                     shape=f"cio={cio},B={batch},{h}x{w}", dtype=dtype,
-                    ms=_time_ms(torch, lambda: k.fused_dse(*args, leaky=leaky),
-                                iters),
+                    ms=_time_ms(torch, lambda: k.fused_dse(
+                        *args, leaky=leaky, prepared=prep), iters),
+                    layout_ms=_time_ms(torch, lambda: k.kernel_weights(
+                        *args[1:], dt), iters),
                     plain_ms=_time_ms(torch, lambda: k.dse_plain(
                         *args, leaky=leaky), iters),
                     library_ms=_time_ms(torch, lambda: m(x), iters),
                     bound_ms=bound, bound_by=by)
-            print(f"    ms {res['ms']:.4f} plain_ms {res['plain_ms']:.4f} "
+            print(f"    ms {res['ms']:.4f} (weight layout, once per weights: "
+                  f"{res['layout_ms']:.4f}) plain_ms {res['plain_ms']:.4f} "
                   f"library_ms {res['library_ms']:.4f} bound_ms {bound:.4f} "
                   f"({by})")
             cases.append(res)
-            del m, x, args
+            del m, x, args, prep
     return cases
 
 
@@ -1078,11 +1088,13 @@ def train_phase(torch) -> dict:
 AB_WORKER = """
 import json, sys, torch
 import chip_smoke as cs
-from rgba_tpu_torch.ops.kernels import build, gdn, win_attn
-build.build_all([gdn.KERNEL, win_attn.KERNEL])
+from rgba_tpu_torch.ops.kernels import build
+build.build_all(list(cs._kernels().values()))
 batch, iters = int(sys.argv[1]), int(sys.argv[2])
-cases = cs.gdn_cases(torch, batch, iters) + cs.attention_cases(torch, batch,
-                                                               iters)
+cases = []
+for fn in (cs.gdn_cases, cs.attention_cases, cs.gate_chain_cases,
+           cs.dse_cases):
+    cases += [dict(c, kernel=fn.__name__) for c in fn(torch, batch, iters)]
 print("RESULT " + json.dumps(cases))
 """
 
@@ -1103,8 +1115,8 @@ def ab_phase(base: Path, batch: int, iters: int) -> dict:
                                f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
         cases = json.loads(res[-1][len("RESULT "):])
         for c in cases:
-            print(f"  {name} {c['dtype']} {c['shape']}: ms {c['ms']:.4f} "
-                  f"(max_abs_err {c['max_abs_err']:.3g})")
+            print(f"  {name} {c['kernel']} {c['dtype']} {c['shape']}: ms "
+                  f"{c['ms']:.4f} (max_abs_err {c['max_abs_err']:.3g})")
         turns.append({"tree": name, "cases": cases})
     return {"base": str(base), "batch": batch, "iters": iters, "turns": turns}
 
@@ -1114,8 +1126,8 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--base", type=Path, default=None,
-                    help="another checkout whose attention and GDN kernels "
-                         "to time against this one's")
+                    help="another checkout whose four kernels to time "
+                         "against this one's")
     args = ap.parse_args(argv)
 
     import torch
@@ -1134,7 +1146,7 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
     if args.base is not None:
-        print(f"attention and GDN kernels, {args.base} against this tree:")
+        print(f"the four kernels, {args.base} against this tree:")
         report = ab_phase(args.base.resolve(), args.batch, args.iters)
         print(card)
         print(json.dumps(report))

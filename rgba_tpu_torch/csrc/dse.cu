@@ -25,10 +25,37 @@
 // Each conv's weights are staged in shared memory before its passes.  In
 // fp32 each thread holds 4 pixels x 4 consecutive output channels, so a
 // weight row is one 16-byte load per thread, and the products run on the
-// CUDA cores; in bf16 they run on the tensor cores (below).  Both
-// accumulate in fp32 in a fixed order (deterministic).  The tile is the
-// largest of a fixed list that fits the card's shared memory for this
-// dtype.
+// CUDA cores, accumulating in fp32 in a fixed order (deterministic).  The
+// tile is the largest of a fixed list that fits the card's shared memory
+// for this dtype.
+//
+// bf16 design (dse_mma_kernel): the same frames, with the six 3x3 convs on
+// wgmma m64n32k16 (bf16 in, fp32 accumulate).
+// - Roles: two consumer warpgroups and one producer warpgroup (384
+//   threads; setmaxnreg moves the producer's registers to the consumers).
+//   One producer lane streams the six convs' weights (32 x 288 bf16, 18 KB
+//   each, laid out once per weights by the wrapper as K-major core
+//   matrices) with cp.async.bulk into a ring of two stages tracked by
+//   mbarriers, so conv i + 1's weights land while conv i runs; consumers
+//   release a stage per warp and meet on a named barrier only between
+//   convs.
+// - A from registers: each warp loads its 16 pixels' A fragments for all 18
+//   k steps (9 taps x 32 channels) with ldmatrix, whose per-lane row
+//   addresses do the region gather and the tap shift; a warpgroup runs two
+//   64-pixel m-tiles per pass (one in a region's last pass when that is
+//   all that is left: the count is the same in both warpgroups and fixed
+//   at compile time, since a wgmma under a condition is serialised).
+// - N = 32 is narrow for wgmma: each k step reads 2 KB of A through
+//   ldmatrix and 1 KB of B for 65,536 FLOP, so shared-memory bandwidth, not
+//   the tensor cores, bounds this loop at about 2/3 of the bf16 peak.
+//   m64n32k16 was measured against ldmatrix-fed mma.sync m16n8k16 in the
+//   same design and kept (PERF.md §6).
+// - The first and last 1x1 (cio <-> 32) run on the CUDA cores a pixel per
+//   thread, x read once and the frame row moved as 16-byte chunks.
+// - Shared memory: the two 32-channel frames have 64-byte rows whose 16-byte
+//   chunks are XOR-swizzled by row (no padding), 157,696 bytes at a 16x32
+//   tile (frame 28x44), + the ring 36,864 + barriers: 194,592 of 232,448.
+// - Sums in a fixed order (k ascending), no atomics: the same bits twice.
 #include <type_traits>
 
 #include "common.cuh"
@@ -240,68 +267,106 @@ dse_kernel(const T* __restrict__ x, const T* __restrict__ w_in,
 
 
 // ---------------------------------------------------------------- bf16 path
-// The same tail with the 3x3 products on the tensor cores: mma.sync
-// m16n8k16 (bf16 in, fp32 accumulate).  A warp takes 16 pixels of a
-// 128-pixel pass and all 32 output channels (4 n-tiles of 8); A fragments
-// come from the frame in shared memory (rows padded by 8 bf16, which
-// spreads a fragment load's 8 rows over distinct banks), B fragments from
-// the weights, laid out [out][in] so a pair of consecutive k is one 32-bit
-// load and staged in shared memory one conv at a time.
+// The same tail with the 3x3 products on Hopper's tensor cores (see the
+// header's bf16 design).
 
-constexpr int kWarps = kThreads / 32;
-constexpr int kMPass = 16 * kWarps;   // 128 pixels per pass
-constexpr int kLdMma = kF + 8;
-constexpr int kLdW = 9 * kF + 8;      // staged [out][in] row: 148 words, 20g
+using bf16 = __nv_bfloat16;
 
-// acc = 3x3(src) (no bias) for this thread's fragment rows of its warp's 16
-// pixels of a pass over the region inset by s; w3t: (32, 288) [out][in]
-// with row stride kLdW, in shared memory.
-__device__ __forceinline__ void conv3x3_mma(const __nv_bfloat16* src,
-                                            const Geo& g, int s, int p0, int np,
-                                            const __nv_bfloat16* __restrict__ w3t,
-                                            float (&acc)[4][4], int (&f)[2],
-                                            bool (&ok)[2]) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gq = lane / 4, t2 = 2 * (lane % 4);
+constexpr int kConsumers = 256;                // two warpgroups
+constexpr int kMmaThreads = kConsumers + 128;  // and a producer warpgroup
+constexpr int kMT = 2;                         // m-tiles of 64 per warpgroup
+constexpr int kStages = 2;                     // convs in the weight ring
+constexpr int kConvW = kF * 9 * kF;            // one conv's weights: 9216
+
+// Element (f, ch) of a 32-channel frame: 64-byte rows whose four 16-byte
+// chunks are XOR-swizzled by bits 1-2 of the row, so that ldmatrix's 8
+// consecutive rows fall in distinct banks without padding.
+__device__ __forceinline__ int sw(int f, int ch) {
+  return f * kF + ((((ch >> 3) ^ (f >> 1)) & 3) << 3) + (ch & 7);
+}
+
+// acc[i] = 3x3(src) (no bias) for this warpgroup's MT m-tiles of a pass
+// (compile-time, so no wgmma sits under a condition), the conv's weights w
+// ([out][in = tap*32 + ci], K-major core matrices) in shared memory.
+template <int MT>
+__device__ __forceinline__ void conv3x3_wgmma(float (&acc)[MT][kF / 2],
+                                              const bf16* src, const Geo& g,
+                                              const int (&f_lane)[kMT],
+                                              const bf16* w) {
+  const int kl = 8 * ((threadIdx.x % 32) / 16);
+  uint32_t a[MT][18][4];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int q = p0 + 16 * warp + gq + 8 * r;
-    ok[r] = q < np;
-    f[r] = region_pix(g, s, ok[r] ? q : 0);
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  for (int tap = 0; tap < 9; ++tap) {
+  for (int ks = 0; ks < 18; ++ks) {
+    const int tap = ks / 2;
     const int off = (tap / 3 - 1) * g.fw + (tap % 3 - 1);
-    const __nv_bfloat16* lo = src + (f[0] + off) * kLdMma;
-    const __nv_bfloat16* hi = src + (f[1] + off) * kLdMma;
 #pragma unroll
-    for (int k0 = 0; k0 < kF; k0 += 16) {
-      const uint32_t a[4] = {
-          rgba::ld32(lo + k0 + t2), rgba::ld32(hi + k0 + t2),
-          rgba::ld32(lo + k0 + 8 + t2), rgba::ld32(hi + k0 + 8 + t2)};
+    for (int i = 0; i < MT; ++i)
+      rgba::ldsm_x4(a[i][ks], src + sw(f_lane[i] + off, 16 * (ks % 2) + kl));
+  }
+  const uint64_t desc = rgba::kmajor_desc(w, 9 * kF / 8 * 128);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const __nv_bfloat16* wr =
-            w3t + (8 * j + gq) * kLdW + tap * kF + k0 + t2;
-        rgba::mma_bf16(acc[j], a, rgba::ld32(wr), rgba::ld32(wr + 8));
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int e = 0; e < kF / 2; ++e) acc[i][e] = 0.f;
+    rgba::fence_operands(acc[i]);
+  }
+  rgba::wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < 18; ++ks)
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+      rgba::wgmma_rs<kF>(acc[i], a[i][ks], desc + 16 * ks);
+  rgba::wgmma_commit_wait();
+#pragma unroll
+  for (int i = 0; i < MT; ++i) rgba::fence_operands(acc[i]);
+}
+
+// One pass of a conv: MT m-tiles per warpgroup, then the epilogue: odd
+// convs z = act(3x3(y) + b), 0 outside the image; even y = 3x3(z) + b + y.
+template <int MT>
+__device__ __forceinline__ void conv_pass(bf16* ybuf, bf16* zbuf,
+                                          const Geo& g, bool inner,
+                                          const int (&f_lane)[kMT],
+                                          const int (&f_row)[kMT][2],
+                                          const bool (&ok)[kMT][2],
+                                          const float* bias, const bf16* w,
+                                          int leaky) {
+  const int t2 = 2 * (threadIdx.x % 4);
+  float acc[MT][kF / 2];
+  conv3x3_wgmma<MT>(acc, inner ? ybuf : zbuf, g, f_lane, w);
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (!ok[i][r]) continue;
+      const int f = f_row[i][r];
+      const bool inside = in_image(g, f);
+#pragma unroll
+      for (int j = 0; j < kF / 8; ++j) {
+        const int o = 8 * j + t2;
+        const float v0 = acc[i][4 * j + 2 * r] + bias[o];
+        const float v1 = acc[i][4 * j + 2 * r + 1] + bias[o + 1];
+        if (inner) {
+          *reinterpret_cast<__nv_bfloat162*>(zbuf + sw(f, o)) =
+              __floats2bfloat162_rn(inside ? act_fn(v0, leaky) : 0.f,
+                                    inside ? act_fn(v1, leaky) : 0.f);
+        } else {
+          __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(ybuf + sw(f, o));
+          const float2 y = __bfloat1622float2(*dst);
+          *dst = __floats2bfloat162_rn(inside ? v0 + y.x : 0.f,
+                                       inside ? v1 + y.y : 0.f);
+        }
       }
     }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-dse_mma_kernel(const __nv_bfloat16* __restrict__ x,
-               const __nv_bfloat16* __restrict__ w_in,
-               const float* __restrict__ b_in,
-               const __nv_bfloat16* __restrict__ w3t,
-               const float* __restrict__ b3,
-               const __nv_bfloat16* __restrict__ w_out,
-               const float* __restrict__ b_out, __nv_bfloat16* __restrict__ out,
+__global__ void __launch_bounds__(kMmaThreads, 1)
+dse_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w_in,
+               const float* __restrict__ b_in, const bf16* __restrict__ w3c,
+               const float* __restrict__ b3, const bf16* __restrict__ w_out,
+               const float* __restrict__ b_out, bf16* __restrict__ out,
                int h, int w, int cio, int th, int tw, int tiles_w, int leaky) {
-  using bf16 = __nv_bfloat16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Geo g;
   g.h = h; g.w = w; g.cio = cio;
@@ -310,101 +375,160 @@ dse_mma_kernel(const __nv_bfloat16* __restrict__ x,
   const int ti = blockIdx.x / tiles_w, tj = blockIdx.x % tiles_w;
   g.r0 = ti * th - kHalo;
   g.c0 = tj * tw - kHalo;
-  g.ld = kLdMma;
+  g.ld = kF;
   bf16* ybuf = reinterpret_cast<bf16*>(smem_raw);
-  bf16* zbuf = ybuf + g.nf * g.ld;
-  bf16* wsm = zbuf + g.nf * g.ld;  // the current conv's [out][in] weights
+  bf16* zbuf = ybuf + g.nf * kF;
+  bf16* ring = zbuf + g.nf * kF;     // kStages convs' weights
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * kConvW);
+  uint64_t* empty = full + kStages;
   const bf16* img = x + static_cast<size_t>(blockIdx.y) * h * w * cio;
   bf16* oimg = out + static_cast<size_t>(blockIdx.y) * h * w * cio;
-
-  for (int i = threadIdx.x; i < g.nf * kF; i += kThreads) {
-    const int f = i / kF, o = i - f * kF;
-    const int r = g.r0 + f / g.fw, col = g.c0 + f % g.fw;
-    const bool inside = r >= 0 && r < h && col >= 0 && col < w;
-    ybuf[f * g.ld + o] = rgba::from_float<bf16>(
-        inside ? first_at(img, g, r, col, o, w_in, b_in) : 0.f);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      rgba::mbar_init(&full[s], 1);
+      rgba::mbar_init(&empty[s], kConsumers / 32);
+    }
+    rgba::mbar_fence_init();
   }
   __syncthreads();
 
-  const int t2 = 2 * (threadIdx.x % 4);
-  float acc[4][4];
-  int f[2];
-  bool ok[2];
-  for (int blk = 0; blk < 3; ++blk) {
-    const bf16* wa = w3t + static_cast<size_t>(2 * blk) * 9 * kF * kF;
-    const bf16* wb = wa + 9 * kF * kF;
-    const float* ba = b3 + 2 * blk * kF;
-    const float* bb = ba + kF;
-    int s = 2 * blk + 1;
-    int np = region_size(g, s);
-    stage_weights(wsm, wa, kF, 9 * kF, kLdW);
-    __syncthreads();
-    for (int p0 = 0; p0 < np; p0 += kMPass) {
-      conv3x3_mma(ybuf, g, s, p0, np, wsm, acc, f, ok);
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        if (!ok[r]) continue;
-        const bool inside = in_image(g, f[r]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int o = 8 * j + t2;
-          *reinterpret_cast<__nv_bfloat162*>(zbuf + f[r] * g.ld + o) =
-              __floats2bfloat162_rn(
-                  inside ? act_fn(acc[j][2 * r] + ba[o], leaky) : 0.f,
-                  inside ? act_fn(acc[j][2 * r + 1] + ba[o + 1], leaky) : 0.f);
-        }
+  if (threadIdx.x >= kConsumers) {
+    // the producer warpgroup gives its registers to the consumers; one
+    // lane streams the six convs' weights
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == kConsumers) {
+      for (int i = 0; i < 6; ++i) {
+        const int s = i % kStages;
+        rgba::mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
+        rgba::mbar_expect(&full[s], kConvW * 2);
+        rgba::bulk_load(ring + s * kConvW, w3c + static_cast<size_t>(i) * kConvW,
+                        kConvW * 2, &full[s]);
       }
     }
-    __syncthreads();
-    s = 2 * blk + 2;
-    np = region_size(g, s);
-    stage_weights(wsm, wb, kF, 9 * kF, kLdW);
-    __syncthreads();
-    for (int p0 = 0; p0 < np; p0 += kMPass) {
-      conv3x3_mma(zbuf, g, s, p0, np, wsm, acc, f, ok);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+
+  // first = 1x1(x) + b on the whole frame, cast, 0 outside the image: a
+  // pixel per thread, its 32 outputs stored as four 16-byte chunks
+  for (int f = threadIdx.x; f < g.nf; f += kConsumers) {
+    const int r = g.r0 + f / g.fw, col = g.c0 + f % g.fw;
+    const bool inside = r >= 0 && r < h && col >= 0 && col < w;
+    float xin[kMaxCio];
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        if (!ok[r]) continue;
-        const bool inside = in_image(g, f[r]);
+    for (int c = 0; c < kMaxCio; ++c)
+      xin[c] = inside && c < cio
+          ? rgba::to_float(img[(static_cast<size_t>(r) * w + col) * cio + c]) : 0.f;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int o = 8 * j + t2;
-          __nv_bfloat162* dst =
-              reinterpret_cast<__nv_bfloat162*>(ybuf + f[r] * g.ld + o);
-          const float2 y = __bfloat1622float2(*dst);
-          *dst = __floats2bfloat162_rn(
-              inside ? acc[j][2 * r] + bb[o] + y.x : 0.f,
-              inside ? acc[j][2 * r + 1] + bb[o + 1] + y.y : 0.f);
+    for (int q = 0; q < kF / 8; ++q) {
+      uint32_t packed[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float v[2];
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          const int o = 8 * q + 2 * e + t;
+          float acc = 0.f;   // first_at's order: ci ascending, then the bias
+#pragma unroll
+          for (int c = 0; c < kMaxCio; ++c)
+            if (c < cio) acc = fmaf(xin[c], rgba::to_float(w_in[c * kF + o]), acc);
+          v[t] = inside ? acc + b_in[o] : 0.f;
+        }
+        packed[e] = rgba::pack_bf16(v[0], v[1]);
+      }
+      *reinterpret_cast<uint4*>(ybuf + sw(f, 8 * q)) =
+          make_uint4(packed[0], packed[1], packed[2], packed[3]);
+    }
+  }
+  rgba::named_sync(1, kConsumers);
+
+  const int wg = threadIdx.x / 128, wr = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32;
+  const int lrow = lane % 8 + 8 * ((lane / 8) % 2);
+  for (int conv = 0; conv < 6; ++conv) {
+    const bool inner = conv % 2 == 0;   // z = act(3x3(y)); else y += 3x3(z)
+    const float* bias = b3 + conv * kF;
+    const int s = conv + 1;
+    const int np = region_size(g, s), tiles = (np + 63) / 64;
+    const int st = conv % kStages;
+    const bf16* wst = ring + st * kConvW;
+    rgba::mbar_wait(&full[st], (conv / kStages) & 1);
+    for (int p = 0; 2 * kMT * p < tiles; ++p) {
+      // m-tiles 4 p + wg + 2 i (i < nm), nm alike in both warpgroups; one
+      // past the region's end reads its first pixel and stores nothing
+      const int nm = min(kMT, (tiles - 2 * kMT * p + 1) / 2);
+      int f_lane[kMT], f_row[kMT][2];
+      bool ok[kMT][2];
+#pragma unroll
+      for (int i = 0; i < kMT; ++i) {
+        const int mt = 2 * kMT * p + wg + 2 * i;
+        const int q0 = mt * 64 + 16 * wr;
+        f_lane[i] = region_pix(g, s, q0 + lrow < np ? q0 + lrow : 0);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int q = q0 + lane / 4 + 8 * r;
+          ok[i][r] = q < np;
+          f_row[i][r] = region_pix(g, s, ok[i][r] ? q : 0);
         }
       }
+      if (nm == 2)
+        conv_pass<2>(ybuf, zbuf, g, inner, f_lane, f_row, ok, bias, wst, leaky);
+      else
+        conv_pass<1>(ybuf, zbuf, g, inner, f_lane, f_row, ok, bias, wst, leaky);
     }
-    __syncthreads();
+    if (lane == 0) rgba::mbar_arrive(&empty[st]);
+    rgba::named_sync(1, kConsumers);
   }
 
-  for (int i = threadIdx.x; i < th * tw; i += kThreads) {
+  // merged = cast(y + first); out = 1x1(merged) + b_out + x on the tile: a
+  // pixel per thread, x read once, y as four 16-byte chunks
+  for (int i = threadIdx.x; i < th * tw; i += kConsumers) {
     const int r = g.r0 + kHalo + i / tw, col = g.c0 + kHalo + i % tw;
     if (r >= h || col >= w) continue;
-    const bf16* yp = ybuf + ((kHalo + i / tw) * g.fw + kHalo + i % tw) * g.ld;
-    float o_acc[kMaxCio];
-    for (int co = 0; co < cio; ++co) o_acc[co] = 0.f;
-    for (int ci = 0; ci < kF; ++ci) {
-      const float first = rgba::round_to<bf16>(
-          first_at(img, g, r, col, ci, w_in, b_in));
-      const float m = rgba::round_to<bf16>(rgba::to_float(yp[ci]) + first);
-      for (int co = 0; co < cio; ++co)
-        o_acc[co] = fmaf(m, rgba::to_float(w_out[ci * cio + co]), o_acc[co]);
-    }
+    const int f = (kHalo + i / tw) * g.fw + kHalo + i % tw;
     const size_t base = (static_cast<size_t>(r) * w + col) * cio;
-    for (int co = 0; co < cio; ++co)
-      oimg[base + co] = rgba::from_float<bf16>(
-          o_acc[co] + b_out[co] + rgba::to_float(img[base + co]));
+    float xin[kMaxCio], o_acc[kMaxCio];
+#pragma unroll
+    for (int c = 0; c < kMaxCio; ++c) {
+      xin[c] = c < cio ? rgba::to_float(img[base + c]) : 0.f;
+      o_acc[c] = 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < kF / 8; ++q) {
+      const uint4 yv = *reinterpret_cast<const uint4*>(ybuf + sw(f, 8 * q));
+      const bf16* yp = reinterpret_cast<const bf16*>(&yv);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int ci = 8 * q + e;
+        float acc = 0.f;
+#pragma unroll
+        for (int c = 0; c < kMaxCio; ++c)
+          if (c < cio) acc = fmaf(xin[c], rgba::to_float(w_in[c * kF + ci]), acc);
+        const float first = rgba::round_to<bf16>(acc + b_in[ci]);
+        const float m = rgba::round_to<bf16>(rgba::to_float(yp[e]) + first);
+#pragma unroll
+        for (int co = 0; co < kMaxCio; ++co)
+          if (co < cio)
+            o_acc[co] = fmaf(m, rgba::to_float(w_out[ci * cio + co]), o_acc[co]);
+      }
+    }
+#pragma unroll
+    for (int co = 0; co < kMaxCio; ++co)
+      if (co < cio)
+        oimg[base + co] = rgba::from_float<bf16>(o_acc[co] + b_out[co] + xin[co]);
   }
+}
+
+size_t smem_bytes_mma(int th, int tw) {
+  const size_t nf = static_cast<size_t>(th + 2 * kHalo) * (tw + 2 * kHalo);
+  // two swizzled frames, the weight ring, its barriers
+  return 2 * (2 * nf * kF + kStages * kConvW) + 2 * kStages * sizeof(uint64_t);
 }
 
 size_t smem_bytes(int th, int tw, size_t es, int ld) {
   const size_t nf = static_cast<size_t>(th + 2 * kHalo) * (tw + 2 * kHalo);
   // two frame buffers and one conv's weights
-  return es * (2 * nf * ld + (es == 2 ? kF * kLdW : 9 * kF * kF));
+  return es * (2 * nf * ld + 9 * kF * kF);
 }
 
 template <typename T>
@@ -414,7 +538,7 @@ int launch(const void* x, const void* w_in, const void* b_in, const void* w3,
   constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
   static const int kTiles[][2] = {{32, 32}, {32, 24}, {16, 32}, {16, 16},
                                   {16, 12}, {8, 8}};
-  const int ld = kMma ? kLdMma : kF + 4 / static_cast<int>(sizeof(T));
+  const int ld = kF + 4 / static_cast<int>(sizeof(T));
   int dev = 0, max_smem = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
@@ -422,16 +546,17 @@ int launch(const void* x, const void* w_in, const void* b_in, const void* w3,
   int th = 0, tw = 0;
   size_t smem = 0;
   for (const auto& t : kTiles) {
-    smem = smem_bytes(t[0], t[1], sizeof(T), ld);
+    smem = kMma ? smem_bytes_mma(t[0], t[1])
+                : smem_bytes(t[0], t[1], sizeof(T), ld);
     if (smem <= static_cast<size_t>(max_smem)) { th = t[0]; tw = t[1]; break; }
   }
   if (!th || cio > kMaxCio) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int tiles_w = (w + tw - 1) / tw, tiles_h = (h + th - 1) / th;
   dim3 grid(tiles_h * tiles_w, b);
-  auto run = [&](auto kernel) {
+  auto run = [&](auto kernel, int threads) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));
-    kernel<<<grid, kThreads, smem, stream>>>(
+    kernel<<<grid, threads, smem, stream>>>(
         static_cast<const T*>(x), static_cast<const T*>(w_in),
         static_cast<const float*>(b_in), static_cast<const T*>(w3),
         static_cast<const float*>(b3), static_cast<const T*>(w_out),
@@ -439,9 +564,9 @@ int launch(const void* x, const void* w_in, const void* b_in, const void* w3,
         tw, tiles_w, leaky);
   };
   if constexpr (kMma)
-    run(dse_mma_kernel);
+    run(dse_mma_kernel, kMmaThreads);
   else
-    run(dse_kernel<T>);
+    run(dse_kernel<T>, kThreads);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -449,8 +574,9 @@ int launch(const void* x, const void* w_in, const void* b_in, const void* w3,
 
 // x, out: (b, h, w, cio) contiguous NHWC in the activation dtype (fp32 or
 // bf16), cio <= 4; w_in (cio, 32), w3 in the order enh1.conv1, enh1.conv2,
-// ..., enh3.conv2, (6, 9*32, 32) rows (dy, dx, ci) in fp32 and (6, 32, 9*32)
-// [out][in] in bf16, w_out (32, cio), all in the activation dtype; b_in
+// ..., enh3.conv2: in fp32 (6, 9*32, 32) rows (dy, dx, ci); in bf16 (6,
+// 32*288), each conv [out][in = (dy, dx, ci)] in K-major core-matrix order
+// (16-byte aligned); w_out (32, cio), all in the activation dtype; b_in
 // (32,), b3 (6, 32), b_out (cio,) fp32.
 extern "C" int rgba_dse(const void* x, const void* w_in, const void* b_in,
                         const void* w3, const void* b3, const void* w_out,

@@ -33,9 +33,48 @@
 // which every block shares, are staged 16 rows at a time through the last
 // ~12 KB of shared memory by all threads together, the next chunk in
 // flight in registers while the current one is used.
-// That is the fp32 path; bf16 runs the products on the tensor cores (see
-// the bf16 path below).  The tile is the largest of a fixed list that fits
+// That is the fp32 path (TF32 or a 3xTF32 split would be a design of its
+// own: see ROADMAP).  The tile is the largest of a fixed list that fits
 // the card's shared memory for this C and dtype.
+//
+// bf16 design (gate_chain_mma_kernel<HP>, HP = C/2 rounded up to 16): the
+// same halo-fused frame, with every product on wgmma (m64 x HP x k16, bf16
+// in, fp32 accumulate) and the weights streamed, not restaged.
+// - Roles: a block is two consumer warpgroups and one producer warpgroup
+//   (384 threads; setmaxnreg moves the producer's registers to the
+//   consumers, 232 each, for the accumulators).  One producer lane walks the consumers' schedule and keeps a ring
+//   of three weight chunks (HP x 64 k, 12 KB at C=192) full with
+//   cp.async.bulk copies that complete on one mbarrier per stage; each
+//   consumer warp releases a chunk on a second mbarrier once its wgmma have
+//   read it.  No block-wide barrier per k chunk: the consumers meet on a
+//   named barrier only between the chain's phases (h0, then 3x3 + 1x1).
+// - A from registers: each warp loads its 16 pixels' A fragments with
+//   ldmatrix, whose per-lane row addresses do the region gather and the
+//   3x3 tap shift (no im2col buffer); B is the staged chunk, K-major core
+//   matrices (the wrapper lays the weights out once per weights).  Each
+//   chunk feeds two 64-pixel m-tiles per warpgroup, 256 pixels, twice the
+//   pixels per staged weight of the mma.sync design.  A region's last pass
+//   may take one m-tile per warpgroup; the count is the same in both
+//   warpgroups and, like the k steps of a chunk, fixed at compile time: a
+//   wgmma under a condition, or behind a function call, is serialised.
+// - h1 never touches shared memory: the 3x3's accumulators, biased,
+//   activated and rounded to bf16, are the A fragments of the 1x1 that
+//   follows (accumulator n-tiles 2ks, 2ks+1 are k step ks), which updates
+//   the frame in place.  C-wide products run as C/HP n-blocks of HP.
+// - K padding: C/2 -> HP with zero weights; h0's and h1's padding columns
+//   are written as exact zeros (0 * NaN is NaN).
+// - Epilogues (bias, activation, skip, sigmoid gate) run on the CUDA cores
+//   while the tensor cores idle, so their cost counts: the activation is
+//   picked once per epilogue at compile time (a runtime choice executed
+//   every activation under predicates), and GELU (tanh) and the sigmoid
+//   use the special-function unit (tanh.approx, ex2, rcp; errors far below
+//   a bf16 ulp).
+// - Shared memory at C=192, tile 8x16 (frame 14x22 = 308 pixels): frame
+//   308 x 200 + h0 308 x 104 bf16 (rows padded by 8 bf16, so ldmatrix's 8
+//   rows fall in distinct banks), 187,264 bytes, + ring 36,864 + barriers:
+//   224,176 of the 232,448 a block may have.  One block per SM.
+// - Sums in a fixed order per output (k ascending), no atomics, no split-K:
+//   two launches give the same bits.
 #include <type_traits>
 
 #include "common.cuh"
@@ -331,278 +370,369 @@ gate_chain_kernel(const T* __restrict__ x, const T* __restrict__ gin,
 }
 
 // ---------------------------------------------------------------- bf16 path
-// The same chain with its products on the tensor cores: mma.sync m16n8k16
-// (bf16 in, fp32 accumulate).  A warp takes 16 pixels of a 128-pixel pass
-// and all output columns (in chunks of 96); A fragments come from the
-// frame in shared memory, B fragments from the weights, laid out [out][in]
-// so a pair of consecutive k is one 32-bit load, staged 64 k at a time
-// through shared memory (the next chunk in flight in registers).  K runs in steps of 16: the wrapper pads the 3x3's per-tap input
-// and the 1x1-out's input from C/2 to a multiple of 16 (`halfp`) with zero
-// weights, and the padding columns of h0 and the h1 chunk are zeroed once.
-// Shared-memory rows are padded by 8 bf16, which spreads a fragment load's
-// 8 rows over distinct banks.
+// The same chain on Hopper's tensor cores (see the header's bf16 design).
+// HP: C/2 rounded up to 16, the width of every wgmma (m64 x HP x k16).
 
-constexpr int kWarps = kThreads / 32;
-constexpr int kMPass = 16 * kWarps;   // 128 pixels per pass
-constexpr int kNT = 12;               // n-tiles of 8 per chunk: 96 columns
+using bf16 = __nv_bfloat16;
+
+constexpr int kConsumers = 256;                // two warpgroups
+constexpr int kMmaThreads = kConsumers + 128;  // and a producer warpgroup
+constexpr int kMT = 2;                         // m-tiles of 64 per warpgroup
+constexpr int kKChunk = 64;                        // k per weight chunk
+constexpr int kStages = 3;                     // chunks in the ring
+
+__device__ __forceinline__ float tanh_approx(float v) {
+  float r;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+__device__ __forceinline__ float rcp_approx(float v) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+// 1 / (1 + e^-v) on the special-function unit (ex2, rcp; rcp(inf) = 0):
+// a few fp32 ulps, far below the bf16 ulp of the result.
+__device__ __forceinline__ float sigmoid_fast(float v) {
+  return rcp_approx(1.f + __expf(-v));
+}
+
+// act_fn for the bf16 path with the activation fixed at compile time (3:
+// none), so that an epilogue runs one activation, not all of them under
+// predicates; gelu (tanh) uses the hardware tanh (relative error ~2^-11, a
+// quarter of a bf16 ulp) instead of tanhf's polynomial.
+template <int A>
+__device__ __forceinline__ float act_c(float v) {
+  if constexpr (A == 0) return fmaxf(v, 0.f);
+  if constexpr (A == 1) return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+  if constexpr (A == 2) {
+    const float u = 0.7978845608028654f * (v + 0.044715f * v * v * v);
+    return 0.5f * v * (1.f + tanh_approx(u));
+  }
+  return v;
+}
+
+// body(std::integral_constant<int, act>{}) for a runtime act in 0 .. 3.
+template <class F>
+__device__ __forceinline__ void with_act(int act, F&& body) {
+  switch (act) {
+    case 0: body(std::integral_constant<int, 0>{}); break;
+    case 1: body(std::integral_constant<int, 1>{}); break;
+    case 2: body(std::integral_constant<int, 2>{}); break;
+    default: body(std::integral_constant<int, 3>{}); break;
+  }
+}
 
 struct MmaChain {
-  const __nv_bfloat16* w0; const float* b0;  // (3, C/2, C), (3, C/2)
-  const __nv_bfloat16* w1; const float* b1;  // (3, C/2, 9*halfp) k=(tap, ci)
-  const __nv_bfloat16* w2; const float* b2;  // (3, C, halfp), (3, C)
+  const bf16* w0; const float* b0;  // (3, HP*C): [n < HP][k < C]
+  const bf16* w1; const float* b1;  // (3, HP*9HP): [n < HP][k = tap*HP + ci]
+  const bf16* w2; const float* b2;  // (3, nb*HP*HP): nb n-blocks [n][ci < HP]
 };
 
-constexpr int kKM = 64;               // k staged per step
-constexpr int kLdB = kKM + 8;         // staged row stride: 36 words, 4g + t
-constexpr int kPreM = kNT * 8 * kKM / 8 / kThreads;  // uint4 per thread: 3
+// The ring of weight chunks: a weight matrix [n < HP][k < K] is stored as
+// chunks of kKChunk k (the last may be shorter), each in K-major core-matrix
+// order (rgba::core_off with kb = kc / 8) and contiguous, so chunk c starts
+// HP * kKChunk * c elements in and is one bulk copy.
+struct Ring {
+  bf16* buf;           // kStages x HP x kKChunk
+  uint64_t* full;      // kStages: the chunk landed (producer's bytes)
+  uint64_t* empty;     // kStages: the 8 consumer warps are done with it
+  int it;              // chunks consumed (or produced) so far
+};
 
-// acc[j] (j < nt) += A[16 rows] x W^T for n-tiles n0 + 8 j: rows lo / hi are
-// the shared-memory rows of this thread's fragment rows g and g + 8; w is
-// [n][k] with row stride ldw (a multiple of 8), k_len a multiple of 16.
-// The block stages W's rows n0 .. n0 + 8 nt through `wb` (8 nt x kLdB) in
-// shared memory, kKM k at a time, the next chunk in flight in registers;
-// every thread of the block must call it with the same arguments but lo/hi.
-__device__ __forceinline__ void mma_gemm(float (&acc)[kNT][4],
-                                         const __nv_bfloat16* lo,
-                                         const __nv_bfloat16* hi,
-                                         const __nv_bfloat16* __restrict__ w,
-                                         int ldw, int k_len, int n0, int nt,
-                                         __nv_bfloat16* wb) {
-  const int lane = threadIdx.x % 32, gq = lane / 4, t2 = 2 * (lane % 4);
-  uint4 pre[kPreM];
-  auto fetch = [&](int k0) {
-    const int kq = min(kKM, k_len - k0) / 8;  // uint4 per row
-#pragma unroll
-    for (int e = 0; e < kPreM; ++e) {
-      const int i = threadIdx.x + e * kThreads, row = i / (kKM / 8);
-      const int q = i % (kKM / 8);
-      if (row < 8 * nt && q < kq)
-        pre[e] = *reinterpret_cast<const uint4*>(
-            w + static_cast<size_t>(n0 + row) * ldw + k0 + 8 * q);
-    }
-  };
-  fetch(0);
-  for (int k0 = 0; k0 < k_len; k0 += kKM) {
-    const int kc = min(kKM, k_len - k0);
-    __syncthreads();  // the previous chunk is consumed
-#pragma unroll
-    for (int e = 0; e < kPreM; ++e) {
-      const int i = threadIdx.x + e * kThreads, row = i / (kKM / 8);
-      const int q = i % (kKM / 8);
-      if (row < 8 * nt && q < kc / 8)
-        *reinterpret_cast<uint4*>(wb + row * kLdB + 8 * q) = pre[e];
-    }
-    __syncthreads();
-    if (k0 + kKM < k_len) fetch(k0 + kKM);
-    for (int kk = 0; kk < kc; kk += 16) {
-      const uint32_t a[4] = {
-          rgba::ld32(lo + k0 + kk + t2), rgba::ld32(hi + k0 + kk + t2),
-          rgba::ld32(lo + k0 + kk + 8 + t2), rgba::ld32(hi + k0 + kk + 8 + t2)};
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        if (j < nt) {
-          const __nv_bfloat16* br = wb + (8 * j + gq) * kLdB + kk + t2;
-          rgba::mma_bf16(acc[j], a, rgba::ld32(br), rgba::ld32(br + 8));
-        }
-      }
-    }
+__device__ __forceinline__ int n_passes(const Geo& g, int s) {
+  const int tiles = (region_size(g, s) + 63) / 64;
+  return (tiles + 2 * kMT - 1) / (2 * kMT);
+}
+
+// The producer: every chunk of one use of an HP x K matrix, in order.
+template <int HP>
+__device__ __forceinline__ void produce(Ring& r, const bf16* w, int k_len) {
+  for (int k0 = 0; k0 < k_len; k0 += kKChunk, ++r.it) {
+    const int s = r.it % kStages;
+    rgba::mbar_wait(&r.empty[s], ((r.it / kStages) & 1) ^ 1);
+    const int bytes = HP * min(kKChunk, k_len - k0) * 2;
+    rgba::mbar_expect(&r.full[s], bytes);
+    rgba::bulk_load(r.buf + s * HP * kKChunk, w + HP * k0, bytes, &r.full[s]);
   }
 }
 
-__device__ __forceinline__ void zero_nt(float (&acc)[kNT][4]) {
+// One consumer warpgroup's share of a pass over the region inset by s:
+// m-tiles 4 p + wg + 2 i (i < nm) of 64 pixels.  nm is the same in both
+// warpgroups (it depends on the region and the pass alone, so the
+// compiler sees wgmma under a uniform condition); an m-tile past the
+// region's end reads its first pixel and stores nothing.
+struct Pass {
+  int nm;
+  int f_lane[kMT];     // frame pixel of this lane's ldmatrix row
+  int f_row[kMT][2];   // frame pixels of this thread's accumulator rows
+  bool ok[kMT][2];     // ... and whether they are in the region
+};
+
+__device__ __forceinline__ Pass make_pass(const Geo& g, int s, int p) {
+  const int np = region_size(g, s);
+  const int tiles = (np + 63) / 64;
+  const int wg = threadIdx.x / 128, wr = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32;
+  const int lrow = lane % 8 + 8 * ((lane / 8) % 2);
+  Pass ps;
+  ps.nm = min(kMT, (tiles - 2 * kMT * p + 1) / 2);
 #pragma unroll
-  for (int j = 0; j < kNT; ++j)
+  for (int i = 0; i < kMT; ++i) {
+    const int mt = 2 * kMT * p + wg + 2 * i;
+    const int q0 = mt * 64 + 16 * wr;
+    const int ql = q0 + lrow;
+    ps.f_lane[i] = region_pix(g, s, ql < np ? ql : 0);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    for (int r = 0; r < 2; ++r) {
+      const int q = q0 + lane / 4 + 8 * r;
+      ps.ok[i][r] = q < np;
+      ps.f_row[i][r] = region_pix(g, s, q < np ? q : 0);
+    }
+  }
+  return ps;
 }
 
-// This thread's two fragment rows (g, g + 8) of its warp's 16 pixels in a
-// pass over the region inset by s: frame indices and validity.
-__device__ __forceinline__ void mma_rows(const Geo& g, int s, int p0, int np,
-                                         int (&f)[2], bool (&ok)[2]) {
-  const int warp = threadIdx.x / 32, gq = (threadIdx.x % 32) / 4;
+// One chunk of KS k steps at depth k0, for MT m-tiles (all compile-time,
+// so no wgmma sits under a condition and the accumulators stay in place):
+// A through a_ptr(i, k), this lane's ldmatrix row address for m-tile i.
+template <int HP, int MT, int KS, class APtr>
+__device__ __forceinline__ void chunk_smem_a(float (&acc)[MT][HP / 2], int k0,
+                                             Ring& r, APtr a_ptr) {
+  const int s = r.it % kStages;
+  uint32_t a[MT][KS][4];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int q = p0 + 16 * warp + gq + 8 * r;
-    ok[r] = q < np;
-    f[r] = region_pix(g, s, ok[r] ? q : 0);
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int i = 0; i < MT; ++i) rgba::ldsm_x4(a[i][kk], a_ptr(i, k0 + 16 * kk));
+  rgba::mbar_wait(&r.full[s], (r.it / kStages) & 1);
+  const uint64_t desc = rgba::kmajor_desc(r.buf + s * HP * kKChunk, KS * 256);
+#pragma unroll
+  for (int i = 0; i < MT; ++i) rgba::fence_operands(acc[i]);
+  rgba::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int i = 0; i < MT; ++i) rgba::wgmma_rs<HP>(acc[i], a[i][kk], desc + 16 * kk);
+  rgba::wgmma_commit_wait();
+#pragma unroll
+  for (int i = 0; i < MT; ++i) rgba::fence_operands(acc[i]);
+  if (threadIdx.x % 32 == 0) rgba::mbar_arrive(&r.empty[s]);
+  ++r.it;
+}
+
+// acc += A (64 MT x K) x W^T, W the HP x K matrix streaming through the
+// ring in chunks of 64 k and a last one of K % 64.
+template <int HP, int MT, class APtr>
+__device__ __forceinline__ void gemm_smem_a(float (&acc)[MT][HP / 2],
+                                            int k_len, Ring& r, APtr a_ptr) {
+  int k0 = 0;
+  for (; k0 + kKChunk <= k_len; k0 += kKChunk)
+    chunk_smem_a<HP, MT, 4>(acc, k0, r, a_ptr);
+  switch ((k_len - k0) / 16) {
+    case 1: chunk_smem_a<HP, MT, 1>(acc, k0, r, a_ptr); break;
+    case 2: chunk_smem_a<HP, MT, 2>(acc, k0, r, a_ptr); break;
+    case 3: chunk_smem_a<HP, MT, 3>(acc, k0, r, a_ptr); break;
+    default: break;
   }
 }
 
-__device__ void run_chain_mma(__nv_bfloat16* cur, __nv_bfloat16* h0,
-                              __nv_bfloat16* h1c, __nv_bfloat16* wb,
-                              const MmaChain& cw, const Geo& g, int halfp,
-                              int act, int post_act) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gq = lane / 4, t2 = 2 * (lane % 4);
-  const int C = g.c, HF = g.half;
-  float acc[kNT][4];
-  int f[2];
-  bool ok[2];
+// The same for K = HP with A in registers: a[i][ks] is m-tile i's
+// fragment at depth 16 ks; the chunk of KS k steps starts at step K0.
+template <int HP, int MT, int KS, int K0>
+__device__ __forceinline__ void chunk_reg_a(float (&acc)[MT][HP / 2],
+                                            const uint32_t (&a)[MT][HP / 16][4],
+                                            Ring& r) {
+  const int s = r.it % kStages;
+  rgba::mbar_wait(&r.full[s], (r.it / kStages) & 1);
+  const uint64_t desc = rgba::kmajor_desc(r.buf + s * HP * kKChunk, KS * 256);
+#pragma unroll
+  for (int i = 0; i < MT; ++i) rgba::fence_operands(acc[i]);
+  rgba::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+      rgba::wgmma_rs<HP>(acc[i], a[i][K0 + kk], desc + 16 * kk);
+  rgba::wgmma_commit_wait();
+#pragma unroll
+  for (int i = 0; i < MT; ++i) rgba::fence_operands(acc[i]);
+  if (threadIdx.x % 32 == 0) rgba::mbar_arrive(&r.empty[s]);
+  ++r.it;
+}
+
+template <int HP, int MT>
+__device__ __forceinline__ void gemm_reg_a(float (&acc)[MT][HP / 2],
+                                           const uint32_t (&a)[MT][HP / 16][4],
+                                           Ring& r) {
+  if constexpr (HP >= 64) chunk_reg_a<HP, MT, 4, 0>(acc, a, r);
+  if constexpr (HP % 64 != 0)
+    chunk_reg_a<HP, MT, (HP % 64) / 16, HP / 64 * 4>(acc, a, r);
+}
+
+template <int HP, int MT>
+__device__ __forceinline__ void zero_acc(float (&acc)[MT][HP / 2]) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int e = 0; e < HP / 2; ++e) acc[i][e] = 0.f;
+}
+
+__device__ __forceinline__ void consumer_sync() {
+  rgba::named_sync(1, kConsumers);
+}
+
+// The producer's side of one chain: the chunks in the order run_chain_mma
+// consumes them.
+template <int HP>
+__device__ void produce_chain(Ring& r, const MmaChain& cw, const Geo& g,
+                              int nb) {
+  const int C = g.c;
   for (int blk = 0; blk < 3; ++blk) {
-    const __nv_bfloat16* w0 = cw.w0 + static_cast<size_t>(blk) * HF * C;
-    const float* b0 = cw.b0 + blk * HF;
-    const __nv_bfloat16* w1 = cw.w1 + static_cast<size_t>(blk) * HF * 9 * halfp;
-    const float* b1 = cw.b1 + blk * HF;
-    const __nv_bfloat16* w2 = cw.w2 + static_cast<size_t>(blk) * C * halfp;
-    const float* b2 = cw.b2 + blk * C;
-
-    // h0 = act(1x1(cur) + b0) on the region inset by blk; 0 outside the image
-    int np = region_size(g, blk);
-    for (int p0 = 0; p0 < np; p0 += kMPass) {
-      mma_rows(g, blk, p0, np, f, ok);
-      zero_nt(acc);
-      mma_gemm(acc, cur + f[0] * g.ldc, cur + f[1] * g.ldc, w0, C, C, 0,
-               HF / 8, wb);
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        if (!ok[r]) continue;
-        const bool inside = in_image(g, f[r]);
-#pragma unroll
-        for (int j = 0; j < kNT; ++j) {
-          const int o = 8 * j + t2;
-          if (o < HF) {
-            const float v0 = inside ? act_fn(acc[j][2 * r] + b0[o], act) : 0.f;
-            const float v1 = inside ? act_fn(acc[j][2 * r + 1] + b0[o + 1], act) : 0.f;
-            *reinterpret_cast<__nv_bfloat162*>(h0 + f[r] * g.ldh + o) =
-                __floats2bfloat162_rn(v0, v1);
-          }
-        }
-      }
+    for (int p = n_passes(g, blk); p > 0; --p)
+      produce<HP>(r, cw.w0 + static_cast<size_t>(blk) * HP * C, C);
+    for (int p = n_passes(g, blk + 1); p > 0; --p) {
+      produce<HP>(r, cw.w1 + static_cast<size_t>(blk) * 9 * HP * HP, 9 * HP);
+      for (int j = 0; j < nb; ++j)
+        produce<HP>(r, cw.w2 + (static_cast<size_t>(blk) * nb + j) * HP * HP,
+                    HP);
     }
-    __syncthreads();
-
-    // per pass of the region inset by blk + 1: h1 = act(3x3(h0) + b1) into
-    // this warp's 16 rows of the chunk, then cur = [act](1x1(h1) + b2 + cur)
-    np = region_size(g, blk + 1);
-    __nv_bfloat16* hw = h1c + 16 * warp * g.ldh;
-    for (int p0 = 0; p0 < np; p0 += kMPass) {
-      mma_rows(g, blk + 1, p0, np, f, ok);
-      zero_nt(acc);
-      for (int tap = 0; tap < 9; ++tap) {
-        const int off = (tap / 3 - 1) * g.fw + (tap % 3 - 1);
-        mma_gemm(acc, h0 + (f[0] + off) * g.ldh, h0 + (f[1] + off) * g.ldh,
-                 w1 + tap * halfp, 9 * halfp, halfp, 0, HF / 8, wb);
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-#pragma unroll
-        for (int j = 0; j < kNT; ++j) {
-          const int o = 8 * j + t2;
-          if (o < HF)
-            *reinterpret_cast<__nv_bfloat162*>(hw + (gq + 8 * r) * g.ldh + o) =
-                __floats2bfloat162_rn(act_fn(acc[j][2 * r] + b1[o], act),
-                                      act_fn(acc[j][2 * r + 1] + b1[o + 1], act));
-        }
-      }
-      __syncwarp();
-      for (int n0 = 0; n0 < C; n0 += 8 * kNT) {
-        const int nt = min(kNT, (C - n0) / 8);
-        zero_nt(acc);
-        mma_gemm(acc, hw + gq * g.ldh, hw + (gq + 8) * g.ldh, w2, halfp,
-                 halfp, n0, nt, wb);
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          if (!ok[r]) continue;
-#pragma unroll
-          for (int j = 0; j < kNT; ++j) {
-            if (j >= nt) continue;
-            const int o = n0 + 8 * j + t2;
-            __nv_bfloat162* dst =
-                reinterpret_cast<__nv_bfloat162*>(cur + f[r] * g.ldc + o);
-            const float2 skip = __bfloat1622float2(*dst);
-            float v0 = acc[j][2 * r] + b2[o] + skip.x;
-            float v1 = acc[j][2 * r + 1] + b2[o + 1] + skip.y;
-            if (post_act) { v0 = act_fn(v0, act); v1 = act_fn(v1, act); }
-            *dst = __floats2bfloat162_rn(v0, v1);
-          }
-        }
-      }
-      __syncwarp();  // the warp's chunk rows are refilled by the next pass
-    }
-    __syncthreads();
   }
 }
 
-// one block per SM at these shared-memory sizes: let it take the registers
-__global__ void __launch_bounds__(kThreads, 1)
-gate_chain_mma_kernel(const __nv_bfloat16* __restrict__ x,
-                      const __nv_bfloat16* __restrict__ gin, MmaChain trunk,
-                      MmaChain gate, const __nv_bfloat16* __restrict__ fwt,
-                      const float* __restrict__ fb, __nv_bfloat16* out, int h,
-                      int w, int c, int th, int tw, int tiles_w, int act,
-                      int post_act) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  using bf16 = __nv_bfloat16;
-  Geo g;
-  g.h = h; g.w = w; g.c = c; g.half = c / 2;
-  g.th = th; g.tw = tw; g.fw = tw + 2 * kHalo;
-  g.nf = (th + 2 * kHalo) * g.fw;
-  const int ti = blockIdx.x / tiles_w, tj = blockIdx.x % tiles_w;
-  g.r0 = ti * th - kHalo;
-  g.c0 = tj * tw - kHalo;
-  const int halfp = (g.half + 15) / 16 * 16;
-  g.ldc = c + 8;
-  g.ldh = halfp + 8;
-  bf16* cur = reinterpret_cast<bf16*>(smem_raw);
-  bf16* h0 = cur + g.nf * g.ldc;
-  bf16* h1c = h0 + g.nf * g.ldh;
-  bf16* wb = h1c + kMPass * g.ldh;
-  // the K padding of h0 and the chunk is read (against zero weights) and
-  // never written: zero it, since 0 * NaN is NaN
-  const int padw = halfp - g.half;
-  for (int i = threadIdx.x; i < (g.nf + kMPass) * padw; i += kThreads) {
-    const int row = i / padw, col = g.half + i % padw;
-    (row < g.nf ? h0 + row * g.ldh : h1c + (row - g.nf) * g.ldh)[col] =
-        __float2bfloat16(0.f);
-  }
-
-  const size_t img = static_cast<size_t>(blockIdx.y) * h * w * c;
-  load_frame<bf16>(cur, x + img, g);
-  run_chain_mma(cur, h0, h1c, wb, trunk, g, halfp, act, post_act);
-
-  // the trunk's tile goes to `out`; the final pass below reads it back
-  for (int i = threadIdx.x; i < th * tw * c; i += kThreads) {
-    const int p = i / c, ch = i - p * c;
-    const int r = g.r0 + kHalo + p / tw, col = g.c0 + kHalo + p % tw;
-    if (r < h && col < w)
-      out[img + (static_cast<size_t>(r) * w + col) * c + ch] =
-          cur[((kHalo + p / tw) * g.fw + kHalo + p % tw) * g.ldc + ch];
-  }
-  __syncthreads();
-
-  load_frame<bf16>(cur, (gin ? gin : x) + img, g);
-  run_chain_mma(cur, h0, h1c, wb, gate, g, halfp, act, post_act);
-
-  // out = x + trunk * sigmoid(1x1(gate) + fb) on the tile
-  const int t2 = 2 * (threadIdx.x % 4);
-  float acc[kNT][4];
-  int f[2];
-  bool ok[2];
-  const int np = th * tw;
-  for (int p0 = 0; p0 < np; p0 += kMPass) {
-    mma_rows(g, kHalo, p0, np, f, ok);
-    for (int n0 = 0; n0 < c; n0 += 8 * kNT) {
-      const int nt = min(kNT, (c - n0) / 8);
-      zero_nt(acc);
-      mma_gemm(acc, cur + f[0] * g.ldc, cur + f[1] * g.ldc, fwt, c, c, n0,
-               nt, wb);
+// h0 = act(1x1(cur) + b0) for one pass of MT m-tiles; 0 outside the image
+// and in the K padding columns HF .. HP.
+template <int HP, int MT>
+__device__ __forceinline__ void h0_pass(bf16* cur, bf16* h0, Ring& r,
+                                        const Pass& ps, const Geo& g,
+                                        const float* b0, int act) {
+  const int lane = threadIdx.x % 32;
+  const int t2 = 2 * (lane % 4), kl = 8 * (lane / 16);
+  float acc[MT][HP / 2];
+  zero_acc<HP, MT>(acc);
+  gemm_smem_a<HP, MT>(acc, g.c, r, [&](int i, int k) {
+    return cur + ps.f_lane[i] * g.ldc + k + kl;
+  });
+  with_act(act, [&](auto A) {
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        if (!ok[r]) continue;
-        const int ir = g.r0 + f[r] / g.fw, ic = g.c0 + f[r] % g.fw;
-        if (ir >= h || ic >= w) continue;
-        const size_t base = img + (static_cast<size_t>(ir) * w + ic) * c;
+    for (int i = 0; i < MT; ++i) {
 #pragma unroll
-        for (int j = 0; j < kNT; ++j) {
-          if (j >= nt) continue;
-          const int o = n0 + 8 * j + t2;
+      for (int rr = 0; rr < 2; ++rr) {
+        if (!ps.ok[i][rr]) continue;
+        const int f = ps.f_row[i][rr];
+        const bool inside = in_image(g, f);
+#pragma unroll
+        for (int j = 0; j < HP / 8; ++j) {
+          const int o = 8 * j + t2;
+          const bool live = inside && o < g.half;
+          const float v0 = live ? act_c<decltype(A)::value>(acc[i][4 * j + 2 * rr] + b0[o]) : 0.f;
+          const float v1 = live ? act_c<decltype(A)::value>(acc[i][4 * j + 2 * rr + 1] + b0[o + 1]) : 0.f;
+          *reinterpret_cast<__nv_bfloat162*>(h0 + f * g.ldh + o) =
+              __floats2bfloat162_rn(v0, v1);
+        }
+      }
+    }
+  });
+}
+
+// h1 = act(3x3(h0) + b1), kept in registers as the A fragments of cur =
+// [act](1x1(h1) + b2 + cur), for one pass of MT m-tiles.
+template <int HP, int MT>
+__device__ __forceinline__ void conv_pass(bf16* cur, const bf16* h0, Ring& r,
+                                          const Pass& ps, const Geo& g,
+                                          const float* b1, const float* b2,
+                                          int nb, int act, int post_act) {
+  const int lane = threadIdx.x % 32;
+  const int t2 = 2 * (lane % 4), kl = 8 * (lane / 16);
+  uint32_t h1[MT][HP / 16][4];
+  {
+    float acc[MT][HP / 2];
+    zero_acc<HP, MT>(acc);
+    gemm_smem_a<HP, MT>(acc, 9 * HP, r, [&](int i, int k) {
+      const int tap = k / HP;
+      const int off = (tap / 3 - 1) * g.fw + (tap % 3 - 1);
+      return h0 + (ps.f_lane[i] + off) * g.ldh + (k - tap * HP) + kl;
+    });
+    // accumulator n-tiles 2 ks and 2 ks + 1 are the A fragment of k step
+    // ks (rows g, g + 8; k 2t .. and 8 + 2t ..)
+    with_act(act, [&](auto A) {
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int ks = 0; ks < HP / 16; ++ks)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int j = 2 * ks + e / 2, rr = e % 2;
+            const int o = 8 * j + t2;
+            const bool live = o < g.half;
+            h1[i][ks][e] = rgba::pack_bf16(
+                live ? act_c<decltype(A)::value>(acc[i][4 * j + 2 * rr] + b1[o]) : 0.f,
+                live ? act_c<decltype(A)::value>(acc[i][4 * j + 2 * rr + 1] + b1[o + 1]) : 0.f);
+          }
+    });
+  }
+  for (int nbk = 0; nbk < nb; ++nbk) {
+    float acc[MT][HP / 2];
+    zero_acc<HP, MT>(acc);
+    gemm_reg_a<HP, MT>(acc, h1, r);
+    with_act(post_act ? act : 3, [&](auto P) {
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          if (!ps.ok[i][rr]) continue;
+          bf16* row = cur + ps.f_row[i][rr] * g.ldc;
+#pragma unroll
+          for (int j = 0; j < HP / 8; ++j) {
+            const int o = nbk * HP + 8 * j + t2;
+            if (o >= g.c) continue;
+            __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(row + o);
+            const float2 skip = __bfloat1622float2(*dst);
+            *dst = __floats2bfloat162_rn(
+                act_c<decltype(P)::value>(acc[i][4 * j + 2 * rr] + b2[o] + skip.x),
+                act_c<decltype(P)::value>(acc[i][4 * j + 2 * rr + 1] + b2[o + 1] + skip.y));
+          }
+        }
+      }
+    });
+  }
+}
+
+// out = x + trunk * sigmoid(1x1(gate) + fb) for one pass over the tile.
+template <int HP, int MT>
+__device__ __forceinline__ void final_pass(const bf16* cur, Ring& r,
+                                           const Pass& ps, const Geo& g,
+                                           const bf16* x, const float* fb,
+                                           bf16* out, size_t img, int nb) {
+  const int lane = threadIdx.x % 32;
+  const int t2 = 2 * (lane % 4), kl = 8 * (lane / 16);
+  for (int nbk = 0; nbk < nb; ++nbk) {
+    float acc[MT][HP / 2];
+    zero_acc<HP, MT>(acc);
+    gemm_smem_a<HP, MT>(acc, g.c, r, [&](int i, int k) {
+      return cur + ps.f_lane[i] * g.ldc + k + kl;
+    });
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        if (!ps.ok[i][rr]) continue;
+        const int f = ps.f_row[i][rr];
+        const int ir = g.r0 + f / g.fw, ic = g.c0 + f % g.fw;
+        if (ir >= g.h || ic >= g.w) continue;
+        const size_t base = img + (static_cast<size_t>(ir) * g.w + ic) * g.c;
+#pragma unroll
+        for (int j = 0; j < HP / 8; ++j) {
+          const int o = nbk * HP + 8 * j + t2;
+          if (o >= g.c) continue;
           const float2 xv = __bfloat1622float2(
               *reinterpret_cast<const __nv_bfloat162*>(x + base + o));
           __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(out + base + o);
           const float2 tv = __bfloat1622float2(*dst);
-          const float s0 = 1.f / (1.f + expf(-(acc[j][2 * r] + fb[o])));
-          const float s1 = 1.f / (1.f + expf(-(acc[j][2 * r + 1] + fb[o + 1])));
+          const float s0 = sigmoid_fast(acc[i][4 * j + 2 * rr] + fb[o]);
+          const float s1 = sigmoid_fast(acc[i][4 * j + 2 * rr + 1] + fb[o + 1]);
           *dst = __floats2bfloat162_rn(xv.x + tv.x * s0, xv.y + tv.y * s1);
         }
       }
@@ -610,10 +740,133 @@ gate_chain_mma_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
+// One chain over the frame in `cur`, in place, by the two consumer
+// warpgroups; on return the tile holds the chain's output.  A pass takes
+// two m-tiles per warpgroup, or one (the same in both warpgroups).
+// Inlined: a wgmma pipeline that crosses a function call is serialised.
+template <int HP>
+__device__ __forceinline__ void run_chain_mma(bf16* cur, bf16* h0, Ring& r, const MmaChain& cw,
+                              const Geo& g, int nb, int act, int post_act) {
+  for (int blk = 0; blk < 3; ++blk) {
+    const float* b0 = cw.b0 + blk * g.half;
+    const float* b1 = cw.b1 + blk * g.half;
+    const float* b2 = cw.b2 + blk * g.c;
+    for (int p = 0, np = n_passes(g, blk); p < np; ++p) {
+      const Pass ps = make_pass(g, blk, p);
+      if (ps.nm == 2) h0_pass<HP, 2>(cur, h0, r, ps, g, b0, act);
+      else h0_pass<HP, 1>(cur, h0, r, ps, g, b0, act);
+    }
+    consumer_sync();
+    for (int p = 0, np = n_passes(g, blk + 1); p < np; ++p) {
+      const Pass ps = make_pass(g, blk + 1, p);
+      if (ps.nm == 2) conv_pass<HP, 2>(cur, h0, r, ps, g, b1, b2, nb, act, post_act);
+      else conv_pass<HP, 1>(cur, h0, r, ps, g, b1, b2, nb, act, post_act);
+    }
+    consumer_sync();
+  }
+}
+
+// The frame around the tile, from img (0 outside the image), by the
+// consumers with cp.async.
+__device__ __forceinline__ void load_frame_async(bf16* cur, const bf16* img,
+                                                 const Geo& g) {
+  const int q = g.c / 8;  // 16-byte pieces of a pixel
+  for (int i = threadIdx.x; i < g.nf * q; i += kConsumers) {
+    const int f = i / q, k = i - f * q;
+    const int r = g.r0 + f / g.fw, col = g.c0 + f % g.fw;
+    const bool inside = r >= 0 && r < g.h && col >= 0 && col < g.w;
+    rgba::cp_async16(cur + f * g.ldc + 8 * k,
+                     inside ? img + (static_cast<size_t>(r) * g.w + col) * g.c + 8 * k
+                            : img, inside);
+  }
+  rgba::cp_async_commit();
+  rgba::cp_async_wait<0>();
+  consumer_sync();
+}
+
+template <int HP>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+gate_chain_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gin,
+                      MmaChain trunk, MmaChain gate,
+                      const bf16* __restrict__ fwt,
+                      const float* __restrict__ fb, bf16* out, int h, int w,
+                      int c, int th, int tw, int tiles_w, int act,
+                      int post_act) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Geo g;
+  g.h = h; g.w = w; g.c = c; g.half = c / 2;
+  g.th = th; g.tw = tw; g.fw = tw + 2 * kHalo;
+  g.nf = (th + 2 * kHalo) * g.fw;
+  const int ti = blockIdx.x / tiles_w, tj = blockIdx.x % tiles_w;
+  g.r0 = ti * th - kHalo;
+  g.c0 = tj * tw - kHalo;
+  g.ldc = c + 8;       // 16-byte rows an odd number of 16 bytes apart:
+  g.ldh = HP + 8;      // ldmatrix's 8 rows fall in distinct banks
+  const int nb = (c + HP - 1) / HP;   // n-blocks of the C-wide products
+  bf16* cur = reinterpret_cast<bf16*>(smem_raw);
+  bf16* h0 = cur + g.nf * g.ldc;
+  const size_t frames = (static_cast<size_t>(g.nf) * (g.ldc + g.ldh) * 2 + 127) / 128 * 128;
+  Ring r;
+  r.buf = reinterpret_cast<bf16*>(smem_raw + frames);
+  r.full = reinterpret_cast<uint64_t*>(r.buf + kStages * HP * kKChunk);
+  r.empty = r.full + kStages;
+  r.it = 0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      rgba::mbar_init(&r.full[s], 1);
+      rgba::mbar_init(&r.empty[s], kConsumers / 32);
+    }
+    rgba::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // the producer warpgroup gives its registers to the consumers; one
+    // lane walks the consumers' schedule of chunks
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == kConsumers) {
+      produce_chain<HP>(r, trunk, g, nb);
+      produce_chain<HP>(r, gate, g, nb);
+      for (int p = n_passes(g, kHalo); p > 0; --p)
+        for (int j = 0; j < nb; ++j)
+          produce<HP>(r, fwt + static_cast<size_t>(j) * HP * c, c);
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+
+  const size_t img = static_cast<size_t>(blockIdx.y) * h * w * c;
+  load_frame_async(cur, x + img, g);
+  run_chain_mma<HP>(cur, h0, r, trunk, g, nb, act, post_act);
+
+  // the trunk's tile goes to `out`; the final pass below reads it back
+  const int q = c / 8;
+  for (int i = threadIdx.x; i < th * tw * q; i += kConsumers) {
+    const int p = i / q, k = i - p * q;
+    const int rr = g.r0 + kHalo + p / tw, col = g.c0 + kHalo + p % tw;
+    if (rr < h && col < w)
+      *reinterpret_cast<uint4*>(out + img + (static_cast<size_t>(rr) * w + col) * c + 8 * k) =
+          *reinterpret_cast<const uint4*>(
+              cur + ((kHalo + p / tw) * g.fw + kHalo + p % tw) * g.ldc + 8 * k);
+  }
+  consumer_sync();
+
+  load_frame_async(cur, (gin ? gin : x) + img, g);
+  run_chain_mma<HP>(cur, h0, r, gate, g, nb, act, post_act);
+
+  // out = x + trunk * sigmoid(1x1(gate) + fb) on the tile
+  for (int p = 0, np = n_passes(g, kHalo); p < np; ++p) {
+    const Pass ps = make_pass(g, kHalo, p);
+    if (ps.nm == 2) final_pass<HP, 2>(cur, r, ps, g, x, fb, out, img, nb);
+    else final_pass<HP, 1>(cur, r, ps, g, x, fb, out, img, nb);
+  }
+}
+
 size_t smem_bytes_mma(int c, int th, int tw) {
   const size_t nf = static_cast<size_t>(th + 2 * kHalo) * (tw + 2 * kHalo);
-  const size_t halfp = (c / 2 + 15) / 16 * 16;
-  return 2 * (nf * (c + 8) + (nf + kMPass) * (halfp + 8) + 8 * kNT * kLdB);
+  const size_t hp = (c / 2 + 15) / 16 * 16;
+  const size_t frames = (nf * ((c + 8) + (hp + 8)) * 2 + 127) / 128 * 128;
+  return frames + kStages * hp * kKChunk * 2 + 2 * kStages * sizeof(uint64_t);
 }
 
 size_t smem_bytes(int c, int th, int tw, size_t es) {
@@ -647,18 +900,28 @@ int launch(const void* x, const void* g, const void* const* tw_,
   const int tiles_w = (w + tw - 1) / tw, tiles_h = (h + th - 1) / th;
   dim3 grid(tiles_h * tiles_w, b);
   if constexpr (kMma) {
-    cudaFuncSetAttribute(gate_chain_mma_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
     auto chain = [](const void* const* p) {
       return MmaChain{static_cast<const T*>(p[0]), static_cast<const float*>(p[1]),
                       static_cast<const T*>(p[2]), static_cast<const float*>(p[3]),
                       static_cast<const T*>(p[4]), static_cast<const float*>(p[5])};
     };
-    gate_chain_mma_kernel<<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(g), chain(tw_),
-        chain(gw_), static_cast<const T*>(fw), static_cast<const float*>(fb),
-        static_cast<T*>(out), h, w, c, th, tw, tiles_w, act, post_act);
+    auto run = [&](auto kernel) {
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+      kernel<<<grid, kMmaThreads, smem, stream>>>(
+          static_cast<const T*>(x), static_cast<const T*>(g), chain(tw_),
+          chain(gw_), static_cast<const T*>(fw), static_cast<const float*>(fb),
+          static_cast<T*>(out), h, w, c, th, tw, tiles_w, act, post_act);
+    };
+    switch ((c / 2 + 15) / 16 * 16) {
+      case 16: run(gate_chain_mma_kernel<16>); break;
+      case 32: run(gate_chain_mma_kernel<32>); break;
+      case 48: run(gate_chain_mma_kernel<48>); break;
+      case 64: run(gate_chain_mma_kernel<64>); break;
+      case 80: run(gate_chain_mma_kernel<80>); break;
+      case 96: run(gate_chain_mma_kernel<96>); break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   } else {
     cudaFuncSetAttribute(gate_chain_kernel<T>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -679,11 +942,14 @@ int launch(const void* x, const void* g, const void* const* tw_,
 }  // namespace
 
 // x, out: (b, h, w, c) contiguous NHWC in the activation dtype (fp32 or
-// bf16); g: the same, or null for g = x.  trunk / gate: 6 pointers each,
-// w0 b0 w1 b1 w2 b2, weights in the activation dtype and biases fp32: in
-// fp32 as in Chain with fw (c, c) [in, out]; in bf16 as in MmaChain with fw
-// (c, c) [out, in].  act: 0 relu, 1 gelu (erf), 2 gelu (tanh).  c even and
-// <= 192, and a multiple of 16 in bf16 (checked by the Python wrapper).
+// bf16), 16-byte aligned; g: the same, or null for g = x.  trunk / gate: 6
+// pointers each, w0 b0 w1 b1 w2 b2, weights in the activation dtype and
+// biases fp32, b0 (3, C/2), b1 (3, C/2), b2 (3, C).  fp32: weights as in
+// Chain, fw (c, c) [in, out].  bf16: as in MmaChain and fw (nb, HP*c), each
+// matrix [out][in] with zero rows and columns up to HP (n-blocks of HP
+// rows), stored in chunks of 64 k in K-major core-matrix order (see Ring).
+// act: 0 relu, 1 gelu (erf), 2 gelu (tanh).  c even and <= 192, and a
+// multiple of 16 in bf16 (checked by the Python wrapper).
 extern "C" int rgba_gate_chain(const void* x, const void* g,
                                const void* const* trunk,
                                const void* const* gate, const void* fw,

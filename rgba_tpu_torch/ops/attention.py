@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from ..core import init
 from ..core.precision import Policy
 from .conv import Conv, GELU, conv2d
+from .kernels import gate_chain as gck
 from .kernels.gate_chain import (GateChainWeights, activation,
                                  fused_gate_chain)
 from .kernels.nhwc import hwio3x3, io1x1
@@ -35,6 +36,14 @@ from .kernels.win_attn import fused_window_attention, kernel_weights
 from .window import (relative_position_index, swin_attention_bias,
                      swin_region_ids, window_alive, window_partition,
                      window_reverse)
+
+
+def param_key(params) -> tuple:
+    """Storage and version of each parameter: a cache built from them holds
+    until one is written or moved (inference tensors keep no version, so
+    only a move counts for them)."""
+    return tuple((p.data_ptr(), -1 if p.is_inference() else p._version)
+                 for p in params)
 
 
 class WindowAttention(nn.Module):
@@ -77,8 +86,7 @@ class WindowAttention(nn.Module):
         version, so only a move counts for them)."""
         params = (self.qkv.weight, self.qkv.bias, self.proj.weight,
                   self.proj.bias, self.relative_position_bias_table)
-        key = (dtype, *((p.data_ptr(), -1 if p.is_inference() else p._version)
-                        for p in params))
+        key = (dtype, *param_key(params))
         if self._kernel_cache[0] != key:
             with torch.no_grad():
                 wts = kernel_weights(self.qkv.weight.t(), self.qkv.bias,
@@ -249,9 +257,23 @@ def gate_kernel_weights(p):
 class _Gate(nn.Module):
     """What the two gate modules share: the plain gate and the kernel route
     over ``gate_parameters()``, with the module's ``act`` and ``post_act``."""
+    _kernel_cache = (None, None)   # (key, GateKernelWeights)
 
     def gate_chain_weights(self):
         return gate_kernel_weights(self.gate_parameters())
+
+    def kernel_layout(self, dtype):
+        """The kernel's layout of the gate's weights for ``dtype``
+        (``gate_chain.kernel_weights``), built once and kept until a
+        parameter is written or moved (an optimizer step bumps its
+        version)."""
+        params = self.gate_parameters()
+        key = (dtype, *param_key(params))
+        if self._kernel_cache[0] != key:
+            with torch.no_grad():
+                self._kernel_cache = (key, gck.kernel_weights(
+                    *gate_kernel_weights(params), dtype))
+        return self._kernel_cache[1]
 
     def gate(self, x, g=None):
         """The plain gate around g (the attention output, or x itself)."""
@@ -264,6 +286,7 @@ class _Gate(nn.Module):
         gate's parameters; their gradients come from ``gate_plain``."""
         dt = self.policy.compute_dtype
         act, post_act = self.act, self.post_act
+        prepared = self.kernel_layout(dt) if x.is_cuda else None
 
         def rows(t):
             return (None if t is None
@@ -274,7 +297,7 @@ class _Gate(nn.Module):
 
         def fused(xr, gr, *ps):
             return fused_gate_chain(xr, gr, *gate_kernel_weights(ps), act,
-                                    post_act)
+                                    post_act, prepared)
 
         def plain(xr, gr, *ps):
             return rows(gate_plain(nchw(xr), nchw(gr), ps, self.policy, act,

@@ -18,6 +18,8 @@ import torch.nn.functional as F
 
 from ..core.precision import Policy
 from .conv import Conv, conv2d
+from .attention import param_key
+from .kernels import dse as dsek
 from .kernels.dse import fused_dse
 from .kernels.nhwc import hwio3x3, io1x1
 from .kernels.remat import fused_primal_plain_grad
@@ -46,9 +48,22 @@ class DSE(nn.Module):
         self.enh3 = EnhancementBlock(filters, **kw)
         self.output_conv = Conv(filters, in_ch, 1, 1, **kw)
 
+    _kernel_cache = (None, None)   # (key, the kernel's weight layout)
+
     def kernel_weights(self):
         """(w_in, b_in, w3, b3, w_out, b_out) as the DSE kernel takes them."""
         return dse_kernel_weights(list(self.parameters()))
+
+    def kernel_layout(self, dtype):
+        """The kernel's layout of the weights for ``dtype``
+        (``dse.kernel_weights``), built once and kept until a parameter is
+        written or moved (an optimizer step bumps its version)."""
+        key = (dtype, *param_key(self.parameters()))
+        if self._kernel_cache[0] != key:
+            with torch.no_grad():
+                self._kernel_cache = (key, dsek.kernel_weights(
+                    *self.kernel_weights(), dtype))
+        return self._kernel_cache[1]
 
     def forward(self, x):
         p = self.policy
@@ -65,9 +80,11 @@ class DSE(nn.Module):
         x and the module's parameters; their gradients come from
         ``dse_chain``."""
         dt = self.policy.compute_dtype
+        prepared = self.kernel_layout(dt) if x.is_cuda else None
 
         def fused(r, *ps):
-            return fused_dse(r, *dse_kernel_weights(ps), leaky=self.leaky)
+            return fused_dse(r, *dse_kernel_weights(ps), leaky=self.leaky,
+                             prepared=prepared)
 
         def plain(r, *ps):
             out = dse_chain(r.permute(0, 3, 1, 2), ps, self.policy, self.leaky)

@@ -10,7 +10,9 @@ come from the plain version (``remat.py``).
 
 Weights: w_in (cio, 32), b_in (32,), w3 (6, 288, 32) with rows (dy, dx,
 ci) in the order enh1.conv1, enh1.conv2, ..., enh3.conv2, b3 (6, 32),
-w_out (32, cio), b_out (cio,).
+w_out (32, cio), b_out (cio,).  The kernel reads them in a layout of its
+own (``kernel_weights``), which the module that owns the weights builds
+once and passes as ``prepared=``.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch.nn.functional as F
 from .build import CudaKernel
 from .nhwc import conv1x1, conv3x3
 from .remat import fused_primal_plain_grad, needs_grad
+from .win_attn import core_matrices
 
 KERNEL = CudaKernel("dse.cu", "rgba_dse", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -54,14 +57,28 @@ def dse_plain(x, w_in, b_in, w3, b3, w_out, b_out, leaky: bool):
     return (conv1x1(merged, w_out, b_out) + x.float()).to(dt)
 
 
-def fused_dse(x, w_in, b_in, w3, b3, w_out, b_out, leaky: bool):
+def kernel_weights(w_in, b_in, w3, b3, w_out, b_out, dtype):
+    """The weights -> the layout the kernel reads for activations of
+    ``dtype``: weights in ``dtype``, biases fp32; in bf16 each 3x3 becomes
+    [out][in] (32, 288) in wgmma's K-major core-matrix order, (6, 9216)."""
+    if dtype == torch.bfloat16:
+        w3 = core_matrices(w3.to(dtype).transpose(1, 2)).reshape(6, -1)
+    return (w_in.to(dtype).contiguous(), b_in.float().contiguous(),
+            w3.to(dtype).contiguous(), b3.float().contiguous(),
+            w_out.to(dtype).contiguous(), b_out.float().contiguous())
+
+
+def fused_dse(x, w_in, b_in, w3, b3, w_out, b_out, leaky: bool,
+              prepared=None):
     """x: (B, H, W, cio) NHWC, fp32 or bf16, cio <= 4.  Returns x's shape
     and dtype.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel.  Tensors that need a gradient get it from ``dse_plain``."""
+    kernel.  ``prepared``: the weights' ``kernel_weights`` for x's dtype,
+    which the kernel then reads instead of laying the weights out again on
+    every call.  Tensors that need a gradient get it from ``dse_plain``."""
     diff = (x, w_in, b_in, w3, b3, w_out, b_out)
     if needs_grad(diff):
         return fused_primal_plain_grad(
-            lambda *a: fused_dse(*a, leaky=leaky),
+            lambda *a: fused_dse(*a, leaky=leaky, prepared=prepared),
             lambda *a: dse_plain(*a, leaky=leaky), diff)
     if x.device.type == "cpu":
         return dse_plain(x, w_in, b_in, w3, b3, w_out, b_out, leaky)
@@ -87,16 +104,16 @@ def fused_dse(x, w_in, b_in, w3, b3, w_out, b_out, leaky: bool):
                              f"{x.device}")
     if not x.is_contiguous():
         raise ValueError("fused_dse: x must be contiguous NHWC")
-    # bf16 runs the 3x3s on the tensor cores, which read [out][in] weights
-    if dt == torch.bfloat16:
-        w3 = w3.transpose(1, 2)
-    ws = [t.to(dt).contiguous() for t in (w_in, w3, w_out)]
-    bs = [t.float().contiguous() for t in (b_in, b3, b_out)]
+    if prepared is None:
+        prepared = kernel_weights(w_in, b_in, w3, b3, w_out, b_out, dt)
+    elif (prepared[2].dtype != dt or prepared[2].device != x.device
+          or prepared[0].shape != (cio, f)):
+        raise ValueError("fused_dse: prepared weights do not match x's "
+                         "dtype, device or channels")
     out = torch.empty_like(x)
     if x.numel():
-        KERNEL.launch(x.data_ptr(), ws[0].data_ptr(), bs[0].data_ptr(),
-                      ws[1].data_ptr(), bs[1].data_ptr(), ws[2].data_ptr(),
-                      bs[2].data_ptr(), out.data_ptr(), b, h, w, cio,
-                      int(leaky), int(dt == torch.bfloat16),
+        KERNEL.launch(x.data_ptr(), *(t.data_ptr() for t in prepared),
+                      out.data_ptr(), b, h, w, cio, int(leaky),
+                      int(dt == torch.bfloat16),
                       torch.cuda.current_stream(x.device).cuda_stream)
     return out

@@ -10,7 +10,9 @@ come from the plain version (``remat.py``).
 
 A chain's weights are a ``GateChainWeights`` with the three blocks stacked:
 w0 (3, C, C/2), w1 (3, 9*C/2, C/2) with rows (dy, dx, ci), w2 (3, C/2, C)
-and biases b0 (3, C/2), b1 (3, C/2), b2 (3, C).
+and biases b0 (3, C/2), b1 (3, C/2), b2 (3, C).  The kernel reads them in
+a layout of its own (``kernel_weights``), which the module that owns the
+weights builds once and passes as ``prepared=``.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch.nn.functional as F
 from .build import CudaKernel
 from .nhwc import conv1x1, conv3x3
 from .remat import fused_primal_plain_grad, needs_grad
+from .win_attn import _up16, core_matrices
 
 KERNEL = CudaKernel("gate_chain.cu", "rgba_gate_chain", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -34,6 +37,7 @@ KERNEL = CudaKernel("gate_chain.cu", "rgba_gate_chain", [
 _DTYPES = (torch.float32, torch.bfloat16)
 ACTS = ("relu", "gelu_erf", "gelu_tanh")
 MAX_CHANNELS = 192   # register tiles of csrc/gate_chain.cu (12 x 16 columns)
+CHUNK_K = 64         # k per weight chunk of the bf16 kernel's ring
 
 
 class GateChainWeights(NamedTuple):
@@ -75,36 +79,82 @@ def gate_chain_plain(x, g, trunk: GateChainWeights, gate: GateChainWeights,
     return (x.float() + t.float() * s).to(x.dtype)
 
 
-def _kernel_layout(cw: GateChainWeights, dt, bf16: bool):
-    """The chain's weights as the kernel reads them.  fp32: as given.  bf16
-    (tensor cores): [out][in] matrices, the 3x3's per-tap input and the
-    last 1x1's input zero-padded from C/2 to a multiple of 16."""
-    ws = [cw.w0, cw.w1, cw.w2]
-    if bf16:
-        half = cw.w0.shape[-1]
-        pad = -half % 16
-        w1 = cw.w1.reshape(3, 9, half, half)
-        ws = [cw.w0.transpose(1, 2),
-              F.pad(w1, (0, 0, 0, pad)).permute(0, 3, 1, 2).reshape(
-                  3, half, 9 * (half + pad)),
-              F.pad(cw.w2, (0, 0, 0, pad)).transpose(1, 2)]
-    bs = [cw.b0, cw.b1, cw.b2]
-    return [t for w, b in zip(ws, bs)
-            for t in (w.to(dt).contiguous(), b.float().contiguous())]
+def chunked_core(w):
+    """(..., n, k) -> (..., n * k): the bf16 kernel's stream of one weight
+    matrix, chunks of CHUNK_K k (the last may be shorter), each in wgmma's
+    K-major core-matrix order (``core_matrices``), one after the other;
+    n and k multiples of 8."""
+    k = w.shape[-1]
+    return torch.cat([core_matrices(w[..., k0:k0 + CHUNK_K]).flatten(-4)
+                      for k0 in range(0, k, CHUNK_K)], dim=-1)
+
+
+def mma_weights(cw: GateChainWeights):
+    """One chain's bf16 matrices as the kernel multiplies them, [out][in]
+    and zero padded, before ``chunked_core``: with half = C/2 and hp = half
+    rounded up to 16, w0 (3, hp, C); w1 (3, hp, 9 * hp) with k = (tap, ci);
+    w2 (3, nb, hp, hp), nb = ceil(C / hp) n-blocks of the C outputs."""
+    c, half = cw.w0.shape[1], cw.w0.shape[2]
+    hp = _up16(half)
+    nb = -(-c // hp)
+    w0 = F.pad(cw.w0.transpose(1, 2), (0, 0, 0, hp - half))
+    w1 = F.pad(cw.w1.reshape(3, 9, half, half),
+               (0, hp - half, 0, hp - half)).permute(0, 3, 1, 2)
+    w2 = F.pad(cw.w2.transpose(1, 2), (0, hp - half, 0, nb * hp - c))
+    return w0, w1.reshape(3, hp, 9 * hp), w2.reshape(3, nb, hp, hp)
+
+
+class GateKernelWeights(NamedTuple):
+    """Everything the kernel reads besides x and g, in the layout of one
+    dtype (``kernel_weights``): each chain as (w0, b0, w1, b1, w2, b2) and
+    the final 1x1.  fp32 keeps the ``GateChainWeights`` layout and fw (C, C)
+    [in, out]; bf16 holds ``mma_weights`` and fw [out][in] (nb, hp, C), each
+    as ``chunked_core`` streams.  Biases are fp32."""
+    trunk: tuple
+    gate: tuple
+    fw: torch.Tensor
+    fb: torch.Tensor
+
+
+def kernel_weights(trunk: GateChainWeights, gate: GateChainWeights, fw, fb,
+                   dtype) -> GateKernelWeights:
+    """The gate's weights -> the layout the kernel reads for activations
+    of ``dtype``."""
+    def chain(cw):
+        ws = [cw.w0, cw.w1, cw.w2]
+        if dtype == torch.bfloat16:
+            ws = [chunked_core(w.to(dtype)) for w in mma_weights(cw)]
+            ws[2] = ws[2].reshape(3, -1)
+        bs = [cw.b0, cw.b1, cw.b2]
+        return tuple(t for w, b in zip(ws, bs)
+                     for t in (w.to(dtype).contiguous(),
+                               b.float().contiguous()))
+    fwk = fw.to(dtype)
+    if dtype == torch.bfloat16:
+        c = fw.shape[0]
+        hp = _up16(c // 2)
+        nb = -(-c // hp)
+        fwk = chunked_core(F.pad(fwk.t(), (0, 0, 0, nb * hp - c))
+                           .reshape(nb, hp, c))
+    return GateKernelWeights(chain(trunk), chain(gate), fwk.contiguous(),
+                             fb.float().contiguous())
 
 
 def fused_gate_chain(x, g, trunk: GateChainWeights, gate: GateChainWeights,
-                     fw, fb, act: str, post_act: bool):
+                     fw, fb, act: str, post_act: bool,
+                     prepared: GateKernelWeights | None = None):
     """x: (B, H, W, C) NHWC, fp32 or bf16; g: the same shape or None (g =
     x); fw (C, C) [in, out], fb (C,).  Returns x's shape and dtype.  CPU
     tensors take the plain version; CUDA tensors launch the kernel.
-    Tensors that need a gradient get it from ``gate_chain_plain``."""
+    ``prepared``: the weights' ``kernel_weights`` for x's dtype, which the
+    kernel then reads instead of laying the weights out again on every
+    call.  Tensors that need a gradient get it from ``gate_chain_plain``."""
     if act not in ACTS:
         raise ValueError(f"fused_gate_chain: act {act!r} not in {ACTS}")
     diff = (x, g, trunk, gate, fw, fb)
     if needs_grad((x, g, *trunk, *gate, fw, fb)):
         return fused_primal_plain_grad(
-            lambda *a: fused_gate_chain(*a, act, post_act),
+            lambda *a: fused_gate_chain(*a, act, post_act, prepared),
             lambda *a: gate_chain_plain(*a, act, post_act), diff)
     if x.device.type == "cpu":
         return gate_chain_plain(x, g, trunk, gate, fw, fb, act, post_act)
@@ -147,17 +197,26 @@ def fused_gate_chain(x, g, trunk: GateChainWeights, gate: GateChainWeights,
         raise ValueError(f"fused_gate_chain: bf16 needs C % 16 == 0 (the "
                          f"tensor-core K step), got C={c}")
     gg = None if g is None else g.to(dt).contiguous()
-    tw_ = _kernel_layout(trunk, dt, bf16)
-    gw_ = _kernel_layout(gate, dt, bf16)
-    fwc = (fw.t() if bf16 else fw).to(dt).contiguous()
-    fbc = fb.float().contiguous()
-    out = torch.empty_like(x)
+    xc = x
+    if bf16 and x.data_ptr() % 16:      # 16-byte copies of pixel rows
+        xc = x.clone()
+    if gg is not None and gg.data_ptr() % 16:
+        gg = gg.clone()
+    if prepared is None:
+        prepared = kernel_weights(trunk, gate, fw, fb, dt)
+    elif (prepared.fw.dtype != dt or prepared.fw.device != x.device
+          or prepared.fw.numel() != (-(-c // _up16(half)) * _up16(half) * c
+                                     if bf16 else c * c)):
+        raise ValueError("fused_gate_chain: prepared weights do not match "
+                         "x's dtype, device or width")
+    out = torch.empty_like(xc)
     if x.numel():
         ptrs = (ctypes.c_void_p * 6)
-        KERNEL.launch(x.data_ptr(), None if gg is None else gg.data_ptr(),
-                      ptrs(*[t.data_ptr() for t in tw_]),
-                      ptrs(*[t.data_ptr() for t in gw_]),
-                      fwc.data_ptr(), fbc.data_ptr(), out.data_ptr(),
-                      b, h, w, c, ACTS.index(act), int(post_act), int(bf16),
+        KERNEL.launch(xc.data_ptr(), None if gg is None else gg.data_ptr(),
+                      ptrs(*[t.data_ptr() for t in prepared.trunk]),
+                      ptrs(*[t.data_ptr() for t in prepared.gate]),
+                      prepared.fw.data_ptr(), prepared.fb.data_ptr(),
+                      out.data_ptr(), b, h, w, c, ACTS.index(act),
+                      int(post_act), int(bf16),
                       torch.cuda.current_stream(x.device).cuda_stream)
     return out

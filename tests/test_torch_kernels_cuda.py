@@ -293,6 +293,92 @@ def test_conv_chain_kernels_are_deterministic(card):
     assert torch.equal(a, b) and torch.equal(c, d)
 
 
+_GATE_FLAVOURS = [("gelu_erf", True, True), ("gelu_tanh", True, True),
+                  ("relu", False, False)]
+
+
+@pytest.mark.parametrize("act,post,separate", _GATE_FLAVOURS)
+@pytest.mark.parametrize("b,h,w,c", [(1, 1, 1, 192), (3, 7, 9, 192),
+                                     (1, 33, 47, 192), (3, 33, 47, 80),
+                                     (1, 7, 9, 80), (3, 1, 1, 80)])
+def test_gate_chain_bf16_ragged_sizes(card, act, post, separate, b, h, w, c):
+    """The wgmma kernel's 8x16 (C=192) and 16x16 (C=80) tiles against
+    images below one tile and with ragged edges, K padded at C=80."""
+    args = _gate_args(b, h, w, c, torch.bfloat16, card, separate)
+    with torch.inference_mode():
+        _assert_close(gate_chain.fused_gate_chain(*args, act, post),
+                      gate_chain.gate_chain_plain(*args, act, post),
+                      torch.bfloat16)
+
+
+@pytest.mark.parametrize("cio,leaky", [(3, False), (1, True)])
+@pytest.mark.parametrize("b,h,w", [(1, 1, 1), (3, 7, 9), (1, 33, 47),
+                                   (3, 33, 47)])
+def test_dse_bf16_ragged_sizes(card, cio, leaky, b, h, w):
+    args = _dse_args(b, h, w, cio, torch.bfloat16, card)
+    with torch.inference_mode():
+        _assert_close(dse.fused_dse(*args, leaky=leaky),
+                      dse.dse_plain(*args, leaky=leaky), torch.bfloat16)
+
+
+@pytest.mark.parametrize("c", [192, 80])
+def test_conv_chain_bf16_kernels_repeat_bit_for_bit(card, c):
+    """Fixed-order sums: two launches give the same bits, and so do the
+    weights laid out once (``prepared``) and on every call."""
+    gargs = _gate_args(3, 33, 47, c, torch.bfloat16, card, True)
+    dargs = _dse_args(3, 33, 47, 3, torch.bfloat16, card)
+    with torch.inference_mode():
+        prep = gate_chain.kernel_weights(*gargs[2:], torch.bfloat16)
+        a = gate_chain.fused_gate_chain(*gargs, "gelu_tanh", True)
+        b = gate_chain.fused_gate_chain(*gargs, "gelu_tanh", True, prep)
+        dprep = dse.kernel_weights(*dargs[1:], torch.bfloat16)
+        d0 = dse.fused_dse(*dargs, leaky=False)
+        d1 = dse.fused_dse(*dargs, leaky=False, prepared=dprep)
+    assert torch.equal(a, b) and torch.equal(d0, d1)
+
+
+@pytest.mark.parametrize("kind", ["wingate", "simplified", "dse"])
+def test_conv_chain_layout_follows_an_in_place_update(card, kind):
+    """After an optimizer step the module's cached kernel layout is that of
+    the new weights: its kernel route gives, bit for bit, the kernel fed a
+    layout made afresh from the new weights, and no longer its own output
+    on the old ones."""
+    from rgba_tpu_torch.core.precision import Policy
+    from rgba_tpu_torch.ops import attention as att
+    from rgba_tpu_torch.ops.enhance import DSE
+    dt = torch.bfloat16
+    g = torch.Generator().manual_seed(5)
+    kw = dict(device=card, generator=torch.Generator().manual_seed(6))
+    if kind == "dse":
+        m = DSE(3, policy=Policy(dt, fused_dse=True), **kw)
+    elif kind == "wingate":
+        m = att.WinGateAttention(80, 8, 4, 0, policy=Policy(dt, fused_gate_chain=True), **kw)
+    else:
+        m = att.SimplifiedAttention(80, policy=Policy(dt, fused_gate_chain=True), **kw)
+    x = torch.randn(2, 3 if kind == "dse" else 80, 24, 40, generator=g).to(card, dt)
+
+    def rows(t):
+        return t.permute(0, 2, 3, 1).contiguous()
+
+    def fresh():
+        """The kernel on a layout built now from the current weights."""
+        if kind == "dse":
+            return dse.fused_dse(rows(x), *m.kernel_weights(), leaky=False)
+        gin = rows(m.attn(x)) if kind == "wingate" else None
+        return gate_chain.fused_gate_chain(rows(x), gin, *m.gate_chain_weights(),
+                                           m.act, m.post_act)
+    with torch.no_grad():
+        old = rows(m(x))
+    opt = torch.optim.Adam(m.parameters(), lr=0.01)
+    out = m(x)
+    torch.sum(out.float() * torch.sin(out.float())).backward()
+    opt.step()
+    with torch.no_grad():
+        new, want = rows(m(x)), fresh()
+    assert torch.equal(new, want)
+    assert not torch.equal(new, old)
+
+
 def _all_kernels(policy):
     return dataclasses.replace(policy, fused_win_attn=True, fused_gdn=True,
                                fused_gate_chain=True, fused_dse=True,
