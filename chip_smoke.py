@@ -19,7 +19,9 @@ failure:
    layout's own time is printed beside), the plain version, one
    PyTorch library call of the same function (a yardstick the port never
    calls) and the bound (the larger of bytes over 3.35 TB/s and operations
-   over the H100 SXM peak for their type);
+   over the H100 SXM peak for their type: bf16 at 989 TFLOP/s, fp32 as
+   3xTF32 at 3 x operations / 495 TFLOP/s, with the bound at the CUDA
+   cores' 67 TFLOP/s printed beside);
 3. forward: ``RGBAPipeline`` at batch 16, 512x768, bf16 with all four
    kernels on: shapes, finiteness, the launch count of each kernel in one
    forward, images/s (kernels on, then off, twice each), one profiled
@@ -29,7 +31,9 @@ failure:
    kernels on against fp32 with them off (TF32 off) on x_hat and bpp;
 4. codec: ``RGBAFileCodec`` over two ``CodecIO`` at batch 16, 512x768,
    fp32 with all four kernels on, uint8 RGBA in and out: launch counts of
-   one encode + decode, byte-identical re-encode, the decoded RGB against
+   one encode + decode, byte-identical re-encode, blob 0 alone and the
+   first 8 blobs decoded apart against their decode in the batch (the same
+   uint8), the decoded RGB against
    the fp32 RGB codec forward on the same masked input and decoded alpha,
    real bpp from the blob bytes, encode / decode / round-trip images/s
    (kernels on, then off, twice each) and one profiled round trip;
@@ -54,7 +58,9 @@ failure:
    final gap is printed); launches per run; steps/s and images/s (through
    ``Trainer.train``, and compute only) and peak memory of each run; one
    profiled RGB step with the kernels off, for the device time the two
-   routes take.  After the last step the stepped ``WindowAttention``
+   routes take; 20 fp32 ``MaskTrainer`` steps with the kernels on and off
+   (the loss gap of each step printed, steps 1-3 held to 1%).  After the
+   last bf16 step the stepped ``WindowAttention``
    modules must hold the kernel layout of their new weights and agree with
    their plain path (a stale layout would train silently wrong).  Then one
    profiled RGB step, and its forward and backward apart.
@@ -87,8 +93,9 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM
-PEAK_FLOPS = {"bfloat16": 989e12,    # dense bf16 tensor cores
-              "float32": 67e12}      # fp32 outside the tensor cores (TF32 off)
+PEAK_BF16 = 989e12                   # dense bf16 tensor cores
+PEAK_TF32 = 495e12                   # dense TF32 tensor cores
+PEAK_FP32_CUDA_CORES = 67e12         # fp32 outside the tensor cores
 BF16_TOL = 2.0 ** -5                 # x max|ref|: 4 bf16 ulps at the largest value
 FP32_TOL = 2e-5                      # atol = rtol, as the CPU parity tests
 
@@ -116,10 +123,31 @@ def _time_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _bound(nbytes: float, flops: float, dtype: str):
+def _bound(nbytes: float, flops: float, dtype: str) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the peak for their type.  fp32
+    operations run on the tensor cores as 3xTF32 (three TF32 products per
+    fp32 product, as the gate-chain and DSE kernels take them), so their
+    bound is 3 x operations / 495 TFLOP/s (``bound_3xtf32_ms``); the bound
+    at the CUDA cores' 67 TFLOP/s is kept beside it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+    def larger(t_ops):
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    if dtype == "bfloat16":
+        t, by = larger(flops / PEAK_BF16 * 1e3)
+        return {"bound_ms": t, "bound_by": by}
+    t, by = larger(3.0 * flops / PEAK_TF32 * 1e3)
+    return {"bound_ms": t, "bound_by": by, "bound_3xtf32_ms": t,
+            "bound_cuda_cores_ms": larger(flops / PEAK_FP32_CUDA_CORES * 1e3)[0]}
+
+
+def _bound_text(res: dict) -> str:
+    text = f"bound_ms {res['bound_ms']:.4f} ({res['bound_by']})"
+    if "bound_3xtf32_ms" in res:
+        text += (f" [3xTF32 on the tensor cores; CUDA cores "
+                 f"{res['bound_cuda_cores_ms']:.4f}]")
+    return text
 
 
 def _within(torch, got, want, dtype: str):
@@ -182,16 +210,15 @@ def gdn_cases(torch, batch: int, iters: int, h: int = 512, w: int = 768):
                 return x * (torch.sqrt(n) if inverse else torch.rsqrt(n))
 
             nbytes = 2 * m * c * es + c * c * es + 4 * c
-            bound, by = _bound(nbytes, 2.0 * m * c * c, dtype)
             res.update(
                 shape=f"M={m},C={c},{'inverse' if inverse else 'forward'}",
                 dtype=dtype,
                 ms=_time_ms(torch, lambda: k.fused_gdn(x, gt, beta, inverse), iters),
                 plain_ms=_time_ms(torch, lambda: k.gdn_plain(x, gt, beta, inverse), iters),
                 library_ms=_time_ms(torch, library, iters),
-                bound_ms=bound, bound_by=by)
+                **_bound(nbytes, 2.0 * m * c * c, dtype))
             print(f"    ms {res['ms']:.4f} plain_ms {res['plain_ms']:.4f} "
-                  f"library_ms {res['library_ms']:.4f} bound_ms {bound:.4f} ({by})")
+                  f"library_ms {res['library_ms']:.4f} {_bound_text(res)}")
             cases.append(res)
         del x
     return cases
@@ -266,7 +293,6 @@ def attention_cases(torch, batch: int, iters: int, h: int = 512,
                                + 2.0 * n * c * c)
             nbytes = (n_alive * n * c * es + nw * n * c * es + n_alive * n * 4
                       + nw * 4 + 4 * c * c * es + 16 * c + nh * n * n * 4)
-            bound, by = _bound(nbytes, flops, dtype)
             res.update(
                 shape=f"nW={nw},N={n},C={c},heads={nh},alive={n_alive}",
                 dtype=dtype,
@@ -277,10 +303,10 @@ def attention_cases(torch, batch: int, iters: int, h: int = 512,
                 plain_ms=_time_ms(torch, lambda: k.window_attention_plain(
                     *args, num_heads=nh), iters),
                 library_ms=_time_ms(torch, library, iters),
-                bound_ms=bound, bound_by=by)
+                **_bound(nbytes, flops, dtype))
             print(f"    ms {res['ms']:.4f} (weight layout, once per weights: "
                   f"{res['layout_ms']:.4f}) plain_ms {res['plain_ms']:.4f} "
-                  f"library_ms {res['library_ms']:.4f} bound_ms {bound:.4f} ({by})")
+                  f"library_ms {res['library_ms']:.4f} {_bound_text(res)}")
             cases.append(res)
     return cases
 
@@ -353,7 +379,6 @@ def gate_chain_cases(torch, batch: int, iters: int, height: int = 512,
                     nweights = 2 * 3 * (c * c + 9 * c * c / 4) + c * c
                     nbytes = ((3 if g is not None else 2) * pix * c * es
                               + nweights * es + 4 * (2 * 3 * (2 * c) + c))
-                    bound, by = _bound(nbytes, flops, dtype)
                     res.update(
                         shape=f"{flavour},B={batch},{h}x{w},C={c}",
                         dtype=dtype,
@@ -364,11 +389,10 @@ def gate_chain_cases(torch, batch: int, iters: int, height: int = 512,
                         plain_ms=_time_ms(torch, lambda: k.gate_chain_plain(
                             *args), iters),
                         library_ms=_time_ms(torch, library, iters),
-                        bound_ms=bound, bound_by=by)
+                        **_bound(nbytes, flops, dtype))
                 print(f"    ms {res['ms']:.4f} (weight layout, once per weights: "
                       f"{res['layout_ms']:.4f}) plain_ms {res['plain_ms']:.4f} "
-                      f"library_ms {res['library_ms']:.4f} bound_ms "
-                      f"{bound:.4f} ({by})")
+                      f"library_ms {res['library_ms']:.4f} {_bound_text(res)}")
                 cases.append(res)
                 del m, x, g, args, prep
     return cases
@@ -405,7 +429,6 @@ def dse_cases(torch, batch: int, iters: int, h: int = 512, w: int = 768):
                 flops = pix * (4.0 * cio * 32 + 6 * 2.0 * 9 * 32 * 32)
                 nbytes = (2 * pix * cio * es + (2 * cio * 32 + 6 * 9 * 1024) * es
                           + 4 * (32 + 6 * 32 + cio))
-                bound, by = _bound(nbytes, flops, dtype)
                 res.update(
                     shape=f"cio={cio},B={batch},{h}x{w}", dtype=dtype,
                     ms=_time_ms(torch, lambda: k.fused_dse(
@@ -415,11 +438,10 @@ def dse_cases(torch, batch: int, iters: int, h: int = 512, w: int = 768):
                     plain_ms=_time_ms(torch, lambda: k.dse_plain(
                         *args, leaky=leaky), iters),
                     library_ms=_time_ms(torch, lambda: m(x), iters),
-                    bound_ms=bound, bound_by=by)
+                    **_bound(nbytes, flops, dtype))
             print(f"    ms {res['ms']:.4f} (weight layout, once per weights: "
                   f"{res['layout_ms']:.4f}) plain_ms {res['plain_ms']:.4f} "
-                  f"library_ms {res['library_ms']:.4f} bound_ms {bound:.4f} "
-                  f"({by})")
+                  f"library_ms {res['library_ms']:.4f} {_bound_text(res)}")
             cases.append(res)
             del m, x, args, prep
     return cases
@@ -658,6 +680,14 @@ def codec_phase(torch, batch: int, iters: int) -> dict:
     if codec.encode_batch(img, alpha) != blobs:
         raise AssertionError("re-encoding the same batch changed the bytes")
     print("  re-encode byte-identical: yes")
+    # an image's decode must not depend on the batch it is decoded in
+    for n in sorted({1, min(8, batch)}):
+        part = codec.decode_batch(blobs[:n], output="uint8")
+        if not np.array_equal(part, rgba[:n]):
+            raise AssertionError(f"the first {n} blobs decoded apart differ "
+                                 f"from their decode in the batch")
+        print(f"  the first {n} blob(s) decoded apart: the same uint8 RGBA as "
+              f"in the batch of {batch}")
     nbytes = sum(len(b) for b in blobs)
     bpp = nbytes * 8.0 / (batch * h * w)
     print(f"  real bpp {bpp:.6f} ({nbytes} bytes for {batch} images)")
@@ -866,10 +896,12 @@ def _train_gradients(torch, kind: str, want_launches: dict) -> dict:
             "worst_plain_against_itself": max(g[4] for g in groups.values())}
 
 
-def _make_trainer(torch, kind: str, kernels: bool, tmp: str):
-    """A bf16 trainer at the full width, with every kernel on or none."""
+def _make_trainer(torch, kind: str, kernels: bool, tmp: str,
+                  dtype: str = "bfloat16"):
+    """A trainer at the full width in ``dtype``, with every kernel on or
+    none."""
     from rgba_tpu_torch.core.config import TrainConfig
-    from rgba_tpu_torch.core.precision import BF16_POLICY
+    from rgba_tpu_torch.core.precision import BF16_POLICY, DEFAULT_POLICY
     from rgba_tpu_torch.models.mask_codec import MaskCodec
     from rgba_tpu_torch.models.rgb_codec import RGBCodec
     from rgba_tpu_torch.train.loops import MaskTrainer, RGBTrainer
@@ -877,21 +909,23 @@ def _make_trainer(torch, kind: str, kernels: bool, tmp: str):
     cfg = TrainConfig(train_lambda=1024, batch_size=TRAIN_BATCH, cal_step=1,
                       print_freq=1, tot_step=TRAIN_STEPS, aux_lr=1e-3,
                       curriculum_step=0, snapshot_freq=10 ** 9,
-                      save_model_freq=10 ** 9, compute_dtype="bfloat16",
+                      save_model_freq=10 ** 9, compute_dtype=dtype,
                       image_size=TRAIN_SIZE)
     model = None
-    if kernels:     # cfg.compute_dtype alone gives the plain bf16 policy
+    if kernels:     # cfg.compute_dtype alone gives the plain policy
+        policy = BF16_POLICY if dtype == "bfloat16" else DEFAULT_POLICY
         model = (RGBCodec if kind == "rgb" else MaskCodec)(
-            policy=_all_kernels(BF16_POLICY), device=torch.device("cuda"),
+            policy=_all_kernels(policy), device=torch.device("cuda"),
             generator=torch.Generator().manual_seed(cfg.seed))
     return (RGBTrainer if kind == "rgb" else MaskTrainer)(
-        cfg, f"{tmp}/{kind}_{'on' if kernels else 'off'}", model=model)
+        cfg, f"{tmp}/{kind}_{dtype}_{'on' if kernels else 'off'}", model=model)
 
 
-def _train_run(torch, trainer, dataset, name: str):
+def _train_run(torch, trainer, dataset, name: str, compute_steps: int = 10):
     """TRAIN_STEPS steps of ``trainer`` through ``Trainer.train`` (loader,
-    one host sync a step for the meters), then 10 more through
-    ``Trainer.step`` on one host batch with a single sync at the end."""
+    one host sync a step for the meters), then ``compute_steps`` more
+    through ``Trainer.step`` on one host batch with a single sync at the
+    end."""
     from rgba_tpu_torch.data.loader import BatchLoader
 
     steps = TRAIN_STEPS
@@ -915,18 +949,21 @@ def _train_run(torch, trainer, dataset, name: str):
     # the first two steps load libraries and set cuDNN up
     warm = 2
     rate = (steps - 1 - warm) / (curve.times[-1] - curve.times[warm])
-    host = _host_batch(dataset, trainer.batch_keys)
-    t = time.perf_counter()
-    for _ in range(10):
-        trainer.step(state, host)
-    torch.cuda.synchronize()
-    compute = 10 / (time.perf_counter() - t)
+    compute = float("nan")
+    if compute_steps:
+        host = _host_batch(dataset, trainer.batch_keys)
+        t = time.perf_counter()
+        for _ in range(compute_steps):
+            trainer.step(state, host)
+        torch.cuda.synchronize()
+        compute = compute_steps / (time.perf_counter() - t)
     print(f"  {name}: rd {losses[0]:.3f} -> {losses[-1]:.3f} (first 5 "
           f"{head:.3f}, last 5 {tail:.3f}); {rate:.3f} steps/s, "
           f"{rate * TRAIN_BATCH:.2f} img/s through Trainer.train; "
           f"{compute:.3f} steps/s, {compute * TRAIN_BATCH:.2f} img/s compute "
           f"only; peak memory {peak / 2 ** 30:.3f} GiB (batch {TRAIN_BATCH}, "
-          f"{TRAIN_SIZE}x{TRAIN_SIZE}, bf16, {steps} steps)")
+          f"{TRAIN_SIZE}x{TRAIN_SIZE}, {trainer.cfg.compute_dtype}, {steps} "
+          f"steps)")
     if not tail < head:
         raise AssertionError(f"{name}: the loss did not descend")
     return state, {"losses": losses, "steps_per_s": rate,
@@ -1075,6 +1112,7 @@ def train_phase(torch) -> dict:
     if out["rgb_final_gap"] >= 0.05:
         raise AssertionError(f"rgb: final losses differ by "
                              f"{out['rgb_final_gap']}")
+    out["mask_fp32"] = _mask_fp32_split(torch, dataset)
     out["runs"] = runs
     # each trainer's kernels-on run: counts set to 0 before, read after
     out["launches_train"] = {
@@ -1082,6 +1120,37 @@ def train_phase(torch) -> dict:
             "mask": runs["mask_on"]["launches"][n], "steps": steps}
         for n in KERNEL_NAMES}
     return out
+
+
+def _mask_fp32_split(torch, dataset) -> dict:
+    """20 fp32 ``MaskTrainer`` steps with the kernels on and off, the same
+    weights, data and noise: the loss gap of every step is printed.  On the
+    CPU the port tracks the JAX package as closely as JAX tracks itself
+    from a one-ulp nudge (tests/test_torch_port_mask_steps.py); here the
+    first three steps are held to 1%, as in bf16, and the rest shows where
+    the two routes' fp32 rounding grows apart."""
+    import tempfile
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for which in ("on", "off"):
+            trainer = _make_trainer(torch, "mask", which == "on", tmp, "float32")
+            _, runs[which] = _train_run(
+                torch, trainer, dataset, f"mask trainer fp32, kernels {which}",
+                compute_steps=0)
+            del trainer
+    want = {n: TRAIN_STEPS * c for n, c in MASK_STEP_LAUNCHES.items()}
+    if runs["on"]["launches"] != want or any(runs["off"]["launches"].values()):
+        raise AssertionError(f"mask fp32 launches: on {runs['on']['launches']},"
+                             f" off {runs['off']['launches']}")
+    on, off = runs["on"]["losses"], runs["off"]["losses"]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(on, off)]
+    print("  mask fp32 losses, kernels on against off, gap per step: "
+          + " ".join(f"{g:.2e}" for g in gaps))
+    if max(gaps[:3]) >= 0.01:
+        raise AssertionError(f"mask fp32: the first losses with the kernels on "
+                             f"and off differ by {max(gaps[:3])}")
+    return {"losses_on": on, "losses_off": off, "gaps": gaps,
+            "launches": runs["on"]["launches"]}
 
 
 # runs in either checkout, through that checkout's own chip_smoke.py
@@ -1196,11 +1265,22 @@ def main(argv=None) -> int:
                       "rgba_tpu/ops/pallas/dse.py:135", "cio=3"),
     }
 
+    def headline_case(name, dtype):
+        _, _, headline = meta[name]
+        return next(c for c in res[name] if c["shape"].startswith(headline)
+                    and c["dtype"] == dtype)
+
     def entry(name):
-        source, replaces, headline = meta[name]
-        cases = res[name]
-        h = next(c for c in cases if c["shape"].startswith(headline)
-                 and c["dtype"] == "bfloat16")
+        source, replaces, _ = meta[name]
+        h = headline_case(name, "bfloat16")
+        # the codec's path runs fp32: its case at the main path's shape,
+        # with the launches of one encode + decode
+        f = headline_case(name, "float32")
+        fp32 = {k: f[k] for k in ("shape", "dtype", "max_abs_err", "ms",
+                                  "plain_ms", "library_ms", "bound_ms",
+                                  "bound_by", "bound_3xtf32_ms",
+                                  "bound_cuda_cores_ms")}
+        fp32["launches"] = codec["launches"][name]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "status": "ported",
                 "launches": path["launches"][name],
@@ -1209,7 +1289,8 @@ def main(argv=None) -> int:
                 "max_abs_err": h["max_abs_err"], "ms": h["ms"],
                 "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
                 "bound_by": h["bound_by"], "library_ms": h["library_ms"],
-                "shape": h["shape"], "dtype": h["dtype"], "cases": cases}
+                "shape": h["shape"], "dtype": h["dtype"], "fp32": fp32,
+                "cases": res[name]}
 
     line = {
         "kernels": [entry(name) for name in KERNEL_NAMES],

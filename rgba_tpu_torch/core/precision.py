@@ -70,6 +70,28 @@ def precision_scope(policy: Policy):
          torch.backends.cuda.matmul.allow_tf32) = saved
 
 
+_BATCH_INVARIANT = [0]      # open batch_invariant_scope()s, any thread
+
+
+@contextlib.contextmanager
+def batch_invariant_scope():
+    """Inside it an image's result must not depend on the batch it runs in:
+    the codec's encoder and decoder recompute the CDF indexes apart, and a
+    blob must decode the same alone or in any batch.  cuDNN picks a
+    convolution's algorithm by the batch size, and two algorithms sum in
+    different orders, so the convolutions (``ops.conv.per_image``) then run
+    each image on its own."""
+    _BATCH_INVARIANT[0] += 1
+    try:
+        yield
+    finally:
+        _BATCH_INVARIANT[0] -= 1
+
+
+def batch_invariant() -> bool:
+    return _BATCH_INVARIANT[0] > 0
+
+
 DEFAULT_POLICY = Policy()
 BF16_POLICY = Policy(compute_dtype=torch.bfloat16)
 # serving: bf16 + the fused window-attention kernel

@@ -10,35 +10,61 @@
 // runs it with GELU, post-act and g = the window-attention output;
 // SimplifiedAttention with ReLU, no post-act and g = x.
 //
-// Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense, 67 TFLOP/s fp32
-// outside the tensor cores): at the largest main-path site (C = 192 at
-// 128x192, batch 16) the chain does 1,511,424 FLOP per output pixel, 594
-// GFLOP, against 453 MB of x, g and out in bf16: bound by operations, 0.60
-// ms on bf16 tensor cores and 8.9 ms at the fp32 peak.
+// Bound on an H100 SXM (3.35 TB/s; dense tensor cores 989 TFLOP/s bf16 and
+// 495 TF32): at the largest main-path site (C = 192 at 128x192, batch 16)
+// the chain does 1,511,424 FLOP per output pixel, 594 GFLOP, against 453 MB
+// of x, g and out in bf16 (906 MB in fp32): bound by operations, 0.60 ms on
+// bf16 tensor cores and 3.6 ms in fp32 as 3xTF32 (three TF32 products per
+// fp32 product; 8.9 ms at the 67 TFLOP/s of the CUDA cores).
 //
-// Design: one block of 256 threads takes one output tile of one image and
-// a frame of halo 3 around it (three chained 3x3 convs).  The frame's
-// activations (C wide) and the block's h0 (C/2 wide) stay in dynamic shared
-// memory in the activation dtype, which holds every value exactly because
-// the reference casts at exactly these points; h1 is made 64 pixels at a
-// time into a small chunk and consumed at once by the 1x1 that follows,
-// which updates the frame in place (each pixel reads only its own skip).
-// Regions shrink by one pixel per block, so the first block computes the
-// whole frame and the last only the tile.  The trunk's tile goes to the
-// output buffer in device memory and is read back by the same block for
-// the final gate, so shared memory holds one chain at a time.  Products are
-// register-tiled on the CUDA cores (each thread 4 pixels x up to 12
-// columns of 16) with fp32 accumulation in a fixed order, so results are
-// deterministic.  The frame leaves almost no L1 beside it, so the weights,
-// which every block shares, are staged 16 rows at a time through the last
-// ~12 KB of shared memory by all threads together, the next chunk in
-// flight in registers while the current one is used.
-// That is the fp32 path (TF32 or a 3xTF32 split would be a design of its
-// own: see ROADMAP).  The tile is the largest of a fixed list that fits
-// the card's shared memory for this C and dtype.
+// Both dtypes share one design: one block takes one output tile of one
+// image and a frame of halo 3 around it (three chained 3x3 convs).  The
+// frame's activations (C wide) and the block's h0 (C/2 wide) stay in dynamic
+// shared memory in the activation dtype, which holds every value exactly
+// because the reference casts at exactly these points.  Regions shrink by
+// one pixel per block, so the first block computes the whole frame and the
+// last only the tile; each 1x1 after a 3x3 updates the frame in place (each
+// pixel reads only its own skip).  The trunk's tile goes to the output
+// buffer in device memory and is read back by the same block for the final
+// gate, so shared memory holds one chain at a time.  The tile is the largest
+// of a fixed list that fits the card's shared memory for this C and dtype.
+//
+// fp32 design (gate_chain_tf32_kernel<HP>, HP = C/2 rounded up to 16, 32,
+// 40, 48, 64, 80 or 96): the bf16 design below with every product at fp32
+// accuracy on the tensor cores as 3xTF32 (common.cuh): wgmma m64 x HP x k8
+// with the small terms a_lo b_hi, a_hi b_lo issued before a_hi b_hi, in that
+// order, every k step.
+// - The weights' TF32 hi and lo are laid out once per weights by the
+//   wrapper (gate_chain.kernel_weights): chunks of 16 k, each its hi then its
+//   lo in K-major core matrices of 8 rows x 4 fp32, one bulk copy per chunk.
+//   The activations are split in registers after ldmatrix, which gives each
+//   lane exactly its TF32 A fragment from an 8 x 8 b16 tile of the fp32
+//   frame (row lane / 4, fp32 column lane % 4), so the region gather and
+//   the tap shift by per-lane row addresses carry over.
+// - Shared memory at C = 192: an fp32 frame and h0 (rows padded by 4 fp32)
+//   fit only a 6x8 tile, frame 12x14 = 168 pixels, 198,912 bytes; the ring
+//   takes what is left, two chunks of 12,288 bytes (HP 96 x 16 k x hi + lo).
+//   Halo and 64-row m-tiles: the 3x3s compute 128 rows for each of the
+//   regions of 120, 80 and 48 pixels (2.67x the tile's 48 per block), the
+//   h0 1x1s 256, 128 and 128 for 168, 120 and 80.  C = 80 fits an 8x16
+//   tile (frame 14x22) with six chunks in the ring.
+// - One m-tile per warpgroup and pass (128 pixels a pass): h1 (HP/2 fp32 a
+//   thread) and the 1x1's accumulators must sit in registers together.  h1
+//   stays in the 3x3's accumulators, which are not a TF32 A fragment (a lane
+//   holds channels 2q, 2q + 1 of an n-tile, the fragment wants k = q, q + 4):
+//   the wrapper permutes the k of the following 1x1 within each 8 to match,
+//   so h1 never touches shared memory.  The sum order stays fixed.
+// - K padding: C/2 -> HP with zero weights, h0's and h1's padding columns
+//   written as exact zeros.  C = 80 needs none (40 is a multiple of k8).
+// - Epilogues in exact fp32: GELU with erff (or tanhf), the sigmoid with
+//   expf; none of the bf16 path's approximations.
+// - Sums in a fixed order per output (k ascending within a term, the terms
+//   in the order above), no atomics, no split-K: an image's result is the
+//   same bits in any batch and any launch, as the codec's encoder and decoder
+//   need (both rebuild the mask reconstruction).
 //
 // bf16 design (gate_chain_mma_kernel<HP>, HP = C/2 rounded up to 16): the
-// same halo-fused frame, with every product on wgmma (m64 x HP x k16, bf16
+// halo-fused frame above, with every product on wgmma (m64 x HP x k16, bf16
 // in, fp32 accumulate) and the weights streamed, not restaged.
 // - Roles: a block is two consumer warpgroups and one producer warpgroup
 //   (384 threads; setmaxnreg moves the producer's registers to the
@@ -75,32 +101,15 @@
 //   224,176 of the 232,448 a block may have.  One block per SM.
 // - Sums in a fixed order per output (k ascending), no atomics, no split-K:
 //   two launches give the same bits.
+#include <algorithm>
+#include <initializer_list>
 #include <type_traits>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMR = 4;            // pixels per thread per pass
-constexpr int kPass = 16 * kMR;   // 64 pixels per pass
-constexpr int kNR = 12;           // column groups of 16: N <= 192
 constexpr int kHalo = 3;
-constexpr int kKC = 16;           // weight rows staged per step (fp32 path)
-
-__device__ __forceinline__ float act_fn(float v, int act) {
-  if (act == 0) return fmaxf(v, 0.f);                                // relu
-  if (act == 1) return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-  const float u = 0.7978845608028654f * (v + 0.044715f * v * v * v);
-  return 0.5f * v * (1.f + tanhf(u));                                // gelu_tanh
-}
-
-template <typename T>
-struct Chain {
-  const T* w0; const float* b0;   // (3, C, C/2), (3, C/2)
-  const T* w1; const float* b1;   // (3, 9*C/2, C/2) rows (dy, dx, ci), (3, C/2)
-  const T* w2; const float* b2;   // (3, C/2, C), (3, C)
-};
 
 struct Geo {
   int h, w, c, half;   // image size, channels
@@ -122,251 +131,6 @@ __device__ __forceinline__ int region_pix(const Geo& g, int s, int q) {
 
 __device__ __forceinline__ int region_size(const Geo& g, int s) {
   return (g.th + 2 * (kHalo - s)) * (g.tw + 2 * (kHalo - s));
-}
-
-// acc[i][j] += sum_k a[rows[i] * lda + k] * w[k * n + tx + 16 j].  The
-// block stages w through `wbuf` (kKC x n) in shared memory, kKC rows at a
-// time; each thread holds its share of the next chunk in registers while
-// the current one is used, so the global loads overlap the products.
-// Every thread of the block must call it with the same k_len.
-constexpr int kPre = kKC * 16 * kNR / kThreads;  // chunk share: n <= 192
-
-template <typename T>
-__device__ __forceinline__ void gemm(float (&acc)[kMR][kNR], const T* a,
-                                     int lda, const int (&rows)[kMR],
-                                     const T* __restrict__ w, int k_len,
-                                     int n, int tx, T* wbuf) {
-  const T* ap[kMR];
-#pragma unroll
-  for (int i = 0; i < kMR; ++i) ap[i] = a + rows[i] * lda;
-  const int ncg = (n + 15) / 16;
-  T pre[kPre];
-  auto fetch = [&](int k0) {
-    const int len = min(kKC, k_len - k0) * n;
-#pragma unroll
-    for (int e = 0; e < kPre; ++e) {
-      const int i = threadIdx.x + e * kThreads;
-      if (i < len) pre[e] = w[static_cast<size_t>(k0) * n + i];
-    }
-  };
-  fetch(0);
-  for (int k0 = 0; k0 < k_len; k0 += kKC) {
-    const int kc = min(kKC, k_len - k0);
-    __syncthreads();  // the previous chunk is consumed
-#pragma unroll
-    for (int e = 0; e < kPre; ++e) {
-      const int i = threadIdx.x + e * kThreads;
-      if (i < kc * n) wbuf[i] = pre[e];
-    }
-    __syncthreads();
-    if (k0 + kKC < k_len) fetch(k0 + kKC);
-    for (int k = 0; k < kc; ++k) {
-      float av[kMR];
-#pragma unroll
-      for (int i = 0; i < kMR; ++i) av[i] = rgba::to_float(ap[i][k0 + k]);
-      const T* wr = wbuf + k * n;
-#pragma unroll
-      for (int j = 0; j < kNR; ++j) {
-        const int o = tx + 16 * j;
-        if (j < ncg && o < n) {
-          const float b = rgba::to_float(wr[o]);
-#pragma unroll
-          for (int i = 0; i < kMR; ++i) acc[i][j] = fmaf(av[i], b, acc[i][j]);
-        }
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ void zero(float (&acc)[kMR][kNR]) {
-#pragma unroll
-  for (int i = 0; i < kMR; ++i)
-#pragma unroll
-    for (int j = 0; j < kNR; ++j) acc[i][j] = 0.f;
-}
-
-// Pixels of one pass over the region inset by s; a pixel past the region's
-// end reads the region's first pixel and is never stored.
-__device__ __forceinline__ void pass_rows(const Geo& g, int s, int p0, int np,
-                                          int ty, int (&f)[kMR],
-                                          bool (&ok)[kMR]) {
-#pragma unroll
-  for (int i = 0; i < kMR; ++i) {
-    const int q = p0 + ty + 16 * i;
-    ok[i] = q < np;
-    f[i] = region_pix(g, s, ok[i] ? q : 0);
-  }
-}
-
-template <typename T>
-__device__ void load_frame(T* cur, const T* img, const Geo& g) {
-  for (int i = threadIdx.x; i < g.nf * g.c; i += kThreads) {
-    const int f = i / g.c, ch = i - f * g.c;
-    const int r = g.r0 + f / g.fw, col = g.c0 + f % g.fw;
-    const bool inside = r >= 0 && r < g.h && col >= 0 && col < g.w;
-    cur[f * g.ldc + ch] = inside
-        ? img[(static_cast<size_t>(r) * g.w + col) * g.c + ch]
-        : rgba::from_float<T>(0.f);
-  }
-  __syncthreads();
-}
-
-// Runs one chain over the frame in `cur`, in place; on return the tile
-// (the region inset by kHalo) holds the chain's output.
-template <typename T>
-__device__ void run_chain(T* cur, T* h0, T* h1c, T* wbuf, const Chain<T>& cw,
-                          const Geo& g, int act, int post_act) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int C = g.c, HF = g.half;
-  float acc[kMR][kNR];
-  int f[kMR];
-  bool ok[kMR];
-  for (int blk = 0; blk < 3; ++blk) {
-    const T* w0 = cw.w0 + static_cast<size_t>(blk) * C * HF;
-    const float* b0 = cw.b0 + blk * HF;
-    const T* w1 = cw.w1 + static_cast<size_t>(blk) * 9 * HF * HF;
-    const float* b1 = cw.b1 + blk * HF;
-    const T* w2 = cw.w2 + static_cast<size_t>(blk) * HF * C;
-    const float* b2 = cw.b2 + blk * C;
-
-    // h0 = act(1x1(cur) + b0) on the region inset by blk; 0 outside the image
-    int np = region_size(g, blk);
-    for (int p0 = 0; p0 < np; p0 += kPass) {
-      pass_rows(g, blk, p0, np, ty, f, ok);
-      zero(acc);
-      gemm<T>(acc, cur, g.ldc, f, w0, C, HF, tx, wbuf);
-#pragma unroll
-      for (int i = 0; i < kMR; ++i) {
-        if (!ok[i]) continue;
-        const bool inside = in_image(g, f[i]);
-#pragma unroll
-        for (int j = 0; j < kNR; ++j) {
-          const int o = tx + 16 * j;
-          if (o < HF)
-            h0[f[i] * g.ldh + o] = rgba::from_float<T>(
-                inside ? act_fn(acc[i][j] + b0[o], act) : 0.f);
-        }
-      }
-    }
-    __syncthreads();
-
-    // per pass of the region inset by blk + 1: h1 = act(3x3(h0) + b1) into
-    // the chunk, then cur = [act](1x1(h1) + b2 + cur) in place
-    np = region_size(g, blk + 1);
-    for (int p0 = 0; p0 < np; p0 += kPass) {
-      pass_rows(g, blk + 1, p0, np, ty, f, ok);
-      zero(acc);
-      for (int tap = 0; tap < 9; ++tap) {
-        const int off = (tap / 3 - 1) * g.fw + (tap % 3 - 1);
-        int fo[kMR];
-#pragma unroll
-        for (int i = 0; i < kMR; ++i) fo[i] = f[i] + off;
-        gemm<T>(acc, h0, g.ldh, fo, w1 + static_cast<size_t>(tap) * HF * HF,
-                HF, HF, tx, wbuf);
-      }
-#pragma unroll
-      for (int i = 0; i < kMR; ++i) {
-#pragma unroll
-        for (int j = 0; j < kNR; ++j) {
-          const int o = tx + 16 * j;
-          if (o < HF)
-            h1c[(ty + 16 * i) * g.ldh + o] =
-                rgba::from_float<T>(act_fn(acc[i][j] + b1[o], act));
-        }
-      }
-      __syncthreads();
-      int lrow[kMR];
-#pragma unroll
-      for (int i = 0; i < kMR; ++i) lrow[i] = ty + 16 * i;
-      zero(acc);
-      gemm<T>(acc, h1c, g.ldh, lrow, w2, HF, C, tx, wbuf);
-#pragma unroll
-      for (int i = 0; i < kMR; ++i) {
-        if (!ok[i]) continue;
-#pragma unroll
-        for (int j = 0; j < kNR; ++j) {
-          const int o = tx + 16 * j;
-          if (o < C) {
-            T* dst = cur + f[i] * g.ldc + o;
-            float v = acc[i][j] + b2[o] + rgba::to_float(*dst);
-            if (post_act) v = act_fn(v, act);
-            *dst = rgba::from_float<T>(v);
-          }
-        }
-      }
-      __syncthreads();  // the chunk is refilled by the next pass
-    }
-  }
-}
-
-// one block per SM at these shared-memory sizes: let it take the registers
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-gate_chain_kernel(const T* __restrict__ x, const T* __restrict__ gin,
-                  Chain<T> trunk, Chain<T> gate, const T* __restrict__ fwt,
-                  const float* __restrict__ fb, T* out, int h, int w, int c,
-                  int th, int tw, int tiles_w, int act, int post_act) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int pad = 4 / static_cast<int>(sizeof(T));  // odd word stride
-  Geo g;
-  g.h = h; g.w = w; g.c = c; g.half = c / 2;
-  g.th = th; g.tw = tw; g.fw = tw + 2 * kHalo;
-  g.nf = (th + 2 * kHalo) * g.fw;
-  const int ti = blockIdx.x / tiles_w, tj = blockIdx.x % tiles_w;
-  g.r0 = ti * th - kHalo;
-  g.c0 = tj * tw - kHalo;
-  g.ldc = c + pad;
-  g.ldh = g.half + pad;
-  T* cur = reinterpret_cast<T*>(smem_raw);
-  T* h0 = cur + g.nf * g.ldc;
-  T* h1c = h0 + g.nf * g.ldh;
-  T* wbuf = h1c + kPass * g.ldh;
-
-  const size_t img = static_cast<size_t>(blockIdx.y) * h * w * c;
-  load_frame<T>(cur, x + img, g);
-  run_chain<T>(cur, h0, h1c, wbuf, trunk, g, act, post_act);
-
-  // the trunk's tile goes to `out`; the final pass below reads it back
-  for (int i = threadIdx.x; i < th * tw * c; i += kThreads) {
-    const int p = i / c, ch = i - p * c;
-    const int r = g.r0 + kHalo + p / tw, col = g.c0 + kHalo + p % tw;
-    if (r < h && col < w)
-      out[img + (static_cast<size_t>(r) * w + col) * c + ch] =
-          cur[((kHalo + p / tw) * g.fw + kHalo + p % tw) * g.ldc + ch];
-  }
-  __syncthreads();
-
-  load_frame<T>(cur, (gin ? gin : x) + img, g);
-  run_chain<T>(cur, h0, h1c, wbuf, gate, g, act, post_act);
-
-  // out = x + trunk * sigmoid(1x1(gate) + fb) on the tile
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[kMR][kNR];
-  int f[kMR];
-  bool ok[kMR];
-  const int np = th * tw;
-  for (int p0 = 0; p0 < np; p0 += kPass) {
-    pass_rows(g, kHalo, p0, np, ty, f, ok);
-    zero(acc);
-    gemm<T>(acc, cur, g.ldc, f, fwt, c, c, tx, wbuf);
-#pragma unroll
-    for (int i = 0; i < kMR; ++i) {
-      if (!ok[i]) continue;
-      const int r = g.r0 + f[i] / g.fw, col = g.c0 + f[i] % g.fw;
-      if (r >= h || col >= w) continue;
-      const size_t base = img + (static_cast<size_t>(r) * w + col) * c;
-#pragma unroll
-      for (int j = 0; j < kNR; ++j) {
-        const int o = tx + 16 * j;
-        if (o < c) {
-          const float s = 1.f / (1.f + expf(-(acc[i][j] + fb[o])));
-          const float v = rgba::to_float(x[base + o]) +
-                          rgba::to_float(out[base + o]) * s;
-          out[base + o] = rgba::from_float<T>(v);
-        }
-      }
-    }
-  }
 }
 
 // ---------------------------------------------------------------- bf16 path
@@ -869,72 +633,504 @@ size_t smem_bytes_mma(int c, int th, int tw) {
   return frames + kStages * hp * kKChunk * 2 + 2 * kStages * sizeof(uint64_t);
 }
 
-size_t smem_bytes(int c, int th, int tw, size_t es) {
-  const size_t pad = 4 / es;
-  const size_t nf = static_cast<size_t>(th + 2 * kHalo) * (tw + 2 * kHalo);
-  const size_t half = c / 2;
-  return es * (nf * (c + pad) + nf * (half + pad) + kPass * (half + pad) +
-               kKC * c);
+// ---------------------------------------------------------------- fp32 path
+// The same chain at fp32 accuracy on the tensor cores: every product as
+// 3xTF32 on wgmma m64nHPk8 (see the header's fp32 design and common.cuh).
+// HP: C/2 rounded up to one of 16, 32, 40, 48, 64, 80, 96.
+
+constexpr int kKC32 = 16;   // k per fp32 weight chunk: two k8 steps
+
+// The activation in exact fp32 (erff, tanhf), fixed at compile time (3:
+// none), as the plain version computes it.
+template <int A>
+__device__ __forceinline__ float act_x(float v) {
+  if constexpr (A == 0) return fmaxf(v, 0.f);
+  if constexpr (A == 1) return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+  if constexpr (A == 2) {
+    const float u = 0.7978845608028654f * (v + 0.044715f * v * v * v);
+    return 0.5f * v * (1.f + tanhf(u));
+  }
+  return v;
 }
 
-template <typename T>
-int launch(const void* x, const void* g, const void* const* tw_,
-           const void* const* gw_, const void* fw, const void* fb, void* out,
-           int b, int h, int w, int c, int act, int post_act,
-           cudaStream_t stream) {
-  constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
+struct Chain32 {
+  const float* w0; const float* b0;  // (3, 2*HP*C): [n < HP][k < C]
+  const float* w1; const float* b1;  // (3, 2*HP*9HP): [n < HP][k = tap*HP + ci]
+  const float* w2; const float* b2;  // (3, nb*2*HP*HP): [n][k permuted, see h1]
+};
+
+// The ring of fp32 weight chunks: a matrix [n < HP][k < K] is stored as
+// chunks of kKC32 k (the last may be 8), each the TF32 hi of the chunk in
+// K-major core-matrix order (rgba core matrices of 8 rows x 4 fp32)
+// followed by its lo, so chunk c starts 2 * HP * kKC32 * c elements in and
+// is one bulk copy.  The stage count fills the shared memory the frames
+// leave (at least 2).
+struct Ring32 {
+  float* buf;          // stages x 2 x HP x kKC32
+  uint64_t* full;
+  uint64_t* empty;
+  int stages;
+  int it;
+};
+
+__device__ __forceinline__ int n_passes32(const Geo& g, int s) {
+  return ((region_size(g, s) + 63) / 64 + 1) / 2;
+}
+
+template <int HP>
+__device__ __forceinline__ void produce32(Ring32& r, const float* w, int k_len) {
+  for (int k0 = 0; k0 < k_len; k0 += kKC32, ++r.it) {
+    const int s = r.it % r.stages;
+    rgba::mbar_wait(&r.empty[s], ((r.it / r.stages) & 1) ^ 1);
+    const int bytes = 2 * HP * min(kKC32, k_len - k0) * 4;
+    rgba::mbar_expect(&r.full[s], bytes);
+    rgba::bulk_load(r.buf + s * 2 * HP * kKC32, w + 2 * HP * k0, bytes, &r.full[s]);
+  }
+}
+
+// One m-tile per warpgroup and pass: m-tile 2 p + wg of 64 pixels; one
+// past the region's end reads its first pixel and stores nothing.
+struct Pass32 {
+  int f_lane;          // frame pixel of this lane's ldmatrix row
+  int f_row[2];        // frame pixels of this thread's accumulator rows
+  bool ok[2];
+};
+
+__device__ __forceinline__ Pass32 make_pass32(const Geo& g, int s, int p) {
+  const int np = region_size(g, s);
+  const int wg = threadIdx.x / 128, wr = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32;
+  const int q0 = (2 * p + wg) * 64 + 16 * wr;
+  const int ql = q0 + lane % 8 + 8 * ((lane / 8) % 2);
+  Pass32 ps;
+  ps.f_lane = region_pix(g, s, ql < np ? ql : 0);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int q = q0 + lane / 4 + 8 * r;
+    ps.ok[r] = q < np;
+    ps.f_row[r] = region_pix(g, s, q < np ? q : 0);
+  }
+  return ps;
+}
+
+// Issue one chunk's KS k steps from split A fragments hi / lo, then release
+// the chunk.
+template <int HP, int KS>
+__device__ __forceinline__ void chunk32_issue(float (&acc)[HP / 2],
+                                              const uint32_t (&hi)[KS][4],
+                                              const uint32_t (&lo)[KS][4],
+                                              Ring32& r) {
+  const int s = r.it % r.stages;
+  rgba::mbar_wait(&r.full[s], (r.it / r.stages) & 1);
+  const float* b = r.buf + s * 2 * HP * kKC32;
+  const uint64_t bh = rgba::kmajor_desc(b, KS * 256);
+  const uint64_t bl = rgba::kmajor_desc(b + HP * 8 * KS, KS * 256);
+  rgba::fence_operands(acc);
+  rgba::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    rgba::wgmma_3xtf32<HP>(acc, hi[kk], lo[kk], bh + 16 * kk, bl + 16 * kk);
+  rgba::wgmma_commit_wait();
+  rgba::fence_operands(acc);
+  if (threadIdx.x % 32 == 0) rgba::mbar_arrive(&r.empty[s]);
+  ++r.it;
+}
+
+// acc += A (64 x K) x W^T with A from shared memory through a_ptr(k), this
+// lane's ldmatrix row address at depth k (a multiple of 8).
+template <int HP, int KS, class APtr>
+__device__ __forceinline__ void chunk32_smem_a(float (&acc)[HP / 2], int k0,
+                                               Ring32& r, APtr a_ptr) {
+  uint32_t hi[KS][4], lo[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    uint32_t a[4];
+    rgba::ldsm_x4(a, a_ptr(k0 + 8 * kk));
+    rgba::split_tf32(a, hi[kk], lo[kk]);
+  }
+  chunk32_issue<HP, KS>(acc, hi, lo, r);
+}
+
+template <int HP, class APtr>
+__device__ __forceinline__ void gemm32_smem_a(float (&acc)[HP / 2], int k_len,
+                                              Ring32& r, APtr a_ptr) {
+  int k0 = 0;
+  for (; k0 + kKC32 <= k_len; k0 += kKC32) chunk32_smem_a<HP, 2>(acc, k0, r, a_ptr);
+  if (k0 < k_len) chunk32_smem_a<HP, 1>(acc, k0, r, a_ptr);
+}
+
+// The same with A = h1 in registers, in the 3x3's accumulator layout: k
+// step j of the following 1x1 takes n-tile j, whose lane holds channels
+// 8 j + 2 q, 8 j + 2 q + 1 (q = lane % 4) of rows g and g + 8.  As a TF32
+// A fragment they are read as k 8 j + q and 8 j + q + 4: the wrapper
+// permutes that 1x1's k within each 8 to match (gate_chain.py, H1_ORDER).
+template <int HP, int KS, int J0>
+__device__ __forceinline__ void chunk32_reg_a(float (&acc)[HP / 2],
+                                              const float (&h1)[HP / 2],
+                                              Ring32& r) {
+  uint32_t hi[KS][4], lo[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const int j = J0 + kk;
+    const uint32_t a[4] = {__float_as_uint(h1[4 * j]), __float_as_uint(h1[4 * j + 2]),
+                           __float_as_uint(h1[4 * j + 1]), __float_as_uint(h1[4 * j + 3])};
+    rgba::split_tf32(a, hi[kk], lo[kk]);
+  }
+  chunk32_issue<HP, KS>(acc, hi, lo, r);
+}
+
+template <int HP, int C = 0>
+__device__ __forceinline__ void gemm32_reg_a(float (&acc)[HP / 2],
+                                             const float (&h1)[HP / 2], Ring32& r) {
+  if constexpr (kKC32 * (C + 1) <= HP) {
+    chunk32_reg_a<HP, 2, 2 * C>(acc, h1, r);
+    gemm32_reg_a<HP, C + 1>(acc, h1, r);
+  } else if constexpr (kKC32 * C < HP) {
+    chunk32_reg_a<HP, 1, 2 * C>(acc, h1, r);
+  }
+}
+
+template <int R>
+__device__ __forceinline__ void zero32(float (&acc)[R]) {
+#pragma unroll
+  for (int e = 0; e < R; ++e) acc[e] = 0.f;
+}
+
+template <int HP>
+__device__ void produce_chain32(Ring32& r, const Chain32& cw, const Geo& g,
+                                int nb) {
+  const int C = g.c;
+  for (int blk = 0; blk < 3; ++blk) {
+    for (int p = n_passes32(g, blk); p > 0; --p)
+      produce32<HP>(r, cw.w0 + static_cast<size_t>(blk) * 2 * HP * C, C);
+    for (int p = n_passes32(g, blk + 1); p > 0; --p) {
+      produce32<HP>(r, cw.w1 + static_cast<size_t>(blk) * 2 * 9 * HP * HP, 9 * HP);
+      for (int j = 0; j < nb; ++j)
+        produce32<HP>(r, cw.w2 + (static_cast<size_t>(blk) * nb + j) * 2 * HP * HP,
+                      HP);
+    }
+  }
+}
+
+// h0 = act(1x1(cur) + b0) for one pass; 0 outside the image and in the K
+// padding columns HF .. HP.
+template <int HP>
+__device__ __forceinline__ void h0_pass32(const float* cur, float* h0, Ring32& r,
+                                          const Pass32& ps, const Geo& g,
+                                          const float* b0, int act) {
+  const int lane = threadIdx.x % 32;
+  const int t2 = 2 * (lane % 4), kl = 4 * (lane / 16);
+  float acc[HP / 2];
+  zero32(acc);
+  gemm32_smem_a<HP>(acc, g.c, r, [&](int k) {
+    return cur + ps.f_lane * g.ldc + k + kl;
+  });
+  with_act(act, [&](auto A) {
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      if (!ps.ok[rr]) continue;
+      const int f = ps.f_row[rr];
+      const bool inside = in_image(g, f);
+#pragma unroll
+      for (int j = 0; j < HP / 8; ++j) {
+        const int o = 8 * j + t2;
+        const bool live = inside && o < g.half;
+        *reinterpret_cast<float2*>(h0 + f * g.ldh + o) = make_float2(
+            live ? act_x<decltype(A)::value>(acc[4 * j + 2 * rr] + b0[o]) : 0.f,
+            live ? act_x<decltype(A)::value>(acc[4 * j + 2 * rr + 1] + b0[o + 1]) : 0.f);
+      }
+    }
+  });
+}
+
+// h1 = act(3x3(h0) + b1), kept in registers in the accumulators' layout,
+// then cur = [act](1x1(h1) + b2 + cur) per n-block of HP outputs.
+template <int HP>
+__device__ __forceinline__ void conv_pass32(float* cur, const float* h0, Ring32& r,
+                                            const Pass32& ps, const Geo& g,
+                                            const float* b1, const float* b2,
+                                            int nb, int act, int post_act) {
+  const int lane = threadIdx.x % 32;
+  const int t2 = 2 * (lane % 4), kl = 4 * (lane / 16);
+  float h1[HP / 2];
+  zero32(h1);
+  gemm32_smem_a<HP>(h1, 9 * HP, r, [&](int k) {
+    const int tap = k / HP;
+    const int off = (tap / 3 - 1) * g.fw + (tap % 3 - 1);
+    return h0 + (ps.f_lane + off) * g.ldh + (k - tap * HP) + kl;
+  });
+  with_act(act, [&](auto A) {
+#pragma unroll
+    for (int j = 0; j < HP / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int o = 8 * j + t2 + e % 2;
+        h1[4 * j + e] = o < g.half ? act_x<decltype(A)::value>(h1[4 * j + e] + b1[o]) : 0.f;
+      }
+  });
+  for (int nbk = 0; nbk < nb; ++nbk) {
+    float acc[HP / 2];
+    zero32(acc);
+    gemm32_reg_a<HP>(acc, h1, r);
+    with_act(post_act ? act : 3, [&](auto P) {
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        if (!ps.ok[rr]) continue;
+        float* row = cur + ps.f_row[rr] * g.ldc;
+#pragma unroll
+        for (int j = 0; j < HP / 8; ++j) {
+          const int o = nbk * HP + 8 * j + t2;
+          if (o >= g.c) continue;
+          float2* dst = reinterpret_cast<float2*>(row + o);
+          const float2 skip = *dst;
+          *dst = make_float2(
+              act_x<decltype(P)::value>(acc[4 * j + 2 * rr] + b2[o] + skip.x),
+              act_x<decltype(P)::value>(acc[4 * j + 2 * rr + 1] + b2[o + 1] + skip.y));
+        }
+      }
+    });
+  }
+}
+
+// out = x + trunk * sigmoid(1x1(gate) + fb) for one pass over the tile.
+template <int HP>
+__device__ __forceinline__ void final_pass32(const float* cur, Ring32& r,
+                                             const Pass32& ps, const Geo& g,
+                                             const float* x, const float* fb,
+                                             float* out, size_t img, int nb) {
+  const int lane = threadIdx.x % 32;
+  const int t2 = 2 * (lane % 4), kl = 4 * (lane / 16);
+  for (int nbk = 0; nbk < nb; ++nbk) {
+    float acc[HP / 2];
+    zero32(acc);
+    gemm32_smem_a<HP>(acc, g.c, r, [&](int k) {
+      return cur + ps.f_lane * g.ldc + k + kl;
+    });
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      if (!ps.ok[rr]) continue;
+      const int f = ps.f_row[rr];
+      const int ir = g.r0 + f / g.fw, ic = g.c0 + f % g.fw;
+      if (ir >= g.h || ic >= g.w) continue;
+      const size_t base = img + (static_cast<size_t>(ir) * g.w + ic) * g.c;
+#pragma unroll
+      for (int j = 0; j < HP / 8; ++j) {
+        const int o = nbk * HP + 8 * j + t2;
+        if (o >= g.c) continue;
+        const float2 xv = *reinterpret_cast<const float2*>(x + base + o);
+        float2* dst = reinterpret_cast<float2*>(out + base + o);
+        const float2 tv = *dst;
+        const float s0 = 1.f / (1.f + expf(-(acc[4 * j + 2 * rr] + fb[o])));
+        const float s1 = 1.f / (1.f + expf(-(acc[4 * j + 2 * rr + 1] + fb[o + 1])));
+        *dst = make_float2(xv.x + tv.x * s0, xv.y + tv.y * s1);
+      }
+    }
+  }
+}
+
+template <int HP>
+__device__ __forceinline__ void run_chain32(float* cur, float* h0, Ring32& r,
+                                            const Chain32& cw, const Geo& g,
+                                            int nb, int act, int post_act) {
+  for (int blk = 0; blk < 3; ++blk) {
+    const float* b0 = cw.b0 + blk * g.half;
+    const float* b1 = cw.b1 + blk * g.half;
+    const float* b2 = cw.b2 + blk * g.c;
+    for (int p = 0, np = n_passes32(g, blk); p < np; ++p)
+      h0_pass32<HP>(cur, h0, r, make_pass32(g, blk, p), g, b0, act);
+    consumer_sync();
+    for (int p = 0, np = n_passes32(g, blk + 1); p < np; ++p)
+      conv_pass32<HP>(cur, h0, r, make_pass32(g, blk + 1, p), g, b1, b2, nb,
+                      act, post_act);
+    consumer_sync();
+  }
+}
+
+// The fp32 frame around the tile (0 outside the image), by the consumers.
+__device__ __forceinline__ void load_frame32(float* cur, const float* img,
+                                             const Geo& g) {
+  const int q = g.c / 4;  // 16-byte pieces of a pixel
+  for (int i = threadIdx.x; i < g.nf * q; i += kConsumers) {
+    const int f = i / q, k = i - f * q;
+    const int r = g.r0 + f / g.fw, col = g.c0 + f % g.fw;
+    const bool inside = r >= 0 && r < g.h && col >= 0 && col < g.w;
+    rgba::cp_async16(cur + f * g.ldc + 4 * k,
+                     inside ? img + (static_cast<size_t>(r) * g.w + col) * g.c + 4 * k
+                            : img, inside);
+  }
+  rgba::cp_async_commit();
+  rgba::cp_async_wait<0>();
+  consumer_sync();
+}
+
+__host__ __device__ inline size_t frames32_bytes(int c, int hp, int th, int tw) {
+  const size_t nf = static_cast<size_t>(th + 2 * kHalo) * (tw + 2 * kHalo);
+  return (nf * ((c + 4) + (hp + 4)) * 4 + 127) / 128 * 128;
+}
+
+template <int HP>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+gate_chain_tf32_kernel(const float* __restrict__ x, const float* __restrict__ gin,
+                       Chain32 trunk, Chain32 gate, const float* __restrict__ fwt,
+                       const float* __restrict__ fb, float* out, int h, int w,
+                       int c, int th, int tw, int tiles_w, int stages, int act,
+                       int post_act) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Geo g;
+  g.h = h; g.w = w; g.c = c; g.half = c / 2;
+  g.th = th; g.tw = tw; g.fw = tw + 2 * kHalo;
+  g.nf = (th + 2 * kHalo) * g.fw;
+  const int ti = blockIdx.x / tiles_w, tj = blockIdx.x % tiles_w;
+  g.r0 = ti * th - kHalo;
+  g.c0 = tj * tw - kHalo;
+  g.ldc = c + 4;       // 16-byte rows an odd number of 16 bytes apart:
+  g.ldh = HP + 4;      // ldmatrix's 8 rows fall in distinct banks
+  const int nb = (c + HP - 1) / HP;
+  float* cur = reinterpret_cast<float*>(smem_raw);
+  float* h0 = cur + g.nf * g.ldc;
+  Ring32 r;
+  r.buf = reinterpret_cast<float*>(smem_raw + frames32_bytes(c, HP, th, tw));
+  r.full = reinterpret_cast<uint64_t*>(r.buf + stages * 2 * HP * kKC32);
+  r.empty = r.full + stages;
+  r.stages = stages;
+  r.it = 0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      rgba::mbar_init(&r.full[s], 1);
+      rgba::mbar_init(&r.empty[s], kConsumers / 32);
+    }
+    rgba::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == kConsumers) {
+      produce_chain32<HP>(r, trunk, g, nb);
+      produce_chain32<HP>(r, gate, g, nb);
+      for (int p = n_passes32(g, kHalo); p > 0; --p)
+        for (int j = 0; j < nb; ++j)
+          produce32<HP>(r, fwt + static_cast<size_t>(j) * 2 * HP * c, c);
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+
+  const size_t img = static_cast<size_t>(blockIdx.y) * h * w * c;
+  load_frame32(cur, x + img, g);
+  run_chain32<HP>(cur, h0, r, trunk, g, nb, act, post_act);
+
+  const int q = c / 4;
+  for (int i = threadIdx.x; i < th * tw * q; i += kConsumers) {
+    const int p = i / q, k = i - p * q;
+    const int rr = g.r0 + kHalo + p / tw, col = g.c0 + kHalo + p % tw;
+    if (rr < h && col < w)
+      *reinterpret_cast<float4*>(out + img + (static_cast<size_t>(rr) * w + col) * c + 4 * k) =
+          *reinterpret_cast<const float4*>(
+              cur + ((kHalo + p / tw) * g.fw + kHalo + p % tw) * g.ldc + 4 * k);
+  }
+  consumer_sync();
+
+  load_frame32(cur, (gin ? gin : x) + img, g);
+  run_chain32<HP>(cur, h0, r, gate, g, nb, act, post_act);
+
+  for (int p = 0, np = n_passes32(g, kHalo); p < np; ++p)
+    final_pass32<HP>(cur, r, make_pass32(g, kHalo, p), g, x, fb, out, img, nb);
+}
+
+int launch_bf16(const void* x, const void* g, const void* const* tw_,
+                const void* const* gw_, const void* fw, const void* fb,
+                void* out, int b, int h, int w, int c, int act, int post_act,
+                int max_smem, cudaStream_t stream) {
   static const int kTiles[][2] = {{16, 16}, {8, 16}, {8, 8}, {6, 8},
                                   {4, 8}, {4, 4}, {2, 4}};
-  int dev = 0, max_smem = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         dev);
   int th = 0, tw = 0;
   size_t smem = 0;
   for (const auto& t : kTiles) {
-    smem = kMma ? smem_bytes_mma(c, t[0], t[1])
-                : smem_bytes(c, t[0], t[1], sizeof(T));
+    smem = smem_bytes_mma(c, t[0], t[1]);
     if (smem <= static_cast<size_t>(max_smem)) { th = t[0]; tw = t[1]; break; }
   }
   if (!th) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int tiles_w = (w + tw - 1) / tw, tiles_h = (h + th - 1) / th;
   dim3 grid(tiles_h * tiles_w, b);
-  if constexpr (kMma) {
-    auto chain = [](const void* const* p) {
-      return MmaChain{static_cast<const T*>(p[0]), static_cast<const float*>(p[1]),
-                      static_cast<const T*>(p[2]), static_cast<const float*>(p[3]),
-                      static_cast<const T*>(p[4]), static_cast<const float*>(p[5])};
-    };
-    auto run = [&](auto kernel) {
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
-      kernel<<<grid, kMmaThreads, smem, stream>>>(
-          static_cast<const T*>(x), static_cast<const T*>(g), chain(tw_),
-          chain(gw_), static_cast<const T*>(fw), static_cast<const float*>(fb),
-          static_cast<T*>(out), h, w, c, th, tw, tiles_w, act, post_act);
-    };
-    switch ((c / 2 + 15) / 16 * 16) {
-      case 16: run(gate_chain_mma_kernel<16>); break;
-      case 32: run(gate_chain_mma_kernel<32>); break;
-      case 48: run(gate_chain_mma_kernel<48>); break;
-      case 64: run(gate_chain_mma_kernel<64>); break;
-      case 80: run(gate_chain_mma_kernel<80>); break;
-      case 96: run(gate_chain_mma_kernel<96>); break;
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-  } else {
-    cudaFuncSetAttribute(gate_chain_kernel<T>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  auto chain = [](const void* const* p) {
+    return MmaChain{static_cast<const bf16*>(p[0]), static_cast<const float*>(p[1]),
+                    static_cast<const bf16*>(p[2]), static_cast<const float*>(p[3]),
+                    static_cast<const bf16*>(p[4]), static_cast<const float*>(p[5])};
+  };
+  auto run = [&](auto kernel) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));
-    auto chain = [](const void* const* p) {
-      return Chain<T>{static_cast<const T*>(p[0]), static_cast<const float*>(p[1]),
-                      static_cast<const T*>(p[2]), static_cast<const float*>(p[3]),
-                      static_cast<const T*>(p[4]), static_cast<const float*>(p[5])};
-    };
-    gate_chain_kernel<T><<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(g), chain(tw_),
-        chain(gw_), static_cast<const T*>(fw), static_cast<const float*>(fb),
-        static_cast<T*>(out), h, w, c, th, tw, tiles_w, act, post_act);
+    kernel<<<grid, kMmaThreads, smem, stream>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(g), chain(tw_),
+        chain(gw_), static_cast<const bf16*>(fw), static_cast<const float*>(fb),
+        static_cast<bf16*>(out), h, w, c, th, tw, tiles_w, act, post_act);
+  };
+  switch ((c / 2 + 15) / 16 * 16) {
+    case 16: run(gate_chain_mma_kernel<16>); break;
+    case 32: run(gate_chain_mma_kernel<32>); break;
+    case 48: run(gate_chain_mma_kernel<48>); break;
+    case 64: run(gate_chain_mma_kernel<64>); break;
+    case 80: run(gate_chain_mma_kernel<80>); break;
+    case 96: run(gate_chain_mma_kernel<96>); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// HP of the fp32 path: C/2 rounded up to one of its instantiations.
+int hp32(int c) {
+  for (int hp : {16, 32, 40, 48, 64, 80, 96})
+    if (2 * hp >= c) return hp;
+  return 0;
+}
+
+int launch_tf32(const void* x, const void* g, const void* const* tw_,
+                const void* const* gw_, const void* fw, const void* fb,
+                void* out, int b, int h, int w, int c, int act, int post_act,
+                int max_smem, cudaStream_t stream) {
+  static const int kTiles[][2] = {{16, 16}, {8, 16}, {8, 8}, {6, 8},
+                                  {4, 8}, {4, 4}, {2, 4}};
+  constexpr int kMaxStages = 6;
+  const int hp = hp32(c);
+  if (!hp) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t stage = 2 * static_cast<size_t>(hp) * kKC32 * 4 + 2 * sizeof(uint64_t);
+  int th = 0, tw = 0, stages = 0;
+  size_t frames = 0;
+  for (const auto& t : kTiles) {
+    frames = frames32_bytes(c, hp, t[0], t[1]);
+    if (frames + 2 * stage <= static_cast<size_t>(max_smem)) {
+      th = t[0]; tw = t[1];
+      stages = static_cast<int>(std::min<size_t>(kMaxStages, (max_smem - frames) / stage));
+      break;
+    }
+  }
+  if (!th) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const size_t smem = frames + stages * stage;
+  const int tiles_w = (w + tw - 1) / tw, tiles_h = (h + th - 1) / th;
+  dim3 grid(tiles_h * tiles_w, b);
+  auto chain = [](const void* const* p) {
+    return Chain32{static_cast<const float*>(p[0]), static_cast<const float*>(p[1]),
+                   static_cast<const float*>(p[2]), static_cast<const float*>(p[3]),
+                   static_cast<const float*>(p[4]), static_cast<const float*>(p[5])};
+  };
+  auto run = [&](auto kernel) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+    kernel<<<grid, kMmaThreads, smem, stream>>>(
+        static_cast<const float*>(x), static_cast<const float*>(g), chain(tw_),
+        chain(gw_), static_cast<const float*>(fw), static_cast<const float*>(fb),
+        static_cast<float*>(out), h, w, c, th, tw, tiles_w, stages, act, post_act);
+  };
+  switch (hp) {
+    case 16: run(gate_chain_tf32_kernel<16>); break;
+    case 32: run(gate_chain_tf32_kernel<32>); break;
+    case 40: run(gate_chain_tf32_kernel<40>); break;
+    case 48: run(gate_chain_tf32_kernel<48>); break;
+    case 64: run(gate_chain_tf32_kernel<64>); break;
+    case 80: run(gate_chain_tf32_kernel<80>); break;
+    case 96: run(gate_chain_tf32_kernel<96>); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -943,13 +1139,16 @@ int launch(const void* x, const void* g, const void* const* tw_,
 
 // x, out: (b, h, w, c) contiguous NHWC in the activation dtype (fp32 or
 // bf16), 16-byte aligned; g: the same, or null for g = x.  trunk / gate: 6
-// pointers each, w0 b0 w1 b1 w2 b2, weights in the activation dtype and
-// biases fp32, b0 (3, C/2), b1 (3, C/2), b2 (3, C).  fp32: weights as in
-// Chain, fw (c, c) [in, out].  bf16: as in MmaChain and fw (nb, HP*c), each
-// matrix [out][in] with zero rows and columns up to HP (n-blocks of HP
-// rows), stored in chunks of 64 k in K-major core-matrix order (see Ring).
-// act: 0 relu, 1 gelu (erf), 2 gelu (tanh).  c even and <= 192, and a
-// multiple of 16 in bf16 (checked by the Python wrapper).
+// pointers each, w0 b0 w1 b1 w2 b2, biases fp32, b0 (3, C/2), b1 (3, C/2),
+// b2 (3, C).  Each weight matrix is [out][in] with zero rows and columns up
+// to HP (n-blocks of HP rows for the C-wide products), laid out by the
+// Python wrapper (gate_chain.kernel_weights).  bf16: as in MmaChain and fw
+// (nb, HP*c), in chunks of 64 k in K-major core-matrix order (see Ring).
+// fp32: as in Chain32 and fw (nb, 2*HP*c), in chunks of 16 k, each its TF32
+// hi then lo in K-major core matrices of 8 x 4 (see Ring32), the k of each
+// w2 permuted within groups of 8 (see chunk32_reg_a).  act: 0 relu, 1 gelu
+// (erf), 2 gelu (tanh).  c <= 192, a multiple of 16 in bf16 and of 8 in
+// fp32 (checked by the Python wrapper).
 extern "C" int rgba_gate_chain(const void* x, const void* g,
                                const void* const* trunk,
                                const void* const* gate, const void* fw,
@@ -957,9 +1156,13 @@ extern "C" int rgba_gate_chain(const void* x, const void* g,
                                int c, int act, int post_act, int bf16,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int dev = 0, max_smem = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
   if (bf16)
-    return launch<__nv_bfloat16>(x, g, trunk, gate, fw, fb, out, b, h, w, c,
-                                 act, post_act, s);
-  return launch<float>(x, g, trunk, gate, fw, fb, out, b, h, w, c, act,
-                       post_act, s);
+    return launch_bf16(x, g, trunk, gate, fw, fb, out, b, h, w, c, act,
+                       post_act, max_smem, s);
+  return launch_tf32(x, g, trunk, gate, fw, fb, out, b, h, w, c, act,
+                     post_act, max_smem, s);
 }

@@ -37,7 +37,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..core.precision import precision_scope
+from ..core.precision import batch_invariant_scope, precision_scope
 from ..entropy.gaussian import GaussianConditional, get_scale_table
 from ..native import rans
 from ..ops.mask_pyramid import mask_pyramid
@@ -108,12 +108,14 @@ class CodecIO:
     @contextlib.contextmanager
     def _scope(self):
         """One device step: inference mode, the policy's precision (TF32
-        off in fp32), deterministic cuDNN algorithms without autotuning."""
+        off in fp32), deterministic cuDNN algorithms without autotuning,
+        and each image's result independent of its batch."""
         cudnn = torch.backends.cudnn
         saved = (cudnn.deterministic, cudnn.benchmark)
         cudnn.deterministic, cudnn.benchmark = True, False
         try:
-            with torch.inference_mode(), precision_scope(self.model.policy):
+            with torch.inference_mode(), precision_scope(self.model.policy), \
+                    batch_invariant_scope():
                 yield
         finally:
             cudnn.deterministic, cudnn.benchmark = saved

@@ -12,11 +12,21 @@ are schedule variants of the same math and are not ported.
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 import torch.nn.functional as F
 
 from ..core import init
-from ..core.precision import Policy
+from ..core.precision import Policy, batch_invariant
+
+
+def per_image(fn, x):
+    """fn(x), or inside ``batch_invariant_scope`` on the card fn of each
+    image on its own: cuDNN picks a convolution's algorithm, and so its sum
+    order, by the batch size among the rest of the shape."""
+    if batch_invariant() and x.is_cuda and x.shape[0] > 1:
+        return torch.cat([fn(x[i:i + 1]) for i in range(x.shape[0])])
+    return fn(x)
 
 
 def conv2d(x, weight, bias, policy: Policy, stride: int = 1, padding: int = 0):
@@ -24,7 +34,8 @@ def conv2d(x, weight, bias, policy: Policy, stride: int = 1, padding: int = 0):
     policy's compute dtype: what the pure plain paths of the kernel sites
     are written in."""
     dt = policy.compute_dtype
-    return F.conv2d(x.to(dt), weight.to(dt), bias.to(dt), stride, padding)
+    w, b = weight.to(dt), bias.to(dt)
+    return per_image(lambda t: F.conv2d(t.to(dt), w, b, stride, padding), x)
 
 
 class Conv(nn.Module):
@@ -69,9 +80,9 @@ class ConvTranspose(nn.Module):
 
     def forward(self, x):
         dt = self.policy.compute_dtype
-        return F.conv_transpose2d(x.to(dt), self.weight.to(dt),
-                                  self.bias.to(dt), self.stride,
-                                  self.padding, self.output_padding)
+        w, b = self.weight.to(dt), self.bias.to(dt)
+        return per_image(lambda t: F.conv_transpose2d(
+            t.to(dt), w, b, self.stride, self.padding, self.output_padding), x)
 
 
 class SubpelConv(nn.Sequential):

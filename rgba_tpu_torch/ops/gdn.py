@@ -16,6 +16,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from ..core.precision import Policy
+from .conv import per_image
 from .kernels.gdn import fused_gdn
 from .kernels.remat import fused_primal_plain_grad
 from .math import lower_bound
@@ -63,7 +64,8 @@ class GDN(nn.Module):
         """The plain path: x (B, C, H, W) in the compute dtype, gamma and
         beta after ``reparam``."""
         dt = self.policy.compute_dtype
-        norm = F.conv2d(x * x, gamma.to(dt)[:, :, None, None]).float() + \
+        g = gamma.to(dt)[:, :, None, None]
+        norm = per_image(lambda t: F.conv2d(t * t, g), x).float() + \
             beta.float()[None, :, None, None]
         # fp32: exact sqrt/div; bf16: the elementwise tail in bf16
         if dt != torch.float32:

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from .build import CudaKernel
 from .nhwc import conv1x1, conv3x3
 from .remat import fused_primal_plain_grad, needs_grad
+from .tf32 import hi_lo_core
 from .win_attn import core_matrices
 
 KERNEL = CudaKernel("dse.cu", "rgba_dse", [
@@ -59,10 +60,16 @@ def dse_plain(x, w_in, b_in, w3, b3, w_out, b_out, leaky: bool):
 
 def kernel_weights(w_in, b_in, w3, b3, w_out, b_out, dtype):
     """The weights -> the layout the kernel reads for activations of
-    ``dtype``: weights in ``dtype``, biases fp32; in bf16 each 3x3 becomes
-    [out][in] (32, 288) in wgmma's K-major core-matrix order, (6, 9216)."""
+    ``dtype``: weights in ``dtype``, biases fp32.  In bf16 each 3x3 becomes
+    [out][in] (32, 288) in wgmma's K-major core-matrix order, (6, 9216); in
+    fp32 each 3x3 becomes its nine taps in order, each [out][ci] (32, 32)
+    as its TF32 hi then lo in core matrices of 8 x 4 (``tf32.hi_lo_core``),
+    (6, 9 * 2048): the kernel streams a tap at a time."""
     if dtype == torch.bfloat16:
         w3 = core_matrices(w3.to(dtype).transpose(1, 2)).reshape(6, -1)
+    else:
+        w3 = hi_lo_core(w3.float().reshape(6, 9, FILTERS, FILTERS)
+                        .transpose(2, 3)).reshape(6, -1)
     return (w_in.to(dtype).contiguous(), b_in.float().contiguous(),
             w3.to(dtype).contiguous(), b3.float().contiguous(),
             w_out.to(dtype).contiguous(), b_out.float().contiguous())
@@ -107,7 +114,8 @@ def fused_dse(x, w_in, b_in, w3, b3, w_out, b_out, leaky: bool,
     if prepared is None:
         prepared = kernel_weights(w_in, b_in, w3, b3, w_out, b_out, dt)
     elif (prepared[2].dtype != dt or prepared[2].device != x.device
-          or prepared[0].shape != (cio, f)):
+          or prepared[0].shape != (cio, f) or prepared[2].shape[1] != 9 * f * f
+          * (1 if dt == torch.bfloat16 else 2)):
         raise ValueError("fused_dse: prepared weights do not match x's "
                          "dtype, device or channels")
     out = torch.empty_like(x)

@@ -12,7 +12,8 @@ A chain's weights are a ``GateChainWeights`` with the three blocks stacked:
 w0 (3, C, C/2), w1 (3, 9*C/2, C/2) with rows (dy, dx, ci), w2 (3, C/2, C)
 and biases b0 (3, C/2), b1 (3, C/2), b2 (3, C).  The kernel reads them in
 a layout of its own (``kernel_weights``), which the module that owns the
-weights builds once and passes as ``prepared=``.
+weights builds once and passes as ``prepared=``.  bf16 runs every product
+on the tensor cores in bf16, fp32 as 3xTF32 (``tf32.py``).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import torch.nn.functional as F
 from .build import CudaKernel
 from .nhwc import conv1x1, conv3x3
 from .remat import fused_primal_plain_grad, needs_grad
+from .tf32 import chunked_hi_lo
 from .win_attn import _up16, core_matrices
 
 KERNEL = CudaKernel("gate_chain.cu", "rgba_gate_chain", [
@@ -36,8 +38,22 @@ KERNEL = CudaKernel("gate_chain.cu", "rgba_gate_chain", [
 
 _DTYPES = (torch.float32, torch.bfloat16)
 ACTS = ("relu", "gelu_erf", "gelu_tanh")
-MAX_CHANNELS = 192   # register tiles of csrc/gate_chain.cu (12 x 16 columns)
+MAX_CHANNELS = 192   # the widest instantiation of csrc/gate_chain.cu: HP 96
 CHUNK_K = 64         # k per weight chunk of the bf16 kernel's ring
+HP32 = (16, 32, 40, 48, 64, 80, 96)   # the fp32 kernel's instantiations
+# The fp32 kernel keeps h1 in the 3x3's accumulators, whose lane holds
+# channels 2q, 2q + 1 of each 8, and reads them as the TF32 A fragment's k
+# = q, q + 4: k 8j + p of the following 1x1 is channel 8j + H1_ORDER[p].
+H1_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def padded_half(c: int, dtype) -> int:
+    """HP, the kernel's width of the C/2-wide products: C/2 rounded up to
+    16 in bf16 (the k16 step) and to an instantiation in ``HP32`` in fp32
+    (a multiple of 8, the k8 step: 40 at C = 80 takes no padding)."""
+    if dtype == torch.bfloat16:
+        return _up16(c // 2)
+    return next(hp for hp in HP32 if hp >= c // 2)
 
 
 class GateChainWeights(NamedTuple):
@@ -89,27 +105,37 @@ def chunked_core(w):
                       for k0 in range(0, k, CHUNK_K)], dim=-1)
 
 
-def mma_weights(cw: GateChainWeights):
-    """One chain's bf16 matrices as the kernel multiplies them, [out][in]
-    and zero padded, before ``chunked_core``: with half = C/2 and hp = half
-    rounded up to 16, w0 (3, hp, C); w1 (3, hp, 9 * hp) with k = (tap, ci);
-    w2 (3, nb, hp, hp), nb = ceil(C / hp) n-blocks of the C outputs."""
+def mma_weights(cw: GateChainWeights, dtype=torch.bfloat16):
+    """One chain's matrices as the kernel multiplies them, [out][in] and
+    zero padded, before the chunked layout: with half = C/2 and hp =
+    ``padded_half(C, dtype)``, w0 (3, hp, C); w1 (3, hp, 9 * hp) with k =
+    (tap, ci); w2 (3, nb, hp, hp), nb = ceil(C / hp) n-blocks of the C
+    outputs, in fp32 its k in ``H1_ORDER`` within each 8."""
     c, half = cw.w0.shape[1], cw.w0.shape[2]
-    hp = _up16(half)
+    hp = padded_half(c, dtype)
     nb = -(-c // hp)
     w0 = F.pad(cw.w0.transpose(1, 2), (0, 0, 0, hp - half))
     w1 = F.pad(cw.w1.reshape(3, 9, half, half),
                (0, hp - half, 0, hp - half)).permute(0, 3, 1, 2)
     w2 = F.pad(cw.w2.transpose(1, 2), (0, hp - half, 0, nb * hp - c))
+    if dtype != torch.bfloat16:
+        w2 = w2[..., h1_order(hp)]
     return w0, w1.reshape(3, hp, 9 * hp), w2.reshape(3, nb, hp, hp)
+
+
+def h1_order(hp: int) -> torch.Tensor:
+    """Channel of each k of the fp32 kernel's h1 product (``H1_ORDER``)."""
+    return torch.tensor([8 * j + p for j in range(hp // 8) for p in H1_ORDER])
 
 
 class GateKernelWeights(NamedTuple):
     """Everything the kernel reads besides x and g, in the layout of one
     dtype (``kernel_weights``): each chain as (w0, b0, w1, b1, w2, b2) and
-    the final 1x1.  fp32 keeps the ``GateChainWeights`` layout and fw (C, C)
-    [in, out]; bf16 holds ``mma_weights`` and fw [out][in] (nb, hp, C), each
-    as ``chunked_core`` streams.  Biases are fp32."""
+    the final 1x1.  The weights are ``mma_weights`` and fw [out][in] (nb,
+    hp, C): in bf16 as ``chunked_core`` streams, (3, hp * K) per matrix; in
+    fp32 as ``tf32.chunked_hi_lo`` streams (chunks of 16 k, each its TF32
+    hi then lo in core matrices of 8 x 4), (3, 2 * hp * K), each element
+    fp32.  Biases are fp32."""
     trunk: tuple
     gate: tuple
     fw: torch.Tensor
@@ -120,22 +146,21 @@ def kernel_weights(trunk: GateChainWeights, gate: GateChainWeights, fw, fb,
                    dtype) -> GateKernelWeights:
     """The gate's weights -> the layout the kernel reads for activations
     of ``dtype``."""
+    bf16 = dtype == torch.bfloat16
+
+    def stream(w):
+        return chunked_core(w.to(dtype)) if bf16 else chunked_hi_lo(w.float())
+
     def chain(cw):
-        ws = [cw.w0, cw.w1, cw.w2]
-        if dtype == torch.bfloat16:
-            ws = [chunked_core(w.to(dtype)) for w in mma_weights(cw)]
-            ws[2] = ws[2].reshape(3, -1)
+        ws = [stream(w) for w in mma_weights(cw, dtype)]
+        ws[2] = ws[2].reshape(3, -1)
         bs = [cw.b0, cw.b1, cw.b2]
         return tuple(t for w, b in zip(ws, bs)
-                     for t in (w.to(dtype).contiguous(),
-                               b.float().contiguous()))
-    fwk = fw.to(dtype)
-    if dtype == torch.bfloat16:
-        c = fw.shape[0]
-        hp = _up16(c // 2)
-        nb = -(-c // hp)
-        fwk = chunked_core(F.pad(fwk.t(), (0, 0, 0, nb * hp - c))
-                           .reshape(nb, hp, c))
+                     for t in (w.contiguous(), b.float().contiguous()))
+    c = fw.shape[0]
+    hp = padded_half(c, dtype)
+    nb = -(-c // hp)
+    fwk = stream(F.pad(fw.t(), (0, 0, 0, nb * hp - c)).reshape(nb, hp, c))
     return GateKernelWeights(chain(trunk), chain(gate), fwk.contiguous(),
                              fb.float().contiguous())
 
@@ -193,20 +218,21 @@ def fused_gate_chain(x, g, trunk: GateChainWeights, gate: GateChainWeights,
     if not x.is_contiguous() or (g is not None and not g.is_contiguous()):
         raise ValueError("fused_gate_chain: x and g must be contiguous NHWC")
     bf16 = dt == torch.bfloat16
-    if bf16 and c % 16:
-        raise ValueError(f"fused_gate_chain: bf16 needs C % 16 == 0 (the "
+    step = 16 if bf16 else 8
+    if c % step:
+        raise ValueError(f"fused_gate_chain: {dt} needs C % {step} == 0 (the "
                          f"tensor-core K step), got C={c}")
     gg = None if g is None else g.to(dt).contiguous()
     xc = x
-    if bf16 and x.data_ptr() % 16:      # 16-byte copies of pixel rows
+    if x.data_ptr() % 16:               # 16-byte copies of pixel rows
         xc = x.clone()
     if gg is not None and gg.data_ptr() % 16:
         gg = gg.clone()
+    hp = padded_half(c, dt)
     if prepared is None:
         prepared = kernel_weights(trunk, gate, fw, fb, dt)
     elif (prepared.fw.dtype != dt or prepared.fw.device != x.device
-          or prepared.fw.numel() != (-(-c // _up16(half)) * _up16(half) * c
-                                     if bf16 else c * c)):
+          or prepared.fw.numel() != (-(-c // hp) * hp * c * (1 if bf16 else 2))):
         raise ValueError("fused_gate_chain: prepared weights do not match "
                          "x's dtype, device or width")
     out = torch.empty_like(xc)

@@ -297,48 +297,77 @@ _GATE_FLAVOURS = [("gelu_erf", True, True), ("gelu_tanh", True, True),
                   ("relu", False, False)]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("act,post,separate", _GATE_FLAVOURS)
 @pytest.mark.parametrize("b,h,w,c", [(1, 1, 1, 192), (3, 7, 9, 192),
                                      (1, 33, 47, 192), (3, 33, 47, 80),
                                      (1, 7, 9, 80), (3, 1, 1, 80)])
-def test_gate_chain_bf16_ragged_sizes(card, act, post, separate, b, h, w, c):
-    """The wgmma kernel's 8x16 (C=192) and 16x16 (C=80) tiles against
-    images below one tile and with ragged edges, K padded at C=80."""
-    args = _gate_args(b, h, w, c, torch.bfloat16, card, separate)
+def test_gate_chain_bf16_ragged_sizes(card, act, post, separate, b, h, w, c,
+                                      dtype):
+    """The wgmma kernels' tiles (bf16: 8x16 at C=192, 16x16 at C=80; fp32:
+    6x8 and 8x16) against images below one tile and with ragged edges, K
+    padded at C=80 in bf16."""
+    args = _gate_args(b, h, w, c, dtype, card, separate)
     with torch.inference_mode():
         _assert_close(gate_chain.fused_gate_chain(*args, act, post),
-                      gate_chain.gate_chain_plain(*args, act, post),
-                      torch.bfloat16)
+                      gate_chain.gate_chain_plain(*args, act, post), dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("cio,leaky", [(3, False), (1, True)])
 @pytest.mark.parametrize("b,h,w", [(1, 1, 1), (3, 7, 9), (1, 33, 47),
                                    (3, 33, 47)])
-def test_dse_bf16_ragged_sizes(card, cio, leaky, b, h, w):
-    args = _dse_args(b, h, w, cio, torch.bfloat16, card)
+def test_dse_bf16_ragged_sizes(card, cio, leaky, b, h, w, dtype):
+    args = _dse_args(b, h, w, cio, dtype, card)
     with torch.inference_mode():
         _assert_close(dse.fused_dse(*args, leaky=leaky),
-                      dse.dse_plain(*args, leaky=leaky), torch.bfloat16)
+                      dse.dse_plain(*args, leaky=leaky), dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c", [192, 80])
-def test_conv_chain_bf16_kernels_repeat_bit_for_bit(card, c):
+def test_conv_chain_bf16_kernels_repeat_bit_for_bit(card, c, dtype):
     """Fixed-order sums: two launches give the same bits, and so do the
     weights laid out once (``prepared``) and on every call."""
-    gargs = _gate_args(3, 33, 47, c, torch.bfloat16, card, True)
-    dargs = _dse_args(3, 33, 47, 3, torch.bfloat16, card)
+    gargs = _gate_args(3, 33, 47, c, dtype, card, True)
+    dargs = _dse_args(3, 33, 47, 3, dtype, card)
+    act = "gelu_tanh" if dtype == torch.bfloat16 else "gelu_erf"
     with torch.inference_mode():
-        prep = gate_chain.kernel_weights(*gargs[2:], torch.bfloat16)
-        a = gate_chain.fused_gate_chain(*gargs, "gelu_tanh", True)
-        b = gate_chain.fused_gate_chain(*gargs, "gelu_tanh", True, prep)
-        dprep = dse.kernel_weights(*dargs[1:], torch.bfloat16)
+        prep = gate_chain.kernel_weights(*gargs[2:], dtype)
+        a = gate_chain.fused_gate_chain(*gargs, act, True)
+        b = gate_chain.fused_gate_chain(*gargs, act, True, prep)
+        dprep = dse.kernel_weights(*dargs[1:], dtype)
         d0 = dse.fused_dse(*dargs, leaky=False)
         d1 = dse.fused_dse(*dargs, leaky=False, prepared=dprep)
     assert torch.equal(a, b) and torch.equal(d0, d1)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [192, 80])
+def test_conv_chain_image_does_not_depend_on_its_batch(card, c, dtype):
+    """The codec's encoder and decoder each rebuild the mask: image i alone
+    gives the same bits as image i in a batch of 16."""
+    gargs = _gate_args(16, 29, 43, c, dtype, card, True)
+    dargs = _dse_args(16, 45, 70, 3, dtype, card)
+    act = "gelu_tanh" if dtype == torch.bfloat16 else "gelu_erf"
+    with torch.inference_mode():
+        prep = gate_chain.kernel_weights(*gargs[2:], dtype)
+        dprep = dse.kernel_weights(*dargs[1:], dtype)
+        gate_all = gate_chain.fused_gate_chain(*gargs, act, True, prep)
+        dse_all = dse.fused_dse(*dargs, leaky=False, prepared=dprep)
+        for i in (0, 7, 15):
+            one = gate_chain.fused_gate_chain(
+                gargs[0][i:i + 1].contiguous(), gargs[1][i:i + 1].contiguous(),
+                *gargs[2:], act, True, prep)
+            assert torch.equal(one[0], gate_all[i]), i
+            one = dse.fused_dse(dargs[0][i:i + 1].contiguous(), *dargs[1:],
+                                leaky=False, prepared=dprep)
+            assert torch.equal(one[0], dse_all[i]), i
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kind", ["wingate", "simplified", "dse"])
-def test_conv_chain_layout_follows_an_in_place_update(card, kind):
+def test_conv_chain_layout_follows_an_in_place_update(card, kind, dtype):
     """After an optimizer step the module's cached kernel layout is that of
     the new weights: its kernel route gives, bit for bit, the kernel fed a
     layout made afresh from the new weights, and no longer its own output
@@ -346,7 +375,7 @@ def test_conv_chain_layout_follows_an_in_place_update(card, kind):
     from rgba_tpu_torch.core.precision import Policy
     from rgba_tpu_torch.ops import attention as att
     from rgba_tpu_torch.ops.enhance import DSE
-    dt = torch.bfloat16
+    dt = dtype
     g = torch.Generator().manual_seed(5)
     kw = dict(device=card, generator=torch.Generator().manual_seed(6))
     if kind == "dse":
@@ -418,6 +447,9 @@ def test_codec_round_trip_on_the_card(card):
     blobs = codec.encode_batch(img, alpha)
     dec = codec.decode_batch(blobs)
     assert tuple(a - b for a, b in zip(_launches(), before)) == (4, 15, 10, 3)
+    # a blob decodes the same alone as in its batch (batch-invariant scope)
+    alone = codec.decode_batch(blobs[:1])
+    assert np.array_equal(alone[0], dec[0])
     assert codec.encode_batch(img, alpha) == blobs
     assert dec.shape == (2, 64, 128, 4)
     rgb_io = codec.rgb_io
