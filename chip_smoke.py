@@ -15,8 +15,9 @@ failure:
    fp32 and bf16, against its plain PyTorch version on the same inputs
    within the printed tolerance (attention also fed a zeroed and a
    transposed rel_bias, which that check must fail); times the kernel
-   (its weights laid out once, as the owning module keeps them; the
-   layout's own time is printed beside), the plain version, one
+   (its weights laid out once, as the owning module keeps them, GDN's
+   gamma_t too; the layout's own time is printed beside), the plain
+   version, one
    PyTorch library call of the same function (a yardstick the port never
    calls) and the bound (the larger of bytes over 3.35 TB/s and operations
    over the H100 SXM peak for their type: bf16 at 989 TFLOP/s, fp32 as
@@ -127,7 +128,7 @@ def _bound(nbytes: float, flops: float, dtype: str) -> dict:
     """The least time the card could take: the larger of the bytes over the
     memory rate and the operations over the peak for their type.  fp32
     operations run on the tensor cores as 3xTF32 (three TF32 products per
-    fp32 product, as the gate-chain and DSE kernels take them), so their
+    fp32 product, as all four kernels take them), so their
     bound is 3 x operations / 495 TFLOP/s (``bound_3xtf32_ms``); the bound
     at the CUDA cores' 67 TFLOP/s is kept beside it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -200,9 +201,11 @@ def gdn_cases(torch, batch: int, iters: int, h: int = 512, w: int = 768):
         gt = (0.1 * torch.eye(c) + 1e-3 * torch.rand(c, c, generator=g)).to(dev)
         beta = (1.0 + 0.1 * torch.rand(c, generator=g)).to(dev)
         gt_dt, beta_dt = gt.to(dt), beta.to(dt)
+        # gamma_t's kernel layout, which the GDN module builds once
+        prep = k.kernel_weights(gt, dt)
         for inverse in (False, True):
             what = f"fused_gdn {'inverse ' if inverse else ''}M={m} C={c} {dtype}"
-            res = _check(torch, k.fused_gdn(x, gt, beta, inverse),
+            res = _check(torch, k.fused_gdn(x, gt, beta, inverse, prep),
                          k.gdn_plain(x, gt, beta, inverse), dtype, what)
 
             def library():
@@ -213,11 +216,14 @@ def gdn_cases(torch, batch: int, iters: int, h: int = 512, w: int = 768):
             res.update(
                 shape=f"M={m},C={c},{'inverse' if inverse else 'forward'}",
                 dtype=dtype,
-                ms=_time_ms(torch, lambda: k.fused_gdn(x, gt, beta, inverse), iters),
+                ms=_time_ms(torch, lambda: k.fused_gdn(x, gt, beta, inverse, prep),
+                            iters),
+                layout_ms=_time_ms(torch, lambda: k.kernel_weights(gt, dt), iters),
                 plain_ms=_time_ms(torch, lambda: k.gdn_plain(x, gt, beta, inverse), iters),
                 library_ms=_time_ms(torch, library, iters),
                 **_bound(nbytes, 2.0 * m * c * c, dtype))
-            print(f"    ms {res['ms']:.4f} plain_ms {res['plain_ms']:.4f} "
+            print(f"    ms {res['ms']:.4f} (gamma layout, once per weights: "
+                  f"{res['layout_ms']:.4f}) plain_ms {res['plain_ms']:.4f} "
                   f"library_ms {res['library_ms']:.4f} {_bound_text(res)}")
             cases.append(res)
         del x

@@ -442,6 +442,73 @@ __device__ __forceinline__ void wgmma_tf32<96>(float (&d)[48], const uint32_t (&
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_tf32<24>(float (&d)[12], const uint32_t (&a)[4],
+                                               uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11"
+      "}, {%12, %13, %14, %15}, %16, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<72>(float (&d)[36], const uint32_t (&a)[4],
+                                               uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35"
+      "}, {%36, %37, %38, %39}, %40, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<192>(float (&d)[96], const uint32_t (&a)[4],
+                                                uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
 // One 8-deep k step of an fp32 product in three TF32 terms, the small ones
 // first, always in this order: d += a_lo b_hi + a_hi b_lo + a_hi b_hi.
 template <int N>
@@ -451,6 +518,34 @@ __device__ __forceinline__ void wgmma_3xtf32(float (&d)[N / 2], const uint32_t (
   wgmma_tf32<N>(d, lo, b_hi);
   wgmma_tf32<N>(d, hi, b_lo);
   wgmma_tf32<N>(d, hi, b_hi);
+}
+
+// D += A * B on the tensor cores, one m16n8k8 tile of TF32 (mma.sync):
+// a[e] is row l / 4 + 8 (e % 2), k l % 4 + 4 (e / 2); b0 / b1 are k l % 4
+// and l % 4 + 4 of column l / 4; c as in mma_bf16.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The same tile as an fp32 product in three TF32 terms, in the order of
+// wgmma_3xtf32: c += a_lo b_hi + a_hi b_lo + a_hi b_hi.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&hi)[4],
+                                           const uint32_t (&lo)[4], const uint32_t (&b_hi)[2],
+                                           const uint32_t (&b_lo)[2]) {
+  mma_tf32(c, lo, b_hi[0], b_hi[1]);
+  mma_tf32(c, hi, b_lo[0], b_lo[1]);
+  mma_tf32(c, hi, b_hi[0], b_hi[1]);
+}
+
+// hi / lo of one fp32 value.
+__device__ __forceinline__ void split1_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(v - __uint_as_float(hi));
 }
 
 // mbarrier in shared memory (phase-parity protocol).
@@ -503,6 +598,98 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
 // Barrier of the first `threads` threads of the block (named barrier id).
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;" :: "r"(id), "r"(threads) : "memory");
+}
+
+// ---- a ring of fp32 weight chunks for 3xTF32 wgmma (win_attn.cu; gdn.cu
+// streams the same chunk layout through a ring of its own) ----
+//
+// A weight matrix [n < N][k < K] is laid out by the Python wrapper
+// (ops/kernels/tf32.py, chunked_hi_lo) as chunks of kChunkK k (the last may
+// be 8), each the TF32 hi of the chunk in K-major core matrices of 8 rows x
+// 4 fp32, then its lo; chunk c starts 2 N kChunkK c floats in and is one
+// bulk copy.  One producer lane copies chunks into the stages in the order
+// the consumers take them; a stage's `full` barrier completes on its bytes,
+// its `empty` barrier on one arrival per consumer warp.
+constexpr int kChunkK = 16;
+
+struct ChunkRing {
+  float* buf;          // stages x 2 x N x kChunkK
+  uint64_t* full;
+  uint64_t* empty;
+  int stages;
+  int it;              // chunks produced (producer) or taken (consumers)
+};
+
+// Producer: the chunks of one matrix w (N rows, K = k_len), in order.
+template <int N>
+__device__ __forceinline__ void ring_produce(ChunkRing& r, const float* w, int k_len) {
+  for (int k0 = 0; k0 < k_len; k0 += kChunkK, ++r.it) {
+    const int s = r.it % r.stages;
+    mbar_wait(&r.empty[s], ((r.it / r.stages) & 1) ^ 1);
+    const int bytes = 2 * N * min(kChunkK, k_len - k0) * 4;
+    mbar_expect(&r.full[s], bytes);
+    bulk_load(r.buf + s * 2 * N * kChunkK, w + 2 * N * k0, bytes, &r.full[s]);
+  }
+}
+
+// Consumer warpgroup: d += A (64 x 8 KS, split A fragments) x the next
+// chunk's W^T (KS k steps of 8), each step as wgmma_3xtf32; then the chunk
+// is released.  Every consumer warp takes every chunk.  (Keeping the next
+// chunk's wgmma in flight while this one's A fragments are made measured
+// slower on the H100 than waiting here.)
+template <int N, int KS>
+__device__ __forceinline__ void ring_consume(float (&d)[N / 2], const uint32_t (&hi)[KS][4],
+                                             const uint32_t (&lo)[KS][4], ChunkRing& r) {
+  const int s = r.it % r.stages;
+  mbar_wait(&r.full[s], (r.it / r.stages) & 1);
+  const float* b = r.buf + s * 2 * N * kChunkK;
+  const uint64_t bh = kmajor_desc(b, KS * 256);
+  const uint64_t bl = kmajor_desc(b + N * 8 * KS, KS * 256);
+  fence_operands(d);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    wgmma_3xtf32<N>(d, hi[kk], lo[kk], bh + 16 * kk, bl + 16 * kk);
+  wgmma_commit_wait();
+  fence_operands(d);
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) mbar_arrive(&r.empty[s]);
+  ++r.it;
+}
+
+// d += A (the warpgroup's 64 rows in shared memory) x W^T over k_len (a
+// multiple of 8) from the ring; a_ptr(k) is this lane's ldmatrix row
+// address at depth k (see ldsm_x4: an 8 x 8 b16 tile is 8 rows of 4 fp32,
+// so ldmatrix gives each lane its TF32 A fragment).
+template <int N, class APtr>
+__device__ __forceinline__ void ring_gemm_smem_a(float (&d)[N / 2], int k_len, ChunkRing& r,
+                                                 APtr a_ptr) {
+  int k0 = 0;
+  for (; k0 + kChunkK <= k_len; k0 += kChunkK) {
+    uint32_t hi[2][4], lo[2][4];
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      uint32_t a[4];
+      ldsm_x4(a, a_ptr(k0 + 8 * kk));
+      split_tf32(a, hi[kk], lo[kk]);
+    }
+    ring_consume<N, 2>(d, hi, lo, r);
+  }
+  if (k0 < k_len) {  // a last chunk of 8 k
+    uint32_t hi[1][4], lo[1][4], a[4];
+    ldsm_x4(a, a_ptr(k0));
+    split_tf32(a, hi[0], lo[0]);
+    ring_consume<N, 1>(d, hi, lo, r);
+  }
+}
+
+// Set up the barriers of a ring (one thread; the block synchronises after).
+__device__ __forceinline__ void ring_init(ChunkRing& r, int consumer_warps) {
+  for (int s = 0; s < r.stages; ++s) {
+    mbar_init(&r.full[s], 1);
+    mbar_init(&r.empty[s], consumer_warps);
+  }
+  mbar_fence_init();
 }
 
 // Resident blocks per SM times the SM count: the grid of a persistent

@@ -31,11 +31,41 @@
 // are zero-filled on load and never stored.  Sums run in a fixed order,
 // without atomics.
 //
-// fp32 design (gdn_kernel): one block of 256 threads per tile of 64 rows on
-// the CUDA cores (TF32 would break the fp32 tolerance).  It squares the rows
-// into shared memory, then walks gamma_t in K-tiles of 32 rows; each thread
-// keeps a 4-row x 12-column register tile, so 16 shared loads feed 48 FMAs;
-// the epilogue adds beta, takes the rsqrt (sqrt) in fp32, and scales x.
+// fp32 design (gdn_tf32_kernel): every product at fp32 accuracy on the
+// tensor cores as 3xTF32 (common.cuh): wgmma m64n192k8 with the terms
+// x2_lo g_hi, x2_hi g_lo, x2_hi g_hi in that order, every k step.  As 3xTF32
+// the work is 3 x 116 GFLOP, 0.70 ms at the 495 TFLOP/s TF32 peak, about
+// the 0.72 ms that reading x and writing y in fp32 takes: bytes and
+// operations bound it alike.
+// - gamma_t does not fit: its hi and lo at C=192 take 294,912 bytes, more
+//   than a block's 232,448.  It streams from L2 in chunks of 16 k (hi then
+//   lo, 24,576 bytes; laid out once per weights by the wrapper,
+//   gdn.kernel_weights) through a ring of 4 stages, each chunk feeding the
+//   block's 128-row tile: both warpgroups take every chunk, and thread 0
+//   refills a stage with cp.async.bulk once the block has read it.  L2
+//   sees 2.3 KB of gamma per row, HBM x once and y once.  (Two designs ran
+//   slower on the H100: gamma's hi resident with lo streamed per
+//   warpgroup, and an 8-stage ring fed by a producer warpgroup with x
+//   loaded straight into registers, whose loads waited on memory in every
+//   epilogue.)
+// - x comes by bulk copies, one per row, into a 128-row tile in shared
+//   memory (rows padded by 8 fp32: at most 2-way bank conflicts), issued a
+//   whole tile ahead: as soon as the block has read the tile into
+//   registers, the next one is requested.
+// - A from registers: the wrapper permutes gamma_t's k within each 8 (k
+//   8j + p is channel 8j + (0,2,4,6,1,3,5,7)[p]), so the TF32 A fragment of
+//   k step j (lane l: rows l/4 and l/4 + 8, k l%4 and l%4 + 4) is channels
+//   8j + 2(l%4) and + 1 of those rows: exactly the float2 each lane holds
+//   of the accumulators' n-tile j.  Each lane reads its 2 rows x 24 float2
+//   of x once, squares and splits them for the products, and scales the
+//   same registers in the epilogue (y = x rsqrt(x2 @ gamma_t + beta), or
+//   sqrt, in fp32), which stores y straight from the registers.  96
+//   accumulators and 96 x registers a thread: the block has no producer
+//   warp, so its 256 threads may hold 255 registers each (with 384 threads
+//   ptxas serialised the wgmma for want of registers, note C7511).
+// - Persistent grid, one block per SM; rows past M are never stored.  Sums
+//   in a fixed order (k ascending, the three terms in the order above), no
+//   atomics: a row gives the same bits for any M.
 #include <algorithm>
 
 #include "common.cuh"
@@ -43,74 +73,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRows = 64;      // rows per block
-constexpr int kK = 32;         // gamma_t rows per K-tile
-constexpr int kColGroups = 12; // columns per thread: C <= 16 * 12 = 192
-
-__global__ void __launch_bounds__(kThreads)
-gdn_kernel(const float* __restrict__ x, const float* __restrict__ gamma_t,
-           const float* __restrict__ beta, float* __restrict__ y, long long m,
-           int c, int inverse) {
-  extern __shared__ float smem[];
-  const int ldx = c + 1;            // +1 pad: rows ty and ty+1 hit different banks
-  float* x2s = smem;                // kRows x ldx
-  float* gs = smem + kRows * ldx;   // kK x c
-
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const long long row0 = static_cast<long long>(blockIdx.x) * kRows;
-  const int ncg = c / 16;
-
-  for (int i = threadIdx.x; i < kRows * c; i += kThreads) {
-    const int r = i / c, col = i - r * c;
-    const long long row = row0 + r;
-    const float v = row < m ? x[row * c + col] : 0.f;
-    x2s[r * ldx + col] = v * v;
-  }
-
-  float acc[4][kColGroups];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int g = 0; g < kColGroups; ++g) acc[r][g] = 0.f;
-
-  for (int k0 = 0; k0 < c; k0 += kK) {
-    const int kt = min(kK, c - k0);
-    __syncthreads();  // x2s written; previous K-tile consumed
-    for (int i = threadIdx.x; i < kt * c; i += kThreads)
-      gs[i] = gamma_t[static_cast<long long>(k0) * c + i];
-    __syncthreads();
-    for (int k = 0; k < kt; ++k) {
-      float a[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = x2s[(ty + 16 * r) * ldx + k0 + k];
-#pragma unroll
-      for (int g = 0; g < kColGroups; ++g) {
-        if (g < ncg) {
-          const float b = gs[k * c + tx + 16 * g];
-#pragma unroll
-          for (int r = 0; r < 4; ++r) acc[r][g] = fmaf(a[r], b, acc[r][g]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const long long row = row0 + ty + 16 * r;
-    if (row >= m) continue;
-#pragma unroll
-    for (int g = 0; g < kColGroups; ++g) {
-      if (g < ncg) {
-        const int col = tx + 16 * g;
-        const float norm = acc[r][g] + beta[col];
-        const float s = inverse ? sqrtf(norm) : rsqrtf(norm);
-        const long long idx = row * c + col;
-        y[idx] = x[idx] * s;
-      }
-    }
-  }
-}
 
 // ---------------------------------------------------------------- bf16 path
 constexpr int kGroups = 2;              // warpgroups: independent tile streams
@@ -298,15 +260,133 @@ int launch_mma(const void* x, const void* gamma_t, const void* beta, void* y,
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch(const void* x, const void* gamma_t, const void* beta, void* y,
-           long long m, int c, int inverse, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (kRows * (c + 1) + kK * c);
-  cudaFuncSetAttribute(gdn_kernel,
+// ---------------------------------------------------------------- fp32 path
+constexpr int kStages32 = 4;                        // gamma chunks in the ring
+constexpr int kChunk32 = 2 * kN * rgba::kChunkK;    // floats of a chunk: hi, lo
+constexpr int kRows32 = kGroups * kTileRows;        // rows per tile: 128
+
+size_t smem_tf32(int c) {
+  return sizeof(float) * (kStages32 * kChunk32 + kRows32 * (c + 8) + c) +
+         sizeof(uint64_t) * (kStages32 + 1);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+gdn_tf32_kernel(const float* __restrict__ x, const float* __restrict__ gw,
+                const float* __restrict__ beta, float* __restrict__ y,
+                long long m, int c, int inverse) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int nch = c / rgba::kChunkK, nt = c / 8, ldx = c + 8;
+  float* ring = reinterpret_cast<float*>(smem_raw);       // kStages32 x kChunk32
+  float* xs = ring + kStages32 * kChunk32;                // kRows32 x ldx
+  uint64_t* full = reinterpret_cast<uint64_t*>(xs + kRows32 * ldx);
+  uint64_t* x_bar = full + kStages32;
+  float* bs = reinterpret_cast<float*>(x_bar + 1);        // beta
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane / 4, t2 = 2 * (lane % 4);
+  const long long tiles = (m + kRows32 - 1) / kRows32;
+  const long long total =  // gamma chunks this block takes: nch a tile
+      blockIdx.x < tiles ? ((tiles - 1 - blockIdx.x) / gridDim.x + 1) * nch : 0;
+  auto fill = [&](long long q) {  // chunk q % nch of gamma into its stage
+    const int s = static_cast<int>(q % kStages32);
+    rgba::mbar_expect(&full[s], kChunk32 * 4);
+    rgba::bulk_load(ring + s * kChunk32, gw + (q % nch) * kChunk32, kChunk32 * 4, &full[s]);
+  };
+  auto load_x = [&](long long tt) {  // warp 0: tile tt's rows into xs
+    const long long rows = m - tt * kRows32;
+    const int n = static_cast<int>(rows < kRows32 ? rows : kRows32);
+    if (lane == 0) rgba::mbar_expect(x_bar, n * c * 4);
+    __syncwarp();
+    for (int r = lane; r < n; r += 32)
+      rgba::bulk_load(xs + r * ldx, x + (tt * kRows32 + r) * c, c * 4, x_bar);
+  };
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i <= kStages32; ++i) rgba::mbar_init(full + i, 1);
+    rgba::mbar_fence_init();
+  }
+  for (int i = threadIdx.x; i < c; i += kThreads) bs[i] = beta[i];
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (long long q = 0; q < kStages32 && q < total; ++q) fill(q);
+  if (warp == 0 && blockIdx.x < tiles) load_x(blockIdx.x);
+
+  long long q = 0;  // gamma chunks taken
+  for (long long t = blockIdx.x, i = 0; t < tiles; t += gridDim.x, ++i) {
+    // this lane's x of the tile, in the accumulators' layout, then the
+    // next tile's rows into xs, a whole tile ahead of their use
+    rgba::mbar_wait(x_bar, static_cast<unsigned>(i & 1));
+    float2 xv[kN / 8][2];
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+        xv[j][rr] = j < nt ? *reinterpret_cast<const float2*>(
+                                 xs + (16 * warp + gq + 8 * rr) * ldx + 8 * j + t2)
+                           : make_float2(0.f, 0.f);
+    __syncthreads();  // xs is read
+    if (warp == 0 && t + gridDim.x < tiles) load_x(t + gridDim.x);
+
+    float d[kN / 2];
+#pragma unroll
+    for (int e = 0; e < kN / 2; ++e) d[e] = 0.f;
+    rgba::fence_operands(d);
+#pragma unroll
+    for (int ch = 0; ch < kN / rgba::kChunkK; ++ch) {
+      if (ch < nch) {  // the same for every thread: no wgmma is predicated
+        uint32_t hi[2][4], lo[2][4];
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          const float2 p = xv[2 * ch + kk][0], r = xv[2 * ch + kk][1];
+          const float v[4] = {p.x * p.x, r.x * r.x, p.y * p.y, r.y * r.y};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) rgba::split1_tf32(v[e], hi[kk][e], lo[kk][e]);
+        }
+        const int s = static_cast<int>(q % kStages32);
+        rgba::mbar_wait(&full[s], static_cast<unsigned>((q / kStages32) & 1));
+        const float* b = ring + s * kChunk32;
+        const uint64_t bh = rgba::kmajor_desc(b, 2 * 256);
+        const uint64_t bl = rgba::kmajor_desc(b + kChunk32 / 2, 2 * 256);
+        rgba::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk)
+          rgba::wgmma_3xtf32<kN>(d, hi[kk], lo[kk], bh + 16 * kk, bl + 16 * kk);
+        rgba::wgmma_commit_wait();
+        __syncthreads();  // both groups are done with stage s
+        if (threadIdx.x == 0 && q + kStages32 < total) fill(q + kStages32);
+        ++q;
+      }
+    }
+    rgba::fence_operands(d);
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j) {
+      if (j >= nt) continue;
+      const int col = 8 * j + t2;
+      const float b0 = bs[col], b1 = bs[col + 1];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const long long row = t * kRows32 + 16 * warp + gq + 8 * rr;
+        if (row >= m) continue;
+        const float n0 = d[4 * j + 2 * rr] + b0, n1 = d[4 * j + 2 * rr + 1] + b1;
+        const float s0 = inverse ? sqrtf(n0) : rsqrtf(n0);
+        const float s1 = inverse ? sqrtf(n1) : rsqrtf(n1);
+        *reinterpret_cast<float2*>(y + row * c + col) =
+            make_float2(xv[j][rr].x * s0, xv[j][rr].y * s1);
+      }
+    }
+  }
+}
+
+int launch_tf32(const void* x, const void* gw, const void* beta, void* y,
+                long long m, int c, int inverse, cudaStream_t stream) {
+  const size_t smem = smem_tf32(c);
+  cudaFuncSetAttribute(gdn_tf32_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(smem));
-  const long long blocks = (m + kRows - 1) / kRows;
-  gdn_kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(gamma_t),
+  const long long tiles = (m + kRows32 - 1) / kRows32;
+  const long long grid = std::min<long long>(
+      tiles, rgba::persistent_grid(gdn_tf32_kernel, kThreads, smem));
+  gdn_tf32_kernel<<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(gw),
       static_cast<const float*>(beta), static_cast<float*>(y), m, c, inverse);
   return static_cast<int>(cudaGetLastError());
 }
@@ -314,12 +394,17 @@ int launch(const void* x, const void* gamma_t, const void* beta, void* y,
 }  // namespace
 
 // x, y: (m, c) contiguous in the activation dtype (fp32 or bf16), 16-byte
-// aligned; gamma_t: (c, c) in the same dtype; beta: (c,) fp32.  c % 16 == 0
-// and c <= 192 (checked by the Python wrapper).  The dtype picks the kernel.
+// aligned; beta: (c,) fp32.  c % 16 == 0 and c <= 192 (checked by the
+// Python wrapper).  The dtype picks the kernel and gamma's layout:
+// - bf16: gamma_t (c, c) [in][out] in bf16;
+// - fp32: gw, gamma_t as the B operand [n < 192][k < c], n = output
+//   channel (rows n >= c zero), k permuted within each 8 (see the fp32
+//   design), in chunks of 16 k, each its TF32 hi then lo in K-major core
+//   matrices of 8 x 4 (gdn.kernel_weights; 2 * 192 * c floats).
 extern "C" int rgba_gdn(const void* x, const void* gamma_t, const void* beta,
                         void* y, long long m, int c, int inverse, int bf16,
                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) return launch_mma(x, gamma_t, beta, y, m, c, inverse, s);
-  return launch(x, gamma_t, beta, y, m, c, inverse, s);
+  return launch_tf32(x, gamma_t, beta, y, m, c, inverse, s);
 }

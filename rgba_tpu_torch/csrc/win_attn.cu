@@ -47,189 +47,457 @@
 //   computes.  Biases and the group's alive gates sit in shared memory.
 // - Sums in a fixed order, no atomics: the same inputs give the same bits.
 //
-// fp32 design (win_attn_kernel): one block per window on the CUDA cores
-// (TF32 would break the fp32 tolerance).  A dead window writes zeros and
-// returns; an alive one stages its tokens in shared memory as fp32, loops
-// over heads, and keeps q/k/v of one head, the N x N fp32 scores and the
-// concatenated head outputs in shared memory.  Both projections stream
-// weight columns through a C x 32 shared tile and give each thread a 4-row
-// register tile.
+// fp32 design (win_attn_tf32_kernel<KT, NS>): the bf16 design's skeleton
+// (persistent grid, the alive list scanned on the device, dead windows
+// written as exact zeros, groups of windows filling 64-row m-tiles) with
+// every product at fp32 accuracy on the tensor cores as 3xTF32
+// (common.cuh: hi = the nearest TF32 value, lo = the remainder's; terms
+// a_lo b_hi, a_hi b_lo, a_hi b_hi in that order, fixed-order sums).  In
+// fp32 the bound is 3 x 22.0 MFLOP per alive window at the TF32 peak: 0.50
+// ms at batch 16, 512x768.
+// - Shared memory sets the shape.  fp32 tokens of one 64-row group take
+//   50,176 bytes (rows padded by 4 fp32), and the weights' hi + lo for one
+//   head's q | k | v (72 rows x 192 k at hd 24) 110,592: a double buffer of
+//   whole head stages does not fit beside them.  So a block takes one
+//   64-row group (1 window of N=64 or 4 of N=16) and splits its heads over
+//   two consumer warpgroups (even and odd heads; the output projection's
+//   chunks likewise), each with its own q, k, v buffers and its own ring of
+//   weight chunks, fed by its own producer warp: one warpgroup's scores
+//   and softmax overlap the other's projections (one warpgroup running
+//   all heads ran slower on the H100), and each weight chunk is still read
+//   from L2 once per group.  The wrapper lays the weights' hi
+//   and lo out once per weights (win_attn.kernel_weights: each head's q|k|v
+//   rows, hd padded to a multiple of 8, and the output projection in
+//   chunks of NS = 3 hdp rows, each cut into chunks of 16 k); a producer
+//   lane streams its group's chunks (9,216 bytes at NS=72) with
+//   cp.async.bulk into a ring of up to 4 stages on mbarriers, in the order
+//   its consumers take them.  Budget at N=64, C=192: tokens 50,176 + head
+//   outputs 50,176 + 2 x q, k, v 55,296 + 2 rings of 3 stages 55,392 +
+//   biases, region ids and lists ~3,700: 214,760 bytes, one block per SM.
+//   320 threads leave 204 registers a thread, enough without spills (the
+//   producers are single warps, so setmaxnreg, which works per warpgroup,
+//   does not apply).
+// - Projections on wgmma m64nNSk8 (q|k|v of a head, and each output
+//   chunk), A from shared memory by ldmatrix (an 8 x 8 b16 tile is 8 rows of
+//   4 fp32: each lane gets its TF32 A fragment) split in registers.
+// - Scores and P.V on mma.sync m16n8k8 TF32, three terms each, one warp per
+//   16 query rows, so a warp owns one window of N=16 (wgmma would compute
+//   all 64 x 64 pairs of 4 windows).  S stays in registers; the fp32 scale,
+//   rel_bias (loaded into registers while the head's projection runs) and
+//   the -100 region mask are added in fp32, the softmax reduces in fp32 over
+//   the quad, and P (fp32) is reused in registers as the A fragments of
+//   P.V: slots q and q + 4 of a k step hold keys 2q and 2q + 1, and V's
+//   rows are read in that order.  Head outputs go to shared memory, where
+//   the output projection reads them.
+// - Each block streams all weights once per group from L2 (1.18 MB of hi +
+//   lo at C=192, 4.4 GB at batch 16): that L2 traffic, not HBM, is the
+//   next limit.
+// - Sums in a fixed order, no atomics, no split-K: a window gives the same
+//   bits in any batch and any launch.
 #include <algorithm>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kCols = 32;  // weight columns per shared tile
-constexpr int kRowTile = 4;
-constexpr int kMaxThreads = 512;  // caps registers at 128 a thread
+using bf16 = __nv_bfloat16;
 
-// out[n][j] = sum_k a[n][k] * W[k][col(j)] for n < n_rows, j < ncols;
-// a: shared, row stride lda (multiple of 4, 16-byte aligned rows);
-// W: global (K x ldw) row-major; epi(n, j, acc) consumes each result.
-template <typename ColMap, typename Epi>
-__device__ __forceinline__ void gemm_cols(const float* a, int lda, int n_rows,
-                                          int k_dim, const float* __restrict__ w,
-                                          int ldw, int ncols, ColMap col,
-                                          float* bs, Epi epi) {
-  const int groups = n_rows / kRowTile;
-  for (int j0 = 0; j0 < ncols; j0 += kCols) {
-    const int jt = min(kCols, ncols - j0);
-    for (int i = threadIdx.x; i < k_dim * jt; i += blockDim.x) {
-      const int k = i / jt, jj = i - k * jt;
-      bs[k * kCols + jj] = w[static_cast<long long>(k) * ldw + col(j0 + jj)];
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < groups * jt; i += blockDim.x) {
-      const int g = i / jt, jj = i - g * jt;
-      float acc[kRowTile];
-#pragma unroll
-      for (int r = 0; r < kRowTile; ++r) acc[r] = 0.f;
-      for (int k = 0; k < k_dim; k += 4) {
-        const float b0 = bs[(k + 0) * kCols + jj];
-        const float b1 = bs[(k + 1) * kCols + jj];
-        const float b2 = bs[(k + 2) * kCols + jj];
-        const float b3 = bs[(k + 3) * kCols + jj];
-#pragma unroll
-        for (int r = 0; r < kRowTile; ++r) {
-          const float4 av =
-              *reinterpret_cast<const float4*>(a + (g + r * groups) * lda + k);
-          float s = acc[r];
-          s = fmaf(av.x, b0, s);
-          s = fmaf(av.y, b1, s);
-          s = fmaf(av.z, b2, s);
-          s = fmaf(av.w, b3, s);
-          acc[r] = s;
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kRowTile; ++r) epi(g + r * groups, j0 + jj, acc[r]);
-    }
-    __syncthreads();
-  }
+// ---------------------------------------------------------------- fp32 path
+constexpr int kCons = 256;                // two consumer warpgroups: heads apart
+constexpr int kThreads32 = kCons + 64;    // + one producer warp per warpgroup
+constexpr int kLdh = 36;                  // row stride of q, k, v (fp32; <= 32 used)
+constexpr int kMaxStages = 4;             // per warpgroup's ring
+
+struct Geo32 {
+  int nw, n, np, c, nh, hd;  // np: n rounded up to 16
+  int wb;                    // windows per group (wb * np <= 64)
+  int ko;                    // nh * hdp: the head outputs' padded width
+  int nco;                   // output-projection chunks of NS rows
+  int ldx, ldo;              // row strides of tokens and head outputs
+  int stages, cap_a, cap_d;  // stages of each ring; alive / dead list entries per block
+};
+
+// This lane's ldmatrix row within a warp's 16 rows and its fp32 column
+// offset (see rgba::a_row): the TF32 A fragment of rows 16 w .. 16 w + 15.
+__device__ __forceinline__ int lane_row() {
+  const int l = threadIdx.x % 32;
+  return l % 8 + 8 * ((l / 8) % 2);
 }
+__device__ __forceinline__ int lane_k() { return 4 * ((threadIdx.x % 32) / 16); }
 
-__global__ void __launch_bounds__(kMaxThreads)
-win_attn_kernel(const float* __restrict__ tokens, const int* __restrict__ region,
-                const float* __restrict__ alive, const float* __restrict__ wqkv,
-                const float* __restrict__ bqkv, const float* __restrict__ wproj,
-                const float* __restrict__ bproj,
-                const float* __restrict__ rel_bias, float* __restrict__ out,
-                int n, int c, int nh, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  const long long win = blockIdx.x;
-  const float* tok = tokens + win * n * c;
-  float* o = out + win * n * c;
-  const float gate = alive[win];
-  if (gate == 0.f) {  // dead window: exact zeros, no work
-    for (int i = threadIdx.x; i < n * c; i += blockDim.x)
-      o[i] = 0.f;
+// KT: key tiles of 8 held in registers (np <= 8 KT); NS = 3 hdp: the
+// width of a qkv stage and of an output-projection chunk.
+template <int KT, int NS>
+__global__ void __launch_bounds__(kThreads32, 1)
+win_attn_tf32_kernel(const float* __restrict__ tokens,
+                     const int* __restrict__ region,
+                     const float* __restrict__ alive,
+                     const float* __restrict__ wqkv,
+                     const float* __restrict__ bqkv,
+                     const float* __restrict__ wproj,
+                     const float* __restrict__ bproj,
+                     const float* __restrict__ rel_bias,
+                     float* __restrict__ out, Geo32 g, float scale) {
+  constexpr int HT = NS / 24;  // n-tiles of 8 per head dim (hdp = 8 HT)
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __shared__ int warp_count[kThreads32 / 32];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // consumer warpgroup 0 or 1 (warps 0-3, 4-7), or the one a producer warp
+  // (8, 9) feeds
+  const int wg = warp < 8 ? warp / 4 : warp - 8;
+  const int stage = 2 * NS * rgba::kChunkK;
+  float* rings = reinterpret_cast<float*>(smem_raw);         // 2 x stages x stage
+  uint64_t* bars = reinterpret_cast<uint64_t*>(rings + 2 * g.stages * stage);
+  rgba::ChunkRing r;                  // this warpgroup's ring
+  r.buf = rings + wg * g.stages * stage;
+  r.full = bars + wg * 2 * g.stages;
+  r.empty = r.full + g.stages;
+  r.stages = g.stages;
+  r.it = 0;
+  float* xs = reinterpret_cast<float*>(bars + 4 * g.stages);  // 64 x ldx tokens
+  float* os = xs + 64 * g.ldx;        // 64 x ldo head outputs
+  float* qs = os + 64 * g.ldo + wg * 3 * 64 * kLdh;  // 64 x kLdh, then ks, vs
+  float* ks = qs + 64 * kLdh;
+  float* vs = ks + 64 * kLdh;
+  float* bsm = os + 64 * g.ldo + 6 * 64 * kLdh;      // bqkv | bproj
+  float* gates = bsm + 4 * g.c;       // 4: alive of the group's windows
+  int* reg = reinterpret_cast<int*>(gates + 4);  // 64 region ids
+  int* alist = reg + 64;              // cap_a
+  int* dlist = alist + g.cap_a;       // cap_d
+
+  const int gq = lane / 4, t2 = 2 * (lane % 4);
+  const int nblk = gridDim.x;
+  if (threadIdx.x == kCons) rgba::ring_init(r, 4);
+  if (threadIdx.x == kCons + 32) rgba::ring_init(r, 4);
+  for (int i = threadIdx.x; i < 4 * g.c; i += kThreads32)
+    bsm[i] = i < 3 * g.c ? bqkv[i] : bproj[i - 3 * g.c];
+
+  // alive windows by rank: group r / wb belongs to block (r / wb) % nblk;
+  // dead windows by rank: block rank % nblk (as the bf16 kernel)
+  int n_alive = 0;
+  for (int w0 = 0; w0 < g.nw; w0 += kThreads32) {
+    const int w = w0 + threadIdx.x;
+    const bool a = w < g.nw && alive[w] != 0.f;
+    const unsigned bal = __ballot_sync(0xffffffffu, a);
+    if (lane == 0) warp_count[warp] = __popc(bal);
+    __syncthreads();
+    int before = n_alive + __popc(bal & ((1u << lane) - 1u)), total = 0;
+    for (int i = 0; i < kThreads32 / 32; ++i) {
+      if (i < warp) before += warp_count[i];
+      total += warp_count[i];
+    }
+    if (w < g.nw) {
+      if (a) {
+        const int grp = before / g.wb;
+        if (grp % nblk == static_cast<int>(blockIdx.x))
+          alist[(grp / nblk) * g.wb + before % g.wb] = w;
+      } else {
+        const int rd = w - before;
+        if (rd % nblk == static_cast<int>(blockIdx.x)) dlist[rd / nblk] = w;
+      }
+    }
+    n_alive += total;
+    __syncthreads();  // warp_count is rewritten; lists, biases, ring ready
+  }
+  const int n_groups = (n_alive + g.wb - 1) / g.wb;
+
+  if (warp >= kCons / 32) {  // producers: each group's chunks in its order
+    if (lane == 0)
+      for (int grp = blockIdx.x; grp < n_groups; grp += nblk) {
+        for (int h = wg; h < g.nh; h += 2)
+          rgba::ring_produce<NS>(r, wqkv + static_cast<size_t>(h) * 2 * NS * g.c, g.c);
+        for (int oc = wg; oc < g.nco; oc += 2)
+          rgba::ring_produce<NS>(r, wproj + static_cast<size_t>(oc) * 2 * NS * g.ko, g.ko);
+      }
     return;
   }
 
-  const int hd = c / nh;
-  const int lda = c + 4;           // 16-byte rows, rows 4 banks apart
-  const int lq = 3 * hd + 1;       // odd stride: k rows spread over banks
-  float* xs = smem;                // n x lda   tokens
-  float* os = xs + n * lda;        // n x lda   concatenated head outputs
-  float* qkv = os + n * lda;       // n x lq    q | k | v of one head
-  float* s = qkv + n * lq;         // n x n     scores, then P
-  float* bs = s + n * n;           // c x kCols weight tile
-  int* reg = reinterpret_cast<int*>(bs + c * kCols);  // n region ids
-
-  for (int i = threadIdx.x; i < n * c; i += blockDim.x) {
-    const int r = i / c;
-    xs[r * lda + (i - r * c)] = tok[i];
+  // dead windows: exact zeros
+  const int vec = g.n * g.c / 4;  // 16-byte pieces of a window
+  for (int i = 0; static_cast<int>(blockIdx.x) + i * nblk < g.nw - n_alive; ++i) {
+    float4* o = reinterpret_cast<float4*>(out + static_cast<size_t>(dlist[i]) * g.n * g.c);
+    for (int e = threadIdx.x; e < vec; e += kCons) o[e] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  for (int i = threadIdx.x; i < n; i += blockDim.x) reg[i] = region[win * n + i];
-  __syncthreads();
+  if (static_cast<int>(blockIdx.x) >= n_groups) return;
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int nwarps = blockDim.x / 32;
-  for (int h = 0; h < nh; ++h) {
-    // q | k | v of head h: columns part*C + h*hd + d of wqkv
-    auto qkv_col = [=](int j) { return (j / hd) * c + h * hd + j % hd; };
-    gemm_cols(xs, lda, n, c, wqkv, 3 * c, 3 * hd, qkv_col, bs,
-              [=](int row, int j, float acc) {
-                qkv[row * lq + j] = acc + bqkv[qkv_col(j)];
-              });
-    // gemm_cols ends with a barrier: qkv is complete
-    const float* rb = rel_bias + static_cast<long long>(h) * n * n;
-    for (int i = threadIdx.x; i < n * n; i += blockDim.x) {
-      const int qi = i / n, ki = i - qi * n;
-      const float* q = qkv + qi * lq;
-      const float* k = qkv + ki * lq + hd;
-      float acc = 0.f;
-      for (int d = 0; d < hd; ++d) acc = fmaf(q[d], k[d], acc);
-      s[i] = acc * scale + rb[i] + (reg[qi] != reg[ki] ? -100.f : 0.f);
+  const int chunks = g.c / 4;  // 16-byte pieces of a token row
+  auto load_tokens = [&](int gi, int grp) {
+    const int nwin = min(g.wb, n_alive - grp * g.wb);
+    const int* wins = alist + gi * g.wb;
+    for (int i = threadIdx.x; i < 64 * chunks; i += kCons) {
+      const int row = i / chunks, q = i - row * chunks;
+      const int wi = row / g.np, rr = row - wi * g.np;
+      const bool ok = wi < nwin && rr < g.n;
+      const float* src =
+          ok ? tokens + (static_cast<size_t>(wins[wi]) * g.n + rr) * g.c + 4 * q : tokens;
+      rgba::cp_async16(xs + row * g.ldx + 4 * q, src, ok);
     }
-    __syncthreads();
-    for (int row = warp; row < n; row += nwarps) {
-      float* sr = s + row * n;
-      float mx = -INFINITY;
-      for (int j = lane; j < n; j += 32) mx = fmaxf(mx, sr[j]);
+    rgba::cp_async_commit();
+  };
+
+  const int q0 = 16 * (warp % 4);               // this warp's first row
+  const int wi = q0 / g.np, kb = wi * g.np;     // its window, the window's first row
+  const int nkt = g.np / 8;
+  const int lr = lane_row(), lk = lane_k();
+  unsigned diff[2] = {0u, 0u};  // this thread's region-mask bits (see below)
+  load_tokens(0, blockIdx.x);
+  for (int gi = 0, grp = blockIdx.x; grp < n_groups; ++gi, grp += nblk) {
+    const int nwin = min(g.wb, n_alive - grp * g.wb);
+    const int* wins = alist + gi * g.wb;
+    rgba::named_sync(1, kCons);  // the previous group's gates and region ids are read
+    if (threadIdx.x < 4)
+      gates[threadIdx.x] = threadIdx.x < nwin ? alive[wins[threadIdx.x]] : 0.f;
+    for (int row = threadIdx.x; row < 64; row += kCons) {
+      const int w = row / g.np, rr = row - w * g.np;
+      reg[row] = (w < nwin && rr < g.n)
+                     ? region[static_cast<size_t>(wins[w]) * g.n + rr] : 0;
+    }
+    rgba::cp_async_wait<0>();
+    // generic-proxy writes (cp.async) before wgmma reads
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    rgba::named_sync(1, kCons);  // tokens, gates and region ids in place
+
+    for (int h = wg; h < g.nh; h += 2) {  // the heads of this warpgroup
+      // this warp's rel_bias values load now and land while the q | k | v
+      // projection runs
+      float2 rbv[KT][2];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      float sum = 0.f;
-      for (int j = lane; j < n; j += 32) {
-        const float e = expf(sr[j] - mx);
-        sr[j] = e;
-        sum += e;
+      for (int j = 0; j < KT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int qi = q0 - kb + gq + 8 * e, kc = 8 * j + t2;
+          rbv[j][e] = (wi < nwin && j < nkt && qi < g.n && kc < g.n)
+              ? __ldg(reinterpret_cast<const float2*>(
+                    rel_bias + (static_cast<size_t>(h) * g.n + qi) * g.n + kc))
+              : make_float2(0.f, 0.f);
+        }
+      float acc[NS / 2];
+#pragma unroll
+      for (int i = 0; i < NS / 2; ++i) acc[i] = 0.f;
+      rgba::ring_gemm_smem_a<NS>(acc, g.c, r, [&](int k) {
+        return xs + (q0 + lr) * g.ldx + k + lk;
+      });
+      rgba::named_sync(2 + wg, 128);  // the group's warps are done with its last q, k, v
+      // q | k | v of head h, + bias (0 in the head dims' padding columns)
+#pragma unroll
+      for (int j = 0; j < NS / 8; ++j) {
+        const int part = j / HT, d = 8 * (j - part * HT) + t2;
+        const float* bq = bsm + part * g.c + h * g.hd;
+        const float b0 = d < g.hd ? bq[d] : 0.f;
+        const float b1 = d + 1 < g.hd ? bq[d + 1] : 0.f;
+        float* dst = part == 0 ? qs : part == 1 ? ks : vs;
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          *reinterpret_cast<float2*>(dst + (q0 + gq + 8 * e) * kLdh + d) =
+              make_float2(acc[4 * j + 2 * e] + b0, acc[4 * j + 2 * e + 1] + b1);
       }
+      rgba::named_sync(2 + wg, 128);  // q, k, v of head h complete
+
+      if (wi < nwin) {  // the same for the whole warp
+        if (h == wg) {  // region ids differ: bit 2j+e for key 8j+t2+e, per row
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      for (int j = lane; j < n; j += 32) sr[j] /= sum;
+          for (int e = 0; e < 2; ++e) {
+            const int rq = reg[q0 + gq + 8 * e];
+            diff[e] = 0u;
+            for (int kc = t2, bit = 0; kc < g.np; kc += 8, bit += 2)
+              diff[e] |= (static_cast<unsigned>(rq != reg[kb + kc]) |
+                          static_cast<unsigned>(rq != reg[kb + kc + 1]) << 1) << bit;
+          }
+        }
+        // S = Q K^T for this warp's 16 query rows against the window's
+        // keys, as 3xTF32 mma.sync m16n8k8: ldmatrix of fp32 rows gives
+        // the A fragments of Q and the B fragments of K (8 x 4 fp32 each)
+        float s[KT][4];
+#pragma unroll
+        for (int j = 0; j < KT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+        const bf16* qrow = rgba::a_row(reinterpret_cast<const bf16*>(qs + q0 * kLdh), 2 * kLdh);
+        const bf16* krow = rgba::b_row(reinterpret_cast<const bf16*>(ks + kb * kLdh), 2 * kLdh);
+#pragma unroll
+        for (int t = 0; t < HT; ++t) {
+          uint32_t a[4], ahi[4], alo[4];
+          rgba::ldsm_x4(a, qrow + 16 * t);
+          rgba::split_tf32(a, ahi, alo);
+#pragma unroll
+          for (int j = 0; j < KT; j += 2) {
+            if (j < nkt) {  // nkt is even: np % 16 == 0
+              uint32_t b[4], bhi[4], blo[4];
+              rgba::ldsm_x4(b, krow + 16 * j * kLdh + 16 * t);
+              rgba::split_tf32(b, bhi, blo);
+              const uint32_t h0[2] = {bhi[0], bhi[1]}, l0[2] = {blo[0], blo[1]};
+              const uint32_t h1[2] = {bhi[2], bhi[3]}, l1[2] = {blo[2], blo[3]};
+              rgba::mma_3xtf32(s[j], ahi, alo, h0, l0);
+              rgba::mma_3xtf32(s[j + 1], ahi, alo, h1, l1);
+            }
+          }
+        }
+        // scale, bias, region mask (fp32), padded keys out; softmax over the quad
+        float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+#pragma unroll
+          for (int j = 0; j < KT; ++j) {
+            if (j >= nkt) continue;
+#pragma unroll
+            for (int x = 0; x < 2; ++x) {
+              const int kc = 8 * j + t2 + x;
+              float v = -INFINITY;
+              if (kc < g.n)
+                v = s[j][2 * e + x] * scale + (x ? rbv[j][e].y : rbv[j][e].x) +
+                    ((diff[e] >> (2 * j + x)) & 1u ? -100.f : 0.f);
+              s[j][2 * e + x] = v;
+              mx[e] = fmaxf(mx[e], v);
+            }
+          }
+#pragma unroll
+          for (int off = 1; off < 4; off <<= 1)
+            mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], off));
+#pragma unroll
+          for (int j = 0; j < KT; ++j) {
+            if (j >= nkt) continue;
+#pragma unroll
+            for (int x = 0; x < 2; ++x) {
+              const float ex = expf(s[j][2 * e + x] - mx[e]);
+              s[j][2 * e + x] = ex;
+              sum[e] += ex;
+            }
+          }
+#pragma unroll
+          for (int off = 1; off < 4; off <<= 1)
+            sum[e] += __shfl_xor_sync(0xffffffffu, sum[e], off);
+        }
+        // O = P V: key tile j of S is k step j of P's A fragments, whose
+        // slots q and q + 4 hold keys 8j + 2q and 8j + 2q + 1; V's rows are
+        // read in that order
+        const float inv[2] = {1.f / sum[0], 1.f / sum[1]};
+        float o[HT][4];
+#pragma unroll
+        for (int j = 0; j < HT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+#pragma unroll
+        for (int j = 0; j < KT; ++j) {
+          if (j >= nkt) continue;
+          const uint32_t p[4] = {__float_as_uint(s[j][0] * inv[0]),
+                                 __float_as_uint(s[j][2] * inv[1]),
+                                 __float_as_uint(s[j][1] * inv[0]),
+                                 __float_as_uint(s[j][3] * inv[1])};
+          uint32_t phi[4], plo[4];
+          rgba::split_tf32(p, phi, plo);
+          const float* v0 = vs + (kb + 8 * j + t2) * kLdh + gq;
+#pragma unroll
+          for (int jd = 0; jd < HT; ++jd) {
+            uint32_t bhi[2], blo[2];
+            rgba::split1_tf32(v0[8 * jd], bhi[0], blo[0]);
+            rgba::split1_tf32(v0[kLdh + 8 * jd], bhi[1], blo[1]);
+            rgba::mma_3xtf32(o[jd], phi, plo, bhi, blo);
+          }
+        }
+        // head outputs into the concat buffer at columns h * hdp + d
+#pragma unroll
+        for (int jd = 0; jd < HT; ++jd)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            *reinterpret_cast<float2*>(os + (q0 + gq + 8 * e) * g.ldo + h * 8 * HT +
+                                       8 * jd + t2) =
+                make_float2(o[jd][2 * e], o[jd][2 * e + 1]);
+      }
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < n * hd; i += blockDim.x) {
-      const int qi = i / hd, d = i - qi * hd;
-      const float* p = s + qi * n;
-      const float* v = qkv + 2 * hd + d;
-      float acc = 0.f;
-      for (int j = 0; j < n; ++j) acc = fmaf(p[j], v[j * lq], acc);
-      os[qi * lda + h * hd + d] = acc;
+
+    // generic-proxy writes (head outputs) before wgmma reads
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    rgba::named_sync(1, kCons);  // every head's outputs are complete, xs is read
+    if (grp + nblk < n_groups) load_tokens(gi + 1, grp + nblk);  // the next group's
+    for (int oc = wg; oc < g.nco; oc += 2) {  // (O W^T + b) * gate -> out
+      float acc[NS / 2];
+#pragma unroll
+      for (int i = 0; i < NS / 2; ++i) acc[i] = 0.f;
+      rgba::ring_gemm_smem_a<NS>(acc, g.ko, r, [&](int k) {
+        return os + (q0 + lr) * g.ldo + k + lk;
+      });
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = q0 + gq + 8 * e, w = row / g.np, rr = row - w * g.np;
+        if (w >= nwin || rr >= g.n) continue;
+        const float gate = gates[w];
+        float* dst = out + (static_cast<size_t>(wins[w]) * g.n + rr) * g.c;
+#pragma unroll
+        for (int j = 0; j < NS / 8; ++j) {
+          const int o = oc * NS + 8 * j + t2;
+          if (o >= g.c) continue;
+          *reinterpret_cast<float2*>(dst + o) =
+              make_float2((acc[4 * j + 2 * e] + bsm[3 * g.c + o]) * gate,
+                          (acc[4 * j + 2 * e + 1] + bsm[3 * g.c + o + 1]) * gate);
+        }
+      }
     }
-    __syncthreads();
   }
-
-  gemm_cols(os, lda, n, c, wproj, c, c, [](int j) { return j; }, bs,
-            [=](int row, int j, float acc) {
-              o[row * c + j] = (acc + bproj[j]) * gate;
-            });
 }
 
-size_t smem_bytes(int n, int c, int nh) {
-  const int hd = c / nh;
-  const size_t floats = 2 * static_cast<size_t>(n) * (c + 4) +
-                        static_cast<size_t>(n) * (3 * hd + 1) +
-                        static_cast<size_t>(n) * n + static_cast<size_t>(c) * kCols;
-  return floats * sizeof(float) + n * sizeof(int);
-}
-
-int launch(const void* tokens, const void* region, const void* alive,
-           const void* wqkv, const void* bqkv, const void* wproj,
-           const void* bproj, const void* rel_bias, void* out, int nw, int n,
-           int c, int nh, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(n, c, nh);
-  cudaFuncSetAttribute(win_attn_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+int launch_tf32(const void* tokens, const void* region, const void* alive,
+                const void* wqkv, const void* bqkv, const void* wproj,
+                const void* bproj, const void* rel_bias, void* out, int nw,
+                int n, int c, int nh, float scale, cudaStream_t stream) {
+  Geo32 g;
+  g.nw = nw; g.n = n; g.np = (n + 15) / 16 * 16; g.c = c; g.nh = nh;
+  g.hd = c / nh;
+  const int hdp = (g.hd + 7) / 8 * 8, ns = 3 * hdp;
+  if (g.np > 64 || hdp > 32 || c % 8) return static_cast<int>(cudaErrorInvalidValue);
+  g.wb = std::max(1, 64 / g.np);
+  g.ko = nh * hdp;
+  g.nco = (c + ns - 1) / ns;
+  g.ldx = c + 4; g.ldo = g.ko + 4;   // rows an odd number of 16 bytes apart:
+                                      // ldmatrix's 8 rows in distinct banks
+  using Kernel = void (*)(const float*, const int*, const float*, const float*,
+                          const float*, const float*, const float*,
+                          const float*, float*, Geo32, float);
+  static const Kernel kernels[2][4] = {
+      {win_attn_tf32_kernel<2, 24>, win_attn_tf32_kernel<2, 48>,
+       win_attn_tf32_kernel<2, 72>, win_attn_tf32_kernel<2, 96>},
+      {win_attn_tf32_kernel<8, 24>, win_attn_tf32_kernel<8, 48>,
+       win_attn_tf32_kernel<8, 72>, win_attn_tf32_kernel<8, 96>}};
+  const Kernel kernel = kernels[g.np <= 16 ? 0 : 1][hdp / 8 - 1];
+  int dev = 0, sms = 0, max_smem = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  // one stage of both warpgroups' rings, with its two barriers each
+  const size_t stage = 2 * (sizeof(float) * 2 * ns * rgba::kChunkK + 2 * sizeof(uint64_t));
+  auto fixed = [&](int blocks) {
+    g.cap_a = ((nw + g.wb - 1) / g.wb + blocks - 1) / blocks * g.wb;
+    g.cap_d = (nw + blocks - 1) / blocks;
+    return sizeof(float) * (64 * g.ldx + 64 * g.ldo + 6 * 64 * kLdh + 4 * c + 4) +
+           sizeof(int) * (64 + g.cap_a + g.cap_d);
+  };
+  // the lists shrink as the grid grows: size the grid with the lists of
+  // one block per SM, then the lists for that grid
+  const size_t base = fixed(std::max(1, sms));
+  g.stages = base < static_cast<size_t>(max_smem)
+                 ? static_cast<int>(std::min<size_t>(kMaxStages, (max_smem - base) / stage))
+                 : 0;
+  if (g.stages < 2) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const size_t probe = base + g.stages * stage;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       static_cast<int>(probe));
+  const int groups = (nw + g.wb - 1) / g.wb;
+  const int grid = std::max(1, std::min(groups, rgba::persistent_grid(
+      kernel, kThreads32, probe)));
+  const size_t smem = fixed(grid) + g.stages * stage;
+  if (smem > static_cast<size_t>(max_smem))
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(smem));
-  // one 4-row group per thread and weight column of a tile
-  const int threads =
-      std::max(64, std::min(kMaxThreads, (n / kRowTile) * kCols));
-  win_attn_kernel<<<nw, threads, smem, stream>>>(
+  kernel<<<grid, kThreads32, smem, stream>>>(
       static_cast<const float*>(tokens), static_cast<const int*>(region),
       static_cast<const float*>(alive), static_cast<const float*>(wqkv),
       static_cast<const float*>(bqkv), static_cast<const float*>(wproj),
       static_cast<const float*>(bproj), static_cast<const float*>(rel_bias),
-      static_cast<float*>(out), n, c, nh, scale);
+      static_cast<float*>(out), g, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------- bf16 path
-using bf16 = __nv_bfloat16;
 constexpr int kThreadsM = 256;   // 8 warps: 2 warpgroups of 64 token rows
 constexpr int kRowsM = 128;      // token rows per group of windows
 constexpr int kMaxKT = 8;        // key tiles of 8: N <= 64 (see the kernel)
@@ -686,13 +954,17 @@ int launch_mma(const void* tokens, const void* region, const void* alive,
 // (nw, n) int32; alive: (nw,) fp32; bqkv (3c,), bproj (c,), rel_bias (nh,
 // n, n) fp32; scale = hd^-0.5 rounded to fp32 by the caller.  The dtype
 // picks the kernel, and the weights' layout:
-// - fp32: wqkv (c, 3c) and wproj (c, c) [in][out];
+// - fp32: wqkv (nh, 2 NS c): per head its rows [q|k|v, d < hdp] x [in],
+//   and wproj (ceil(c / NS), 2 NS nh hdp): [out, NS per chunk] x [h hdp +
+//   d], hdp = hd rounded up to 8, NS = 3 hdp, zero padding, each as chunks
+//   of 16 k of TF32 hi then lo in K-major core matrices of 8 x 4 (see
+//   rgba::ChunkRing; win_attn.kernel_weights); tokens 16-byte aligned;
 // - bf16: wqkv (nh, 3 hdp, cp) [head][q|k|v, d][in] and wproj (c, cp)
 //   [out][in], with hdp, cp = hd, c rounded up to 16 and zero padding, each
 //   (rows, cp) matrix in K-major core-matrix order (8 x 8 blocks, see
 //   core_off); tokens and out 16-byte aligned.
-// The Python wrapper checks n % 4 == 0, c % 4 == 0, c % nh == 0, nh >= 3,
-// and in bf16 also n <= 64, hd <= 32, c % 8 == 0.
+// The Python wrapper checks n % 4 == 0, c % nh == 0, nh >= 3, n <= 64,
+// hd <= 32 and c % 8 == 0.
 extern "C" int rgba_win_attn(const void* tokens, const void* region,
                              const void* alive, const void* wqkv,
                              const void* bqkv, const void* wproj,
@@ -703,6 +975,6 @@ extern "C" int rgba_win_attn(const void* tokens, const void* region,
   if (bf16)
     return launch_mma(tokens, region, alive, wqkv, bqkv, wproj, bproj,
                       rel_bias, out, nw, n, c, nh, scale, s);
-  return launch(tokens, region, alive, wqkv, bqkv, wproj, bproj, rel_bias,
-                out, nw, n, c, nh, scale, s);
+  return launch_tf32(tokens, region, alive, wqkv, bqkv, wproj, bproj,
+                     rel_bias, out, nw, n, c, nh, scale, s);
 }

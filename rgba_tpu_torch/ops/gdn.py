@@ -16,8 +16,9 @@ from torch import nn
 import torch.nn.functional as F
 
 from ..core.precision import Policy
+from .attention import param_key
 from .conv import per_image
-from .kernels.gdn import fused_gdn
+from .kernels.gdn import fused_gdn, kernel_weights
 from .kernels.remat import fused_primal_plain_grad
 from .math import lower_bound
 
@@ -37,6 +38,7 @@ class GDN(nn.Module):
         self.beta = nn.Parameter(
             torch.sqrt(torch.ones(channels, device=device) + _PEDESTAL))
         self.gamma = nn.Parameter(torch.sqrt(gamma_init * eye + _PEDESTAL))
+        self._kernel_cache = (None, None)   # (key, laid-out gamma_t)
 
     def reparam(self):
         """(beta, gamma) after the lower bound and pedestal."""
@@ -45,6 +47,18 @@ class GDN(nn.Module):
         gamma = lower_bound(self.gamma, _REPARAM_OFFSET) ** 2 - _PEDESTAL
         return beta, gamma
 
+    def kernel_gamma(self, dtype):
+        """The kernel's layout of the post-reparam gamma_t for ``dtype``,
+        built once and kept until gamma is written or moved (its version or
+        storage changes; inference tensors keep no version, so only a move
+        counts for them)."""
+        key = (dtype, *param_key((self.gamma,)))
+        if self._kernel_cache[0] != key:
+            with torch.no_grad():
+                self._kernel_cache = (key, kernel_weights(
+                    self.reparam()[1].t(), dtype))
+        return self._kernel_cache[1]
+
     def forward(self, x):
         """x: (B, C, H, W); gamma[i, j] weights input channel j into output
         channel i, as torch's 1x1 conv of x^2 does."""
@@ -52,8 +66,10 @@ class GDN(nn.Module):
         x = x.to(self.policy.compute_dtype)
         if self.policy.fused_gdn:
             rows = x.permute(0, 2, 3, 1).contiguous()     # free if channels_last
+            prepared = self.kernel_gamma(x.dtype)
             y = fused_primal_plain_grad(
-                lambda r, gt, bt: fused_gdn(r, gt, bt, inverse=self.inverse),
+                lambda r, gt, bt: fused_gdn(r, gt, bt, inverse=self.inverse,
+                                            prepared=prepared),
                 lambda r, gt, bt: self.normalize(
                     r.permute(0, 3, 1, 2), gt.t(), bt).permute(0, 2, 3, 1),
                 (rows, gamma.t(), beta))

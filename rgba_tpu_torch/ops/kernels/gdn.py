@@ -15,6 +15,7 @@ import torch
 
 from .build import CudaKernel
 from .remat import fused_primal_plain_grad, needs_grad
+from .tf32 import chunked_hi_lo
 
 KERNEL = CudaKernel("gdn.cu", "rgba_gdn", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -22,7 +23,31 @@ KERNEL = CudaKernel("gdn.cu", "rgba_gdn", [
     ctypes.c_void_p])
 
 _DTYPES = (torch.float32, torch.bfloat16)
-MAX_CHANNELS = 192   # csrc/gdn.cu: 12 column groups of 16 (fp32), one m64n192 wgmma (bf16)
+MAX_CHANNELS = 192   # csrc/gdn.cu: one m64n192 wgmma per k step
+# fp32: the k of each 8 as the kernel's registers hold x (csrc/gdn.cu): k
+# 8j + p of the product is channel 8j + K_ORDER[p]
+K_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def kernel_weights(gamma_t, dtype):
+    """gamma_t (C, C) [in][out] post-reparam -> the layout the kernel reads
+    for x of ``dtype``: bf16 keeps (C, C) in bf16 (the kernel stages it);
+    fp32 gives the B operand [out n < 192][in k < C] (rows n >= C zero, k
+    permuted within each 8 by ``K_ORDER``) as ``tf32.chunked_hi_lo``
+    chunks of 16 k, 2 * 192 * C floats.  The module that owns gamma builds
+    it once per weights and passes it as ``fused_gdn(..., prepared=)``."""
+    if dtype == torch.bfloat16:
+        return gamma_t.to(dtype).contiguous()
+    c = gamma_t.shape[0]
+    order = torch.tensor([8 * (k // 8) + K_ORDER[k % 8] for k in range(c)],
+                         device=gamma_t.device)
+    b = torch.zeros(MAX_CHANNELS, c, device=gamma_t.device)
+    b[:c] = gamma_t.float()[order].t()
+    return chunked_hi_lo(b).contiguous()
+
+
+def _prepared_numel(c: int, dtype) -> int:
+    return c * c if dtype == torch.bfloat16 else 2 * MAX_CHANNELS * c
 
 
 def gdn_plain(x, gamma_t, beta, inverse: bool = False):
@@ -38,15 +63,17 @@ def gdn_plain(x, gamma_t, beta, inverse: bool = False):
     return (xf * s.reshape(x.shape)).to(dt)
 
 
-def fused_gdn(x, gamma_t, beta, inverse: bool = False):
+def fused_gdn(x, gamma_t, beta, inverse: bool = False, prepared=None):
     """x: (..., C) contiguous, fp32 or bf16; gamma_t: (C, C) post-reparam,
     transposed so norm = x^2 @ gamma_t; beta: (C,) post-reparam.  Returns
     x's shape and dtype.  CPU tensors take the plain version; CUDA tensors
-    launch the kernel: fp32 on the CUDA cores, bf16 on the tensor cores.
-    Tensors that need a gradient get it from ``gdn_plain``."""
+    launch the kernel on the tensor cores (bf16; fp32 as 3xTF32).
+    ``prepared``: gamma_t's ``kernel_weights`` for x's dtype, which the
+    kernel then reads instead of laying gamma_t out on every call.  Tensors
+    that need a gradient get it from ``gdn_plain``."""
     if needs_grad((x, gamma_t, beta)):
         return fused_primal_plain_grad(
-            lambda *a: fused_gdn(*a, inverse=inverse),
+            lambda *a: fused_gdn(*a, inverse=inverse, prepared=prepared),
             lambda *a: gdn_plain(*a, inverse=inverse), (x, gamma_t, beta))
     if x.device.type == "cpu":
         return gdn_plain(x, gamma_t, beta, inverse)
@@ -63,13 +90,19 @@ def fused_gdn(x, gamma_t, beta, inverse: bool = False):
                          f"{tuple(beta.shape)} do not match C={c}")
     if not x.is_contiguous():
         raise ValueError("fused_gdn: x must be contiguous (NHWC rows)")
-    g = gamma_t.to(x.dtype).contiguous()
+    if prepared is None:
+        prepared = kernel_weights(gamma_t, x.dtype)
+    elif (prepared.dtype != x.dtype or prepared.device != x.device
+          or prepared.numel() != _prepared_numel(c, x.dtype)):
+        raise ValueError("fused_gdn: prepared gamma does not match x's "
+                         "dtype, device or width")
+    g = prepared
     b = beta.float().contiguous()
     for t in (g, b):
         if t.device != x.device:
             raise ValueError("fused_gdn: all inputs must be on x's device")
-    if x.dtype == torch.bfloat16 and x.data_ptr() % 16:
-        x = x.clone()                    # 16-byte copies of x rows
+    if x.data_ptr() % 16:
+        x = x.clone()                    # 16-byte (bf16) / 8-byte (fp32) loads
     y = torch.empty_like(x)
     m = x.numel() // c
     if m:

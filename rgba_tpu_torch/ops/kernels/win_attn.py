@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from .build import CudaKernel
 from .remat import fused_primal_plain_grad, needs_grad
+from .tf32 import chunked_hi_lo
 
 KERNEL = CudaKernel("win_attn.cu", "rgba_win_attn", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -27,14 +28,42 @@ KERNEL = CudaKernel("win_attn.cu", "rgba_win_attn", [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 _DTYPES = (torch.float32, torch.bfloat16)
-# the bf16 kernel's register tiles: scores of at most 64 keys, head dims
-# padded to at most 32
+# the kernels' register tiles: scores of at most 64 keys, head dims padded
+# to at most 32
 MMA_MAX_TOKENS = 64
 MMA_MAX_HEAD_DIM = 32
 
 
 def _up16(v: int) -> int:
     return (v + 15) // 16 * 16
+
+
+def _up8(v: int) -> int:
+    return (v + 7) // 8 * 8
+
+
+def tf32_geometry(c: int, num_heads: int):
+    """(hdp, ns, ko, nco) of the fp32 kernel: the head dim rounded up to 8,
+    the rows of a weight stage (q|k|v of one head, or one output-projection
+    chunk), the head outputs' padded width, the output-projection chunks."""
+    hdp = _up8(c // num_heads)
+    ns = 3 * hdp
+    return hdp, ns, num_heads * hdp, -(-c // ns)
+
+
+def tf32_weights(wqkv, wproj, num_heads: int):
+    """The fp32 kernel's weights before the hi / lo split: wqkv (C, 3C)
+    [in][out] becomes (nh, ns, C) [head][q|k|v, d < hdp][in] and wproj
+    (C, C) becomes (nco, ns, ko) [chunk][out][h * hdp + d], zero padded."""
+    c = wqkv.shape[0]
+    nh = num_heads
+    hd = c // nh
+    hdp, ns, ko, nco = tf32_geometry(c, nh)
+    w = wqkv.float().t().reshape(3, nh, hd, c).transpose(0, 1)
+    wq = F.pad(w, (0, 0, 0, hdp - hd)).reshape(nh, ns, c)
+    wp = F.pad(wproj.float().t().reshape(c, nh, hd), (0, hdp - hd))
+    wp = F.pad(wp.reshape(c, ko), (0, 0, 0, nco * ns - c)).reshape(nco, ns, ko)
+    return wq, wp
 
 
 def mma_weights(wqkv, wproj, num_heads: int):
@@ -61,8 +90,10 @@ def core_matrices(w):
 
 class AttnWeights(NamedTuple):
     """The kernel's weights in the layout of one dtype (``kernel_weights``):
-    fp32 keeps wqkv (C, 3C) and wproj (C, C) [in][out]; bf16 holds the
-    padded ``mma_weights`` in core-matrix order.  Biases are fp32."""
+    fp32 holds ``tf32_weights`` as ``tf32.chunked_hi_lo`` chunks of 16 k
+    (TF32 hi then lo), wqkv (nh, 2 ns C) and wproj (nco, 2 ns ko); bf16
+    holds the padded ``mma_weights`` in core-matrix order.  Biases are
+    fp32."""
     wqkv: torch.Tensor
     bqkv: torch.Tensor
     wproj: torch.Tensor
@@ -80,8 +111,8 @@ def kernel_weights(wqkv, bqkv, wproj, bproj, num_heads: int,
         wq = core_matrices(wq.reshape(num_heads, 3 * wq.shape[2], wq.shape[3]))
         wp = core_matrices(wp)
     else:
-        wq = wqkv.to(dtype).contiguous()
-        wp = wproj.to(dtype).contiguous()
+        wq, wp = (chunked_hi_lo(w).contiguous()
+                  for w in tf32_weights(wqkv, wproj, num_heads))
     return AttnWeights(wq, bqkv.float().contiguous(), wp,
                        bproj.float().contiguous())
 
@@ -116,8 +147,8 @@ def fused_window_attention(tokens, region, alive, wqkv, bqkv, wproj, bproj,
     (zeros when unshifted); alive: (nW, 1) gate; wqkv (C, 3C), bqkv (3C,),
     wproj (C, C), bproj (C,); rel_bias: (nh, N, N) fp32.  Returns (nW, N, C)
     in tokens' dtype.  CPU tensors take the plain version; CUDA tensors
-    launch the kernel: fp32 on the CUDA cores, bf16 on the tensor cores
-    (N <= 64, C / heads <= 32, C % 8 == 0).  ``prepared``: the weights'
+    launch the kernel on the tensor cores, bf16 or fp32 as 3xTF32 (N <= 64,
+    C / heads <= 32, C % 8 == 0).  ``prepared``: the weights'
     ``kernel_weights`` for tokens' dtype, which the kernel then reads
     instead of laying the weights out again on every call.  Tensors that
     need a gradient get it from ``window_attention_plain``."""
@@ -139,9 +170,9 @@ def fused_window_attention(tokens, region, alive, wqkv, bqkv, wproj, bproj,
     dt = tokens.dtype
     if dt not in _DTYPES:
         raise TypeError(f"fused_window_attention: dtype {dt} not in {_DTYPES}")
-    if n % 4 or c % 4 or c % nh or nh < 3:
+    if n % 4 or c % 8 or c % nh or nh < 3:
         raise ValueError(f"fused_window_attention: needs N % 4 == 0, "
-                         f"C % 4 == 0, C % heads == 0, heads >= 3 "
+                         f"C % 8 == 0, C % heads == 0, heads >= 3 "
                          f"(N={n}, C={c}, heads={nh})")
     shapes = {"region": (region, (nw, n)), "alive": (alive, (nw, 1)),
               "wqkv": (wqkv, (c, 3 * c)), "bqkv": (bqkv, (3 * c,)),
@@ -160,19 +191,19 @@ def fused_window_attention(tokens, region, alive, wqkv, bqkv, wproj, bproj,
         raise TypeError("fused_window_attention: region must be int32")
     hd = c // nh
     bf16 = dt == torch.bfloat16
-    if bf16 and (n > MMA_MAX_TOKENS or hd > MMA_MAX_HEAD_DIM or c % 8):
-        raise ValueError(f"fused_window_attention: bf16 needs N <= "
-                         f"{MMA_MAX_TOKENS}, C / heads <= {MMA_MAX_HEAD_DIM}"
-                         f" and C % 8 == 0 (N={n}, C={c}, heads={nh})")
-    if bf16 and tokens.data_ptr() % 16:   # 16-byte copies of token rows
+    if n > MMA_MAX_TOKENS or hd > MMA_MAX_HEAD_DIM:
+        raise ValueError(f"fused_window_attention: needs N <= "
+                         f"{MMA_MAX_TOKENS} and C / heads <= "
+                         f"{MMA_MAX_HEAD_DIM} (N={n}, C={c}, heads={nh})")
+    if tokens.data_ptr() % 16:            # 16-byte copies of token rows
         tokens = tokens.clone()
     reg = region.contiguous()
     gate = alive.float().contiguous()
     if prepared is None:
         prepared = kernel_weights(wqkv, bqkv, wproj, bproj, nh, dt)
     elif (prepared.wqkv.dtype != dt or prepared.wqkv.device != tokens.device
-          or prepared.wqkv.numel() != (nh * 3 * _up16(hd) * _up16(c)
-                                       if bf16 else 3 * c * c)):
+          or prepared.wqkv.numel() != (nh * 3 * _up16(hd) * _up16(c) if bf16
+                                       else 2 * nh * tf32_geometry(c, nh)[1] * c)):
         raise ValueError("fused_window_attention: prepared weights do not "
                          "match tokens' dtype, device or width")
     wq, bq, wp, bp = prepared

@@ -130,6 +130,19 @@ def test_window_attention_prepared_weights_give_the_same_bits(card, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gdn_prepared_gamma_gives_the_same_bits(card, dtype):
+    """The module's cached gamma layout gives the bits the wrapper's own
+    per-call layout gives, and a layout for the other dtype is refused."""
+    x, gt, beta = _gdn_args(1001, 192, dtype, card)
+    prep = gdn.kernel_weights(gt, dtype)
+    assert torch.equal(gdn.fused_gdn(x, gt, beta),
+                       gdn.fused_gdn(x, gt, beta, prepared=prep))
+    other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+    with pytest.raises(ValueError, match="prepared"):
+        gdn.fused_gdn(x, gt, beta, prepared=gdn.kernel_weights(gt, other))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("inverse", [False, True])
 @pytest.mark.parametrize("m", [1, 127, 129, 1001, "loops"])
 def test_gdn_kernel_ragged_rows(card, dtype, inverse, m):
@@ -175,6 +188,28 @@ def test_attention_and_gdn_kernels_are_deterministic(card, dtype):
     c = win_attn.fused_window_attention(*args, num_heads=8)
     d = win_attn.fused_window_attention(*args, num_heads=8)
     assert torch.equal(a, b) and torch.equal(c, d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c", [(64, 192), (16, 80)])
+def test_attention_and_gdn_rows_do_not_depend_on_their_batch(card, dtype, n,
+                                                             c):
+    """The codec's encoder and decoder each rebuild what they need: a window
+    alone gives the same bits as in a batch of 16 (at N=16 it sits in
+    another place of its group of four), and a GDN row the same bits for
+    any M."""
+    args = _attn_args(16, n, c, 8, dtype, card, seed=n)
+    whole = win_attn.fused_window_attention(*args, num_heads=8)
+    for i in (1, 6, 14):
+        one = [t[i:i + 1].contiguous() for t in args[:3]] + args[3:]
+        assert torch.equal(win_attn.fused_window_attention(*one, num_heads=8)[0],
+                           whole[i]), i
+    x, gt, beta = _gdn_args(3 * 128 * 132 + 5, 192, dtype, card, seed=c)
+    prep = gdn.kernel_weights(gt, dtype)
+    y = gdn.fused_gdn(x, gt, beta, prepared=prep)
+    for m in (1, 77, 1001, 40000):
+        assert torch.equal(gdn.fused_gdn(x[-m:].clone(), gt, beta,
+                                         prepared=prep), y[-m:]), m
 
 
 def test_launch_counts_only_kernel_launches(card):
@@ -562,6 +597,36 @@ def test_attention_layout_follows_an_in_place_update(card, dtype):
         new, want = on(x, alpha), off(x, alpha)
     _assert_close(new, want, dtype)
     assert not _within(old, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gdn_layout_follows_an_in_place_update(card, dtype):
+    """After an optimizer step the GDN module's cached gamma layout is that
+    of the new weights: its kernel route gives, bit for bit, the kernel fed
+    a layout made afresh from the new gamma, and no longer its own output
+    on the old one."""
+    from rgba_tpu_torch.core.precision import Policy
+    from rgba_tpu_torch.ops.gdn import GDN
+    g = torch.Generator().manual_seed(7)
+    m = GDN(192, inverse=True, policy=Policy(dtype, fused_gdn=True),
+            device=card, gamma_init=0.1)
+    with torch.no_grad():
+        m.gamma.add_((0.01 * torch.rand(192, 192, generator=g)).to(card))
+    x = torch.randn(2, 192, 24, 40, generator=g).to(card, dtype)
+    rows = x.permute(0, 2, 3, 1).contiguous()
+    with torch.no_grad():
+        old = m(x)
+    opt = torch.optim.Adam(m.parameters(), lr=0.01)
+    out = m(x)
+    torch.sum(out.float() * torch.sin(out.float())).backward()
+    opt.step()
+    with torch.no_grad():
+        beta, gamma = m.reparam()
+        want = gdn.fused_gdn(rows, gamma.t(), beta, inverse=True,
+                             prepared=gdn.kernel_weights(gamma.t(), dtype))
+        new = m(x).permute(0, 2, 3, 1)
+    assert torch.equal(new, want)
+    assert not torch.equal(new, old.permute(0, 2, 3, 1))
 
 
 @pytest.mark.parametrize("kind", ["rgb", "mask"])
