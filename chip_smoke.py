@@ -37,7 +37,21 @@ failure:
    uint8), the decoded RGB against
    the fp32 RGB codec forward on the same masked input and decoded alpha,
    real bpp from the blob bytes, encode / decode / round-trip images/s
-   (kernels on, then off, twice each) and one profiled round trip;
+   (kernels on, then off, twice each) and one profiled round trip.  Then
+   the serving options on the same codec: lane streams (container version
+   3, decoded on the card by the ``rans_decode`` kernel): launches of one
+   encode and of one decode (1 + 10 RGB and 1 + 5 mask ``rans_decode``),
+   byte-identical re-encode, blob 0 alone against the batch, the decode
+   equal to the v64 decode of the same images; the kernel against the
+   plain ``decode_segment`` on the RGB z segment and the first y slice
+   (symbols, state and pointer bit for bit), every RGB stream against the
+   host C++ ``decode_lanes``, and a stream with one flipped word, which
+   must decode differently; the kernel's ms per launch with its bound,
+   the plain version's and the host coder's; decode images/s of v3
+   against v64 and one profiled v3 decode.  Rate-gated containers
+   (version 2): byte-identical re-encode, blob 0 alone, real bpp beside
+   version 1's.  Previews at max_slices 0, 5 and 10 (10 equal to the full
+   decode, 5 the same for v3 as for v64);
 5. train: the full-width codecs on synthetic 256x256 RGBA at batch 8
    (train_lambda 1024, aux_lr 1e-3, no curriculum).  First each kernel
    against its plain version, as in phase 2, at the shapes this path gives
@@ -66,7 +80,9 @@ failure:
    their plain path (a stale layout would train silently wrong).  Then one
    profiled RGB step, and its forward and backward apart.
 
-The line before the last is one JSON object with every kernel's numbers;
+The line before the last is one JSON object with every kernel's numbers
+(the four conv kernels' headline cases are bf16 forward shapes; the
+``rans_decode`` entry's are the first y slice of the v3 RGB decode);
 the last line is {"ok": true, "device": {...}}.  Without CUDA, or without
 the rest of the repository beside it, the script exits non-zero and prints
 no result.
@@ -84,6 +100,7 @@ head, head, base; it prints each case's kernel time per turn.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -506,26 +523,35 @@ def profile_run(torch, fn, what: str, top: int = 15) -> dict:
 
 
 KERNEL_NAMES = ("fused_window_attention", "fused_gdn", "fused_gate_chain",
-                "fused_dse")
-FORWARD_LAUNCHES = {"fused_window_attention": 4, "fused_gdn": 12,
-                    "fused_gate_chain": 8, "fused_dse": 2}
-SERVE_LAUNCHES = {"fused_window_attention": 4, "fused_gdn": 0,
-                  "fused_gate_chain": 0, "fused_dse": 0}
-CODEC_LAUNCHES = {"fused_window_attention": 4, "fused_gdn": 15,
-                  "fused_gate_chain": 10, "fused_dse": 3}
+                "fused_dse", "rans_decode")
+CONV_KERNELS = KERNEL_NAMES[:4]
+
+
+def _launch_counts(attn, gdn, gate_chain, dse, rans=0):
+    return dict(zip(KERNEL_NAMES, (attn, gdn, gate_chain, dse, rans)))
+
+
+FORWARD_LAUNCHES = _launch_counts(4, 12, 8, 2)
+SERVE_LAUNCHES = _launch_counts(4, 0, 0, 0)
+CODEC_LAUNCHES = _launch_counts(4, 15, 10, 3)
+# lane streams (v3): the mask decode inside the encode takes 1 + 5 rANS
+# segments, the decode 1 + 10 (RGB) and 1 + 5 (mask)
+LANE_ENCODE_RANS, LANE_DECODE_RANS = 6, 17
+LANE_LAUNCHES = _launch_counts(4, 15, 10, 3,
+                               LANE_ENCODE_RANS + LANE_DECODE_RANS)
 # one training forward + backward (the backward launches no kernel)
 MAX_FLIPS = 2      # latents the two fp32 routes may round apart (train phase)
-RGB_STEP_LAUNCHES = {"fused_window_attention": 4, "fused_gdn": 6,
-                     "fused_gate_chain": 4, "fused_dse": 1}
-MASK_STEP_LAUNCHES = {"fused_window_attention": 0, "fused_gdn": 6,
-                      "fused_gate_chain": 4, "fused_dse": 1}
+RGB_STEP_LAUNCHES = _launch_counts(4, 6, 4, 1)
+MASK_STEP_LAUNCHES = _launch_counts(0, 6, 4, 1)
 TRAIN_BATCH, TRAIN_SIZE, TRAIN_STEPS = 8, 256, 20
 
 
 def _kernels():
-    from rgba_tpu_torch.ops.kernels import dse, gate_chain, gdn, win_attn
+    from rgba_tpu_torch.ops.kernels import (dse, gate_chain, gdn, rans_decode,
+                                            win_attn)
     return dict(zip(KERNEL_NAMES, (win_attn.KERNEL, gdn.KERNEL,
-                                   gate_chain.KERNEL, dse.KERNEL)))
+                                   gate_chain.KERNEL, dse.KERNEL,
+                                   rans_decode.KERNEL)))
 
 
 def _all_kernels(policy):
@@ -745,12 +771,352 @@ def codec_phase(torch, batch: int, iters: int) -> dict:
             img_s[name] = rates(name, codecs[which], datas[(len(img_s)) % 2])
     profile = profile_run(torch, lambda: codec.decode_batch(
         codec.encode_batch(img, alpha), output="uint8"), "round trip")
+    print("codec serving options (same codec, same images):")
+    lanes = lane_phase(torch, codec, img, alpha, blobs, dec, iters)
+    options = options_phase(torch, codec, img, alpha, blobs, dec)
+    gated = gated_phase(torch, codec, img, alpha)
     for c in codecs.values():
         c.rgb_io.close()
         c.mask_io.close()
     return {"launches": launches, "bpp": bpp, "bytes": nbytes,
             "forward_match": forward_match, "img_per_s": img_s,
-            "profile": profile}
+            "profile": profile, "lanes": lanes, "options": options,
+            "gated": gated}
+
+
+@contextlib.contextmanager
+def _recorded_segments(torch):
+    """Keeps every ``rans_decode`` call's inputs (the lane state and pointer
+    as they were before it) and outputs while the block runs."""
+    from rgba_tpu_torch.ops.kernels import rans_decode as rd
+    calls, wrapped = [], rd.rans_decode
+
+    def record(tables, words, state, ptr, idx, act, lane_end, inverse=None):
+        before = (state.clone(), ptr.clone())
+        syms, st, pt = wrapped(tables, words, state, ptr, idx, act, lane_end,
+                               inverse=inverse)
+        calls.append({"tables": tables, "words": words, "state": before[0],
+                      "ptr": before[1], "idx": idx, "act": act,
+                      "lane_end": lane_end, "inverse": inverse, "syms": syms,
+                      "state_out": st.clone(), "ptr_out": pt.clone()})
+        return syms, st, pt
+
+    rd.rans_decode = record
+    try:
+        yield calls
+    finally:
+        rd.rans_decode = wrapped
+
+
+def _segment_bound(torch, call) -> dict:
+    """Bytes one segment's decode must move, each once: the indexes (4 B),
+    active flags (1 B) and symbols (4 B) of every position; the lane state
+    (8 B) and pointer (4 B), read and written, and its end (4 B); the
+    stream words the lanes consume (2 B); and the CDF rows the active
+    positions address, at their length, with their max value and offset.
+    The dense inverse tables and the row search's reads are the kernel's
+    own design, not the function's, so they are not charged.  Bound by
+    bytes: the work is a few integer operations per symbol."""
+    n_pos = call["idx"].numel()
+    lanes = call["state"].numel()
+    act = call["act"].bool()
+    active = int(act.sum())
+    words = int((call["ptr_out"] - call["ptr"]).sum())
+    rows = torch.unique(call["idx"][act]).long()
+    row_entries = int((call["tables"]["max_values"].long()[rows] + 2).sum())
+    table_bytes = 4.0 * row_entries + 8.0 * rows.numel()
+    nbytes = 9.0 * n_pos + 28.0 * lanes + 2.0 * words + table_bytes
+    res = _bound(nbytes, 0.0, "float32")
+    return {"bound_ms": res["bound_ms"], "bound_by": "bytes",
+            "bytes": nbytes, "table_bytes": table_bytes,
+            "rows": int(rows.numel()), "active_symbols": active,
+            "shape": list(call["idx"].shape), "words_read": words}
+
+
+def _replay(torch, calls, fn, words=None):
+    """Decode the recorded segments again with ``fn`` from the first one's
+    lane state (and ``words``, if given); returns each segment's
+    (symbols, state, ptr)."""
+    state, ptr = calls[0]["state"].clone(), calls[0]["ptr"].clone()
+    out = []
+    for c in calls:
+        syms, state, ptr = fn(c["tables"], c["words"] if words is None
+                              else words, state, ptr, c["idx"], c["act"],
+                              c["lane_end"], inverse=c["inverse"])
+        out.append((syms, state.clone(), ptr.clone()))
+    return out
+
+
+def lane_phase(torch, codec, img, alpha, blobs_v64, dec_v64, iters) -> dict:
+    """Container version 3: lane streams, decoded on the card by the
+    rans_decode kernel, held to the plain decode_segment, the host C++
+    decoder and the v64 decode of the same images."""
+    import numpy as np
+    from rgba_tpu_torch.entropy import device_rans as dr
+    from rgba_tpu_torch.eval.container import unpack_rgba
+    from rgba_tpu_torch.native import rans
+    from rgba_tpu_torch.ops.kernels import rans_decode as rd
+
+    batch = img.shape[0]
+    t = time.perf_counter()
+    blobs = codec.encode_batch(img, alpha, stream_format="lanes32")  # warm-up
+    codec.decode_batch(blobs)
+    print(f"  v3 first round trip (warm-up) {time.perf_counter() - t:.1f} s")
+    _reset_launches()
+    blobs = codec.encode_batch(img, alpha, stream_format="lanes32")
+    enc = {n: k.launches for n, k in _kernels().items()}
+    with _recorded_segments(torch) as calls:
+        dec = codec.decode_batch(blobs, output="float32")
+    torch.cuda.synchronize()
+    total = {n: k.launches for n, k in _kernels().items()}
+    dec_only = {n: total[n] - enc[n] for n in KERNEL_NAMES}
+    print(f"  launches in one v3 encode: {enc}; in its decode: {dec_only}")
+    if total != LANE_LAUNCHES or dec_only["rans_decode"] != LANE_DECODE_RANS \
+            or len(calls) != LANE_DECODE_RANS:
+        raise AssertionError(f"v3 encode + decode: expected launches "
+                             f"{LANE_LAUNCHES} ({LANE_DECODE_RANS} rans_decode "
+                             f"in the decode), got {total}, {dec_only}")
+    if codec.encode_batch(img, alpha, stream_format="lanes32") != blobs:
+        raise AssertionError("re-encoding the v3 batch changed the bytes")
+    print("  v3 re-encode byte-identical: yes")
+    if not np.array_equal(codec.decode_batch(blobs[:1]), dec[:1]):
+        raise AssertionError("v3 blob 0 decoded alone differs from the batch")
+    print("  v3 blob 0 decoded alone: the same RGBA as in the batch")
+    if not np.array_equal(dec, dec_v64):
+        raise AssertionError("the v3 decode differs from the v64 decode of "
+                             "the same images")
+    print("  v3 decode equal to the v64 decode of the same images: yes")
+    nbytes = sum(len(b) for b in blobs)
+    bpp = nbytes * 8.0 / (batch * img.shape[1] * img.shape[2])
+    print(f"  v3 real bpp {bpp:.6f} ({nbytes} bytes; v64 "
+          f"{sum(len(b) for b in blobs_v64)} bytes)")
+
+    # the kernel against the plain version: the RGB z segment (row search)
+    # and its first y slice (inverse tables), on the recorded inputs
+    rgb = calls[-11:]                   # the mask chain decodes first
+    checks, errs = {}, {}
+    for name, call in (("z", rgb[0]), ("y slice 0", rgb[1])):
+        def args():         # the kernel updates the lane state in place
+            return (call["tables"], call["words"], call["state"].clone(),
+                    call["ptr"].clone(), call["idx"], call["act"],
+                    call["lane_end"])
+        kern = rd.rans_decode(*args(), inverse=call["inverse"])
+        plain = rd.rans_decode_plain(*args(), inverse=call["inverse"])
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(kern, plain)) and \
+            torch.equal(kern[0], call["syms"])
+        errs[name] = int((kern[0].long() - plain[0].long()).abs().max())
+        print(f"  rans_decode {name} ({tuple(call['idx'].shape)} steps x "
+              f"images x lanes, {'inverse tables' if call['inverse'] is not None else 'row search'}): "
+              f"symbols, state, pointer equal to the plain decode_segment: "
+              f"{'yes' if same else 'NO'} (symbols max_abs_err {errs[name]})")
+        if not same:
+            raise AssertionError(f"rans_decode {name} differs from plain")
+        checks[name] = _segment_bound(torch, call)
+
+    # every RGB stream against the host C++ decoder
+    metas = [unpack_rgba(b) for b in blobs]
+    zh, zw = metas[0]["rgb"]["shape"]
+    sizes = [zh * zw * 192] + [zh * zw * 64 * 8] * 10
+    seg_ends = np.cumsum(sizes)
+    tables = codec.rgb_io._lane_tables()["merged"]
+    host_ms = 0.0
+    for b, m in enumerate(metas):
+        words, lnw = dr.parse_stream(m["rgb"]["stream"], m["rgb"]["lanes"])
+        idx = np.concatenate([dr.from_steps(c["idx"][:, b], n).cpu().numpy()
+                              for c, n in zip(rgb, sizes)])
+        want = np.concatenate([dr.from_steps(c["syms"][:, b], n).cpu().numpy()
+                               for c, n in zip(rgb, sizes)])
+        t = time.perf_counter()
+        host = rans.decode_lanes(words, lnw, idx, seg_ends, tables["cdfs"],
+                                 tables["max_values"] + 2, tables["offsets"])
+        host_ms += (time.perf_counter() - t) * 1e3
+        if not np.array_equal(host, want):
+            raise AssertionError(f"rans_decode of RGB stream {b} differs from "
+                                 f"the host decode_lanes")
+    print(f"  every RGB stream: the kernel's symbols equal the host C++ "
+          f"decode_lanes ({batch} streams of {int(seg_ends[-1])} symbols; "
+          f"host {host_ms:.3f} ms on one thread)")
+
+    # a flipped word must change the symbols (and kernel and plain agree on
+    # the corrupt stream: no lane reads past its end)
+    bad = rgb[0]["words"].clone()
+    bad[int(rgb[0]["ptr"][0, 0])] ^= 0x2AAA     # lane 0's first renorm word
+    flipped = _replay(torch, rgb, rd.rans_decode, bad)
+    changed = sum(int((f[0] != c["syms"]).sum()) for f, c in zip(flipped, rgb))
+    plain_z = rd.rans_decode_plain(
+        rgb[0]["tables"], bad, rgb[0]["state"].clone(), rgb[0]["ptr"].clone(),
+        rgb[0]["idx"], rgb[0]["act"], rgb[0]["lane_end"])
+    agree = all(torch.equal(a, b) for a, b in zip(flipped[0], plain_z))
+    print(f"  one flipped stream word: {changed} symbols change (must be > 0); "
+          f"kernel and plain agree on the corrupt z segment: "
+          f"{'yes' if agree else 'NO'}")
+    if not changed or not agree:
+        raise AssertionError("the flipped-word check failed")
+
+    # times: every launch starts from its own copy of the lane state, made
+    # before the clock starts, so the events time the kernel alone
+    def kernel_fn(call, n):
+        fresh = [(call["state"].clone(), call["ptr"].clone())
+                 for _ in range(n + 2)]          # _time_ms warms up twice
+
+        def run():
+            st, pt = fresh.pop()
+            rd.rans_decode(call["tables"], call["words"], st, pt, call["idx"],
+                           call["act"], call["lane_end"],
+                           inverse=call["inverse"])
+        return run
+
+    for name, call in (("z", rgb[0]), ("y slice 0", rgb[1])):
+        c = checks[name]
+        c["ms"] = _time_ms(torch, kernel_fn(call, iters * 4), iters * 4)
+        c["plain_ms"] = _time_ms(torch, lambda: rd.rans_decode_plain(
+            call["tables"], call["words"], call["state"].clone(),
+            call["ptr"].clone(), call["idx"], call["act"], call["lane_end"],
+            inverse=call["inverse"]), 1)
+        print(f"  rans_decode {name}: kernel {c['ms']:.4f} ms, plain "
+              f"{c['plain_ms']:.3f} ms, {_bound_text(c)} ({c['bytes'] / 1e6:.3f}"
+              f" MB, of which {c['table_bytes'] / 1e6:.3f} MB the {c['rows']} "
+              f"CDF rows addressed; {c['active_symbols']} symbols), "
+              f"{100.0 * c['bound_ms'] / c['ms']:.2f}% of the bound, "
+              f"library: none")
+    chain_ms = _time_ms(torch, lambda: _replay(torch, rgb, rd.rans_decode),
+                        iters)
+    print(f"  the 11 RGB segments back to back: {chain_ms:.3f} ms on the card "
+          f"against {host_ms:.3f} ms for the host C++ decode_lanes of the "
+          f"same {batch} streams")
+
+    _reset_launches()
+    preview = codec.decode_batch(blobs, max_slices=5)
+    k5 = _kernels()["rans_decode"].launches
+    if k5 != 12 or not np.array_equal(
+            preview, codec.decode_batch(blobs_v64, max_slices=5)):
+        raise AssertionError(f"v3 preview max_slices=5: {k5} rans_decode "
+                             f"launches (want 1 + 5 RGB, 1 + 5 mask) or not "
+                             f"the v64 preview")
+    print("  v3 preview max_slices=5: 12 rans_decode launches, equal to the "
+          "v64 preview")
+
+    def rate(blob_list):
+        t = time.perf_counter()
+        codec.decode_batch(blob_list, output="uint8")
+        return batch / (time.perf_counter() - t)
+
+    rates = {}
+    for rep in ("", " again"):
+        for name, bl in (("v3", blobs), ("v64", blobs_v64)):
+            rates[name + rep] = rate(bl)
+            print(f"  decode {name}{rep}: {rates[name + rep]:.3f} img/s "
+                  f"(batch {batch}, 512x768, fp32, uint8 out)")
+    profile = profile_run(torch, lambda: codec.decode_batch(
+        blobs, output="uint8"), "v3 decode", top=10)
+    y0 = checks["y slice 0"]
+    return {"launches": dec_only["rans_decode"], "encode_launches": enc,
+            "decode_launches": dec_only,
+            "bpp": bpp, "bytes": nbytes, "segments": checks,
+            "rgb_chain_ms": chain_ms, "host_decode_lanes_ms": host_ms,
+            "flipped_word_symbols_changed": changed,
+            "decode_img_per_s": rates, "profile": profile,
+            "max_abs_err": float(max(errs.values())), "ms": y0["ms"],
+            "plain_ms": y0["plain_ms"],
+            "bound_ms": y0["bound_ms"], "bound_by": y0["bound_by"]}
+
+
+def options_phase(torch, codec, img, alpha, blobs_v64, dec_v64) -> dict:
+    """Rate-gated containers (version 2) and the progressive preview."""
+    import numpy as np
+    from rgba_tpu_torch.eval.container import unpack_rgba
+
+    batch, h, w = img.shape[:3]
+    blobs = codec.encode_batch(img, alpha, rate_gate=True)
+    if codec.encode_batch(img, alpha, rate_gate=True) != blobs:
+        raise AssertionError("re-encoding the v2 batch changed the bytes")
+    full = codec.decode_batch(blobs, output="uint8")
+    if not np.array_equal(codec.decode_batch(blobs[:1], output="uint8"),
+                          full[:1]):
+        raise AssertionError("v2 blob 0 decoded alone differs from the batch")
+    gate = np.stack([unpack_rgba(b)["rgb"]["gate"] for b in blobs])
+    n2, n1 = sum(map(len, blobs)), sum(map(len, blobs_v64))
+    bpp2, bpp1 = n2 * 8.0 / (batch * h * w), n1 * 8.0 / (batch * h * w)
+    print(f"  v2 (rate gate): re-encode byte-identical, blob 0 alone as in "
+          f"the batch; {100.0 * float(1 - gate.mean()):.2f}% of the latent "
+          f"cells gated; real bpp {bpp2:.6f} ({n2} bytes) against v1 "
+          f"{bpp1:.6f} ({n1} bytes)")
+    previews = {}
+    for k in (0, 5, 10):
+        got = codec.decode_batch(blobs_v64, max_slices=k)
+        diff = float(np.abs(got[..., :3] - dec_v64[..., :3]).mean())
+        same = np.array_equal(got, dec_v64)
+        if (k == 10) != same:
+            raise AssertionError(f"preview k={k}: equal to the full decode: "
+                                 f"{same}")
+        previews[k] = {"mean_abs_rgb_vs_full": diff}
+        print(f"  preview max_slices={k}: mean |RGB - full decode| {diff:.6f}"
+              + (" (equal to the full decode)" if same else ""))
+    return {"v2_bpp": bpp2, "v2_bytes": n2, "v1_bpp": bpp1, "v1_bytes": n1,
+            "gated_share": float(1 - gate.mean()), "previews": previews}
+
+
+def gated_phase(torch, codec, img, alpha) -> dict:
+    """The rate gate where cells really close.  The images lose 16 rows
+    and columns (512x768 -> 496x752), so the /64 grid pads them with 16
+    transparent pixels (the /8 gate pools 7 pixels around a cell), and the
+    first half of the batch is
+    opaque, so its decoded alpha is exactly 1 inside and 0 in the padding.
+    Version 2 (the host decodes the alive cells) and version 3 (the
+    kernel's active flags come from the shipped gate): each re-encodes to
+    the same bytes and decodes a blob alone as in the batch, and the two
+    decode to the same RGBA."""
+    import numpy as np
+    from rgba_tpu_torch.eval.container import unpack_rgba
+
+    batch, h, w = img.shape[0], img.shape[1] - 16, img.shape[2] - 16
+    img_c = np.ascontiguousarray(img[:, :h, :w])
+    alpha_c = np.array(alpha[:, :h, :w])
+    alpha_c[:batch // 2] = 255
+    res, decs, gates = {}, {}, {}
+    for name, fmt, rans_want in (("v2", "v64", 0),
+                                 ("v3", "lanes32", LANE_DECODE_RANS)):
+        def encode():
+            return codec.encode_batch(img_c, alpha_c, rate_gate=True,
+                                      stream_format=fmt)
+        blobs = encode()
+        if encode() != blobs:
+            raise AssertionError(f"re-encoding the gated {name} batch "
+                                 f"changed the bytes")
+        gate = np.stack([unpack_rgba(b)["rgb"]["gate"] for b in blobs])
+        share = float(1.0 - gate.mean())
+        if share <= 0.0:
+            raise AssertionError(f"gated {name}: no latent cell is gated")
+        _reset_launches()
+        dec = codec.decode_batch(blobs, output="float32")
+        k = _kernels()["rans_decode"].launches
+        if k != rans_want or dec.shape != (batch, h, w, 4) \
+                or not np.isfinite(dec).all():
+            raise AssertionError(f"gated {name} decode: {k} rans_decode "
+                                 f"launches (want {rans_want}), shape "
+                                 f"{dec.shape}")
+        for i in (0, batch - 1):
+            if not np.array_equal(codec.decode_batch(blobs[i:i + 1]),
+                                  dec[i:i + 1]):
+                raise AssertionError(f"gated {name} blob {i} decoded alone "
+                                     f"differs from the batch")
+        n = sum(map(len, blobs))
+        res[name] = {"gated_share": share, "bytes": n,
+                     "bpp": n * 8.0 / (batch * h * w),
+                     "rans_decode_launches": k}
+        decs[name], gates[name] = dec, gate
+        print(f"  gated {name} ({batch} x {h}x{w}, half opaque): "
+              f"{100.0 * share:.2f}% of the latent cells gated; re-encode "
+              f"byte-identical; blobs 0 and {batch - 1} alone as in the "
+              f"batch; {k} rans_decode launches; real bpp "
+              f"{res[name]['bpp']:.6f} ({n} bytes)")
+    if not np.array_equal(gates["v2"], gates["v3"]) or \
+            not np.array_equal(decs["v2"], decs["v3"]):
+        raise AssertionError("the gated v3 decode differs from the gated v2 "
+                             "decode of the same images")
+    print("  gated v3 decode equal to the gated v2 decode: yes (same gate)")
+    return res
 
 
 class _SynthDataset:
@@ -1298,11 +1664,35 @@ def main(argv=None) -> int:
                 "shape": h["shape"], "dtype": h["dtype"], "fp32": fp32,
                 "cases": res[name]}
 
+    lanes = codec["lanes"]
+
+    def rans_entry():
+        # the v3 RGB decode's first y slice; launches of one v3 decode
+        y0, z = lanes["segments"]["y slice 0"], lanes["segments"]["z"]
+        return {"name": "rans_decode", "route": "cuda",
+                "source": "rgba_tpu_torch/csrc/rans_decode.cu",
+                "replaces": "rgba_tpu/entropy/device_rans.py:118",
+                "status": "ported", "launches": lanes["launches"],
+                "launches_forward": path["launches"]["rans_decode"],
+                "launches_codec_v1": codec["launches"]["rans_decode"],
+                "launches_train": train["launches_train"]["rans_decode"],
+                "max_abs_err": lanes["max_abs_err"], "ms": y0["ms"],
+                "plain_ms": y0["plain_ms"],
+                "bound_ms": y0["bound_ms"], "bound_by": "bytes",
+                "library_ms": None,
+                "shape": "y slice 0, (steps, images, lanes) = %s"
+                         % (tuple(y0["shape"]),),
+                "dtype": "int32", "z_segment": z,
+                "rgb_chain_ms": lanes["rgb_chain_ms"],
+                "host_decode_lanes_ms": lanes["host_decode_lanes_ms"]}
+
     line = {
-        "kernels": [entry(name) for name in KERNEL_NAMES],
+        "kernels": [entry(name) for name in CONV_KERNELS] + [rans_entry()],
         "pending": [],
         "path": {k: v for k, v in path.items() if k != "launches"},
-        "codec": {k: v for k, v in codec.items() if k != "launches"},
+        "codec": {k: v for k, v in codec.items()
+                  if k not in ("launches", "lanes")},
+        "lanes": {k: v for k, v in lanes.items() if k != "segments"},
         "train": {k: v for k, v in train.items() if k != "launches_train"},
     }
     print(card)

@@ -77,10 +77,10 @@ _BATCH_INVARIANT = [0]      # open batch_invariant_scope()s, any thread
 def batch_invariant_scope():
     """Inside it an image's result must not depend on the batch it runs in:
     the codec's encoder and decoder recompute the CDF indexes apart, and a
-    blob must decode the same alone or in any batch.  cuDNN picks a
-    convolution's algorithm by the batch size, and two algorithms sum in
-    different orders, so the convolutions (``ops.conv.per_image``) then run
-    each image on its own."""
+    blob must decode the same alone or in any batch.  cuDNN (and oneDNN on
+    the CPU) picks a convolution's algorithm by the batch size, and two
+    algorithms sum in different orders, so the convolutions
+    (``ops.conv.per_image``) then run each image on its own."""
     _BATCH_INVARIANT[0] += 1
     try:
         yield

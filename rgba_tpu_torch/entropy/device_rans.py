@@ -1,0 +1,265 @@
+"""The lane stream format and its decode, on the card (port of
+``rgba_tpu/entropy/device_rans.py``).
+
+Format (written by ``native/rans.encode_lanes``): each image's stream is L
+independent 32-bit rANS lanes (state in [2^16, 2^32), 16-bit renorm
+words, the 16-bit quantized CDFs and 4-bit bypass escapes of the v64
+coder).  Symbols are cut into segments in decode order: the z latent, then
+each y slice.  Within a segment, flat position p goes to lane p % L at step
+p // L.  One decode step takes one symbol from every lane of every image,
+so the channel-AR decode needs no host round trip: the lane state and
+pointer stay on the card between segments.
+
+Rate-gated cells and the tail of a segment (n % L != 0) are inactive
+steps: the encoder codes nothing there and the decoder advances nothing.
+A bypass escape carries one 4-bit count and at most 8 4-bit chunks (the
+raw values are 32-bit).
+
+``decode_segment`` here is the plain PyTorch version of one segment's
+decode: the CPU runs it, and the tests and ``chip_smoke.py`` hold the CUDA
+kernel (``ops/kernels/rans_decode.py``) to it bit for bit.  Host-side
+helpers (tables, stream packing) work on numpy.  The tables stay separate
+tensors on the card (the JAX package packs them into one buffer because
+its TPU runtime charged per argument buffer), with the same layout: z rows
+after the 64 Gaussian rows (``z_row_offset``), their columns padded to a
+multiple of 64 before the merge.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+PRECISION = 16
+_MASK16 = (1 << 16) - 1
+_MASK32 = (1 << 32) - 1
+_L32 = 1 << 16
+_BYPASS_BITS = 4
+MAX_BYPASS_CHUNKS = 8   # 32-bit raw values need at most 8 4-bit chunks
+MAX_LANE_WORDS = (1 << 16) - 1   # the container stores u16 word counts
+
+
+def pack_tables(cdfs, cdf_lengths, offsets, pad_cols: int = 0) -> dict:
+    """CDF rows padded with 2^16, so a symbol search that counts the
+    entries <= cum (cum < 2^16) never walks past a row's length; numpy."""
+    cdfs = np.asarray(cdfs, dtype=np.int32)
+    lens = np.asarray(cdf_lengths, dtype=np.int32)
+    offs = np.asarray(offsets, dtype=np.int32)
+    cols = max(int(cdfs.shape[1]), int(pad_cols))
+    padded = np.full((cdfs.shape[0], cols), 1 << PRECISION, dtype=np.int32)
+    for r in range(cdfs.shape[0]):
+        padded[r, :lens[r]] = cdfs[r, :lens[r]]
+    return {"cdfs": padded, "max_values": lens - 2, "offsets": offs}
+
+
+def build_inverse(cdfs, cdf_lengths) -> dict:
+    """Dense inverse tables: for every (row, cum) the decoded value and its
+    (start, freq), so a decode step makes two gathers instead of a row
+    search.  numpy:
+      si:  (rows * 2^16,) int32 = start | (freq - 1) << 16
+      val: (rows * 2^15,) int32, two 16-bit values per word (even cum in
+           the low half, odd cum in the high half)."""
+    cdfs = np.asarray(cdfs, dtype=np.int64)
+    lens = np.asarray(cdf_lengths, dtype=np.int32)
+    rows = cdfs.shape[0]
+    cum = np.arange(1 << PRECISION, dtype=np.int64)
+    si = np.empty((rows, 1 << PRECISION), np.int32)
+    val = np.empty((rows, 1 << PRECISION), np.int32)
+    for r in range(rows):
+        row = cdfs[r, :lens[r]]
+        v = np.clip(np.searchsorted(row, cum, side="right") - 1, 0,
+                    lens[r] - 2)
+        start = row[v]
+        freq = row[v + 1] - start
+        si[r] = (start | ((freq - 1) << 16)).astype(np.int32)
+        val[r] = v.astype(np.int32)
+    packed = (val[:, 0::2] | (val[:, 1::2] << 16)).astype(np.int32)
+    return {"si": si.reshape(-1), "val": packed.reshape(-1)}
+
+
+def merge_tables(gauss: dict, z: dict) -> dict:
+    """The y Gaussian rows and the z bottleneck rows in one row space (z
+    rows at ``z_row_offset``), widened to one column count."""
+    cols = max(gauss["cdfs"].shape[1], z["cdfs"].shape[1])
+
+    def widen(t):
+        c = t["cdfs"]
+        pad = np.full((c.shape[0], cols - c.shape[1]), 1 << PRECISION,
+                      dtype=np.int32)
+        return np.concatenate([c, pad], axis=1)
+
+    return {
+        "cdfs": np.concatenate([widen(gauss), widen(z)], axis=0),
+        "max_values": np.concatenate([gauss["max_values"], z["max_values"]]),
+        "offsets": np.concatenate([gauss["offsets"], z["offsets"]]),
+        "z_row_offset": int(gauss["cdfs"].shape[0]),
+    }
+
+
+def z_channel_indexes(zh: int, zw: int, channels: int) -> np.ndarray:
+    """Each z position's CDF row (its channel), in the (zh, zw, c) order
+    the coder flattens z in."""
+    return np.broadcast_to(np.arange(channels, dtype=np.int32),
+                           (zh, zw, channels)).reshape(-1)
+
+
+# ----------------------------------------------------------- stream packing
+
+def split_stream(words: np.ndarray, lane_nwords: np.ndarray) -> bytes:
+    """One image's lane stream as the container stores it: the u16 word
+    count of each lane, then the words, little-endian."""
+    lane_nwords = np.asarray(lane_nwords)
+    for lane, n in enumerate(lane_nwords.tolist()):
+        if n > MAX_LANE_WORDS:
+            raise ValueError(
+                f"lane {lane} has {n} words; the container stores a lane's "
+                f"word count in 16 bits (at most {MAX_LANE_WORDS}): code "
+                f"this image with more lanes")
+    head = lane_nwords.astype("<u2").tobytes()
+    return head + np.asarray(words, dtype="<u2").tobytes()
+
+
+def parse_stream(data: bytes, lanes: int) -> tuple:
+    """Inverse of ``split_stream`` -> (words uint16, lane_nwords int32)."""
+    if len(data) < 2 * lanes or len(data) % 2:
+        raise ValueError(f"lane stream of {len(data)} bytes cannot hold "
+                         f"{lanes} lanes")
+    head = np.frombuffer(data[:2 * lanes], dtype="<u2").astype(np.int32)
+    words = np.frombuffer(data[2 * lanes:], dtype="<u2")
+    if head.min(initial=2) < 2 or int(head.sum()) != words.size:
+        raise ValueError("corrupt lane stream: word counts do not match "
+                         "its length")
+    return words, head
+
+
+def pack_streams(per_image: Sequence[tuple], lanes: int) -> tuple:
+    """Per-image (words, lane_nwords) pairs -> one flat uint16 word array,
+    and the (B, L) int32 first and one-past-last word of every lane in it."""
+    batch = len(per_image)
+    lane_base = np.zeros((batch, lanes), dtype=np.int32)
+    lane_end = np.zeros((batch, lanes), dtype=np.int32)
+    off = 0
+    for b, (words, lane_nwords) in enumerate(per_image):
+        if np.size(lane_nwords) != lanes:
+            raise ValueError(f"image {b} has {np.size(lane_nwords)} lanes, "
+                             f"not {lanes}")
+        ends = np.cumsum(lane_nwords).astype(np.int64)
+        lane_base[b] = off + ends - lane_nwords
+        lane_end[b] = off + ends
+        off += int(ends[-1])
+    if off >= 1 << 31:
+        raise ValueError(f"{off} words do not fit int32 offsets")
+    flat = np.concatenate([np.asarray(w, dtype=np.uint16)
+                           for w, _ in per_image]) if batch else \
+        np.zeros(0, np.uint16)
+    return flat, lane_base, lane_end
+
+
+# ------------------------------------------------------ the decode, plainly
+
+def words_tensor(flat: np.ndarray, device) -> torch.Tensor:
+    """uint16 words -> an int16 tensor of the same bits on ``device``."""
+    flat = np.ascontiguousarray(flat, dtype=np.uint16)
+    return torch.from_numpy(flat.view(np.int16)).to(device)
+
+
+def init_lanes(words, lane_base):
+    """(state int64, ptr int32) of each lane from its first two words;
+    ``words`` the int16 tensor of ``words_tensor``, ``lane_base`` (..., L)."""
+    base = lane_base.long()
+    state = ((words[base].long() & _MASK16) << 16) | \
+        (words[base + 1].long() & _MASK16)
+    return state, (lane_base + 2).to(torch.int32)
+
+
+def to_steps(flat, lanes: int, fill=0):
+    """(..., n) per-segment array -> (T, ..., L) in the lane layout
+    (position p at step p // L, lane p % L), the tail padded with ``fill``."""
+    n = flat.shape[-1]
+    t = -(-n // lanes)
+    pad = torch.full(flat.shape[:-1] + (t * lanes - n,), fill,
+                     dtype=flat.dtype, device=flat.device)
+    arr = torch.cat([flat, pad], dim=-1).reshape(flat.shape[:-1] + (t, lanes))
+    return arr.movedim(-2, 0).contiguous()
+
+
+def from_steps(stepped, n: int):
+    """Inverse of ``to_steps``: (T, ..., L) -> (..., n)."""
+    arr = stepped.movedim(0, -2)
+    return arr.reshape(arr.shape[:-2] + (-1,))[..., :n]
+
+
+def _wrap_i32(x):
+    """int64 holding a 32-bit pattern -> that pattern as int32."""
+    x = x & _MASK32
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def decode_segment(tables: dict, words, state, ptr, indexes, active,
+                   lane_end, inverse: Optional[dict] = None):
+    """Decode one segment (the plain version of the CUDA kernel).
+
+    tables: {"cdfs" (rows, cols), "max_values" (rows,), "offsets"
+    (rows,)} int32 tensors; words: the int16 tensor of ``words_tensor``
+    (all images' lanes); state (B, L) int64 holding uint32 values, ptr and
+    lane_end (B, L) int32 (a lane reads no word at or past its end);
+    indexes (T, B, L) int32 CDF rows; active (T, B, L) bool.  inverse:
+    ``build_inverse`` of the rows the indexes address ({"si", "val"} int32
+    tensors) for the two-gather search, else the row search.  Returns
+    (symbols (T, B, L) int32, state, ptr); inactive steps give 0 and
+    advance nothing.  Arithmetic is that of ``rans32_decode_lanes`` in
+    uint32 (the C++ twin): on a valid stream the three agree bit for bit."""
+    cdfs = tables["cdfs"].long()
+    max_values = tables["max_values"].long()
+    offsets = tables["offsets"].long()
+    end = lane_end.long()
+    state, ptr = state.long(), ptr.long()
+
+    def renorm(state, ptr, need):
+        need = need & (state < _L32) & (ptr < end)
+        w = words[torch.where(need, ptr, 0)].long() & _MASK16
+        state = torch.where(need, ((state << 16) | w) & _MASK32, state)
+        return state, ptr + need.long()
+
+    def get_bits(state, ptr, act):
+        val = torch.where(act, state & ((1 << _BYPASS_BITS) - 1), 0)
+        state = torch.where(act, state >> _BYPASS_BITS, state)
+        state, ptr = renorm(state, ptr, act)
+        return val, state, ptr
+
+    syms = torch.zeros(indexes.shape, dtype=torch.int32,
+                       device=indexes.device)
+    for t in range(indexes.shape[0]):
+        idx, act = indexes[t].long(), active[t].bool()
+        cum = state & _MASK16
+        if inverse is not None:
+            si = inverse["si"][idx * (1 << PRECISION) + cum].long()
+            start = si & _MASK16
+            freq = ((si >> 16) & _MASK16) + 1
+            w = inverse["val"][idx * (1 << (PRECISION - 1)) + (cum >> 1)]
+            value = (w.long() >> ((cum & 1) * 16)) & _MASK16
+        else:
+            row = cdfs[idx]                                   # (B, L, cols)
+            value = (row[..., 1:] <= cum[..., None]).sum(-1)
+            start = row.gather(-1, value[..., None])[..., 0]
+            freq = row.gather(-1, value[..., None] + 1)[..., 0] - start
+        new = (freq * (state >> PRECISION) + cum - start) & _MASK32
+        state = torch.where(act, new, state)
+        state, ptr = renorm(state, ptr, act)
+
+        maxv = max_values[idx]
+        esc = act & (value == maxv)
+        if bool(esc.any()):
+            n_byp, state, ptr = get_bits(state, ptr, esc)
+            raw = torch.zeros_like(value)
+            for j in range(MAX_BYPASS_CHUNKS):
+                on = esc & (j < n_byp)
+                bits, state, ptr = get_bits(state, ptr, on)
+                raw = raw | (bits << (_BYPASS_BITS * j))
+            v = raw >> 1
+            value = torch.where(esc, torch.where((raw & 1) == 1, -v - 1,
+                                                 v + maxv), value)
+        syms[t] = torch.where(act, _wrap_i32(value + offsets[idx]), 0)
+    return syms, state, ptr.to(torch.int32)

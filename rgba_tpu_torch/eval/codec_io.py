@@ -1,5 +1,5 @@
 """Real bitstream encode/decode for both codecs (port of
-``rgba_tpu/eval/codec_io.py``, the v64 host-coded streams).
+``rgba_tpu/eval/codec_io.py``).
 
 The card runs the analysis transform, the hyper path, the per-slice
 (mu, scale) convolutions, symbol quantization and CDF-row indexes; the
@@ -23,14 +23,33 @@ indexes must agree bit for bit, so every device step runs in fp32 with
 TF32 off, deterministic cuDNN algorithms and no autotuning (``_scope``),
 and both sides build the slice-stat inputs through the same functions.
 
-Not ported yet: the rate gate, the deadzone quantizer, progressive
-``max_slices``, the lane format (``lanes32``, on-device rANS),
-``interleave`` > 1 and ``set_params``.
+Serving options, as in the JAX package:
+
+  * ``rate_gate``: latent cells whose /8 alpha pool is 0 code no symbol;
+    the encoder's gate ships with the stream and the decoder reads those
+    cells as symbol 0 (y = mu + lrp);
+  * ``deadzone`` widens the quantizer's zero bin (encoder only);
+  * ``max_slices=k`` decodes the first k slices and mean-fills the rest
+    (y = mu + lrp): a preview from the same stream, bit-identical to a full
+    decode in its first k slices; k = 0 reads no y bytes;
+  * ``set_params`` loads new weights and rebuilds the tables made from
+    them;
+  * ``stream_format="lanes32"``: one stream per image, z and every y slice
+    in L interleaved 32-bit rANS lanes (``entropy/device_rans.py``), coded
+    on the host and decoded on the card by ``decompress_device``: the
+    whole channel-AR chain runs there, the lane state staying on the card
+    between the launches of the decode kernel (``ops/kernels/rans_decode``),
+    so nothing crosses to the host until the result.
+
+Not ported yet: the device lane encode, ``interleave`` > 1
+(``decompress_chains``) and batch sharding.
 """
 
 from __future__ import annotations
 
 import contextlib
+import hashlib
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Sequence
 
@@ -38,11 +57,37 @@ import numpy as np
 import torch
 
 from ..core.precision import batch_invariant_scope, precision_scope
+from ..entropy import device_rans
 from ..entropy.gaussian import GaussianConditional, get_scale_table
 from ..native import rans
+from ..ops.kernels import rans_decode as _rd
 from ..ops.mask_pyramid import mask_pyramid
 
 _MAX_CODING_THREADS = 8
+STREAM_FORMATS = ("v64", "lanes32")
+
+_INVERSE_LOCK = threading.Lock()
+_GAUSS_INVERSE: dict = {}    # table digest -> build_inverse (numpy)
+_INVERSE_ON: dict = {}       # (table digest, device) -> tensors
+
+
+def _gauss_inverse(gc, device) -> dict:
+    """build_inverse of the Gaussian CDF rows on ``device``, cached per
+    process by the rows' content (the 24 MB inverse is the same for every
+    codec that uses one scale table)."""
+    h = hashlib.sha256()
+    for a in (gc.quantized_cdfs, gc.cdf_lengths):
+        h.update(np.ascontiguousarray(a, np.int32).tobytes())
+    key = h.hexdigest()
+    with _INVERSE_LOCK:
+        if key not in _GAUSS_INVERSE:
+            _GAUSS_INVERSE[key] = device_rans.build_inverse(
+                gc.quantized_cdfs, gc.cdf_lengths)
+        dkey = (key, str(device))
+        if dkey not in _INVERSE_ON:
+            _INVERSE_ON[dkey] = {k: torch.from_numpy(v).to(device)
+                                 for k, v in _GAUSS_INVERSE[key].items()}
+        return _INVERSE_ON[dkey]
 
 
 def drive_chains(chains: Sequence) -> List:
@@ -83,13 +128,18 @@ class CodecIO:
     """A codec model with its entropy tables and the device steps of the
     bitstream codec.  model: the port's RGBCodec (kind "rgb") or MaskCodec
     (kind "mask"), on the device it runs on, with the policy it runs with
-    (the codec's contract is fp32)."""
+    (the codec's contract is fp32).  rate_gate: the default of
+    ``compress_batch`` (RGB codec only); the decoder takes each stream's
+    gate from the stream."""
 
-    def __init__(self, model, kind: str = "rgb"):
+    LANES_DEFAULT = 128
+
+    def __init__(self, model, kind: str = "rgb", rate_gate: bool = False):
         if kind not in ("rgb", "mask"):
             raise ValueError(f"kind must be 'rgb' or 'mask', got {kind!r}")
         self.model = model.eval()
         self.kind = kind
+        self.rate_gate = bool(rate_gate) and kind == "rgb"
         self.device = next(model.parameters()).device
         self.num_slices = model.num_slices
         # slices >= max_support all condition on exactly the first
@@ -97,13 +147,30 @@ class CodecIO:
         self.max_support = model.max_support_slices
         self.gc = GaussianConditional(get_scale_table())
         self.gc.update()
-        self.eb_tables = model.entropy_bottleneck.cdf_tables()
-        self._medians = torch.from_numpy(self.eb_tables["medians"]).to(
-            self.device).reshape(1, -1, 1, 1)
+        self._steps_cache: dict = {}
+        self._build_tables()
         self._pool = ThreadPoolExecutor(max_workers=_MAX_CODING_THREADS)
 
     def close(self):
         self._pool.shutdown()
+
+    def _build_tables(self):
+        """The tables made from the weights: the z bottleneck's CDF tables
+        and medians; the lane tables are rebuilt at their next use."""
+        self.eb_tables = self.model.entropy_bottleneck.cdf_tables()
+        self._medians = torch.from_numpy(self.eb_tables["medians"]).to(
+            self.device).reshape(1, -1, 1, 1)
+        self._lane_state = None
+
+    def set_params(self, state_dict=None):
+        """Load new weights, a state dict of ``model`` (for example
+        ``weights.state_dict_from_jax`` of a JAX tree), and rebuild the
+        tables made from them.  With no argument, only rebuild them, after
+        the model's weights changed in place (``load_state_dict``, a
+        training step): until then the codec codes with the old tables."""
+        if state_dict is not None:
+            self.model.load_state_dict(state_dict, strict=True)
+        self._build_tables()
 
     @contextlib.contextmanager
     def _scope(self):
@@ -128,6 +195,10 @@ class CodecIO:
             t = t.float() / 255.0
         return t.float().permute(0, 3, 1, 2)
 
+    def _slices(self, max_slices) -> int:
+        n = self.num_slices
+        return n if max_slices is None else max(0, min(int(max_slices), n))
+
     # ------------------------------------------------- shared device steps
 
     def _stats(self, lm, ls, support, i: int):
@@ -137,9 +208,19 @@ class CodecIO:
         return mu, self.gc.build_indexes(scale)
 
     def _finish(self, lm, support, sym, mu, i: int):
-        """y_hat of slice i from its symbols: sym + mu + lrp."""
-        y = _cl(sym.float() + mu)
+        """y_hat of slice i from its symbols: sym + mu + lrp; sym None is
+        symbol 0 everywhere (mu + lrp)."""
+        y = _cl(mu if sym is None else sym.float() + mu)
         return y + self.model.slice_lrp(lm, support, y, i)
+
+    def _fill(self, lm, ls, y_hats: list, start: int):
+        """Mean-fill slices start..n-1 (symbol 0: y = mu + lrp), appended
+        to ``y_hats``: the preview's tail, and what a rate-gated cell
+        gets."""
+        for i in range(start, self.num_slices):
+            sup = y_hats[:self.max_support]
+            mu, _ = self._stats(lm, ls, sup, i)
+            y_hats.append(self._finish(lm, sup, None, mu, i))
 
     def _hyper(self, z_hat):
         lm, ls = self.model.hyper_decode(_cl(z_hat))
@@ -147,9 +228,12 @@ class CodecIO:
 
     # -------------------------------------------------------------- encode
 
-    def _compress_device(self, lead, mask=None):
+    def _compress_device(self, lead, mask=None, gate=None,
+                         deadzone: float = 0.0):
         """One pass on the card: symbols and indexes of every slice, stacked
-        (S, B, H, W, sw), and the z symbols (B, zh, zw, 192), on the host."""
+        (S, B, H, W, sw), and the z symbols (B, zh, zw, 192), on the host.
+        gate: (B, 1, H, W) bool, cells where it is False carry symbol 0;
+        deadzone > 0: sym = sign(r) max(floor(|r| + 0.5 - deadzone), 0)."""
         with self._scope():
             if self.kind == "rgb":
                 me = mask_pyramid(mask)
@@ -166,7 +250,16 @@ class CodecIO:
             for i in range(self.num_slices):
                 support = y_hats[:self.max_support]
                 mu, index = self._stats(lm, ls, support, i)
-                sym = torch.round(y[:, i * sw:(i + 1) * sw] - mu)
+                r = y[:, i * sw:(i + 1) * sw] - mu
+                if deadzone > 0.0:
+                    # the stream and y_hat carry the same symbols, so the
+                    # decoder's support stays in step
+                    sym = torch.sign(r) * torch.clamp_min(
+                        torch.floor(torch.abs(r) + 0.5 - deadzone), 0.0)
+                else:
+                    sym = torch.round(r)
+                if gate is not None:
+                    sym = sym * gate.float()
                 y_hats.append(self._finish(lm, support, sym, mu, i))
                 # int16 / uint8 halve the fetch: symbols stay far inside
                 # int16, and the table has 64 rows
@@ -176,56 +269,267 @@ class CodecIO:
                     np.stack([_to_host(t) for t in idxs]),
                     _to_host(z_sym.to(torch.int16)))
 
-    def compress_batch(self, image=None, mask=None) -> List[dict]:
+    def compress_batch(self, image=None, mask=None, rate_gate=None,
+                       deadzone: float = 0.0, stream_format: str = "v64",
+                       lanes: Optional[int] = None) -> List[dict]:
         """Batched compress: one device pass for all images, then B
         independent rANS streams coded on host threads.  image (B, H, W, 3)
         and mask (B, H, W, 1), NHWC, host arrays or tensors, H and W
         multiples of 64; the RGB codec's mask is the (decoded) alpha that
-        gates its encoder.  Returns one {"strings": [y, z], "shape":
-        (zh, zw)} per image."""
-        if self.kind == "rgb":
-            y_syms, y_idxs, z_sym = self._compress_device(
-                self._nchw(image), self._nchw(mask))
-        else:
-            y_syms, y_idxs, z_sym = self._compress_device(self._nchw(mask))
-        t = self.eb_tables
-        shape = (int(z_sym.shape[1]), int(z_sym.shape[2]))
-        z_indexes = np.broadcast_to(np.arange(z_sym.shape[-1], dtype=np.int32),
-                                    z_sym.shape[1:]).ravel()
+        gates its encoder.
 
-        def one(b):
-            z_string = rans.encode_with_indexes(
-                z_sym[b].ravel(), z_indexes, t["quantized_cdfs"],
-                t["cdf_lengths"], t["offsets"])
-            # slice-major order: the decoder reads slice 0 first
-            y_string = rans.encode_with_indexes(
-                y_syms[:, b].ravel(), y_idxs[:, b].ravel(),
-                self.gc.quantized_cdfs, self.gc.cdf_lengths, self.gc.offsets)
-            return {"strings": [y_string, z_string], "shape": shape}
+        rate_gate (RGB only; None takes the constructor's): cells whose /8
+        pool of the mask is 0 are not coded; the gate ((lh, lw, 1) bool)
+        ships in each result as "gate".  deadzone > 0 widens the zero bin
+        by that much on each side.  stream_format "v64" returns one
+        {"strings": [y, z], "shape": (zh, zw)} per image; "lanes32" one
+        {"format": "lanes32", "lanes": L, "stream": bytes, "shape"} that
+        ``decompress_device`` decodes on the card (L: ``lanes``, or at most
+        ``LANES_DEFAULT`` picked from the symbol count, as the JAX
+        package does, so the bytes agree)."""
+        if stream_format not in STREAM_FORMATS:
+            raise ValueError(f"stream_format must be one of {STREAM_FORMATS}, "
+                             f"got {stream_format!r}")
+        rg = self.rate_gate if rate_gate is None else (
+            bool(rate_gate) and self.kind == "rgb")
+        dz = float(deadzone)
+        gate_host = None
+        if self.kind == "rgb":
+            x, m = self._nchw(image), self._nchw(mask)
+            gate = None
+            if rg:
+                # the encoder's gate is the one truth: it ships with the
+                # stream, the decoder never derives it again
+                with self._scope():
+                    gate = mask_pyramid(m)[2] > 0
+                gate_host = gate.permute(0, 2, 3, 1).cpu().numpy()
+            y_syms, y_idxs, z_sym = self._compress_device(x, m, gate, dz)
+        else:
+            y_syms, y_idxs, z_sym = self._compress_device(
+                self._nchw(mask), deadzone=dz)
+        shape = (int(z_sym.shape[1]), int(z_sym.shape[2]))
+        n_slices, _, lh, lw, sw = y_syms.shape
+
+        def alive_of(b):
+            return None if gate_host is None else np.broadcast_to(
+                gate_host[b][None], (n_slices, lh, lw, sw)).ravel()
+
+        if stream_format == "lanes32":
+            z_n, s_n = z_sym[0].size, lh * lw * sw
+            n_total = z_n + n_slices * s_n
+            lanes = lanes or min(self.LANES_DEFAULT, max(
+                8, 1 << int(np.log2(max(n_total // 512, 8)))))
+            z_off = self._lane_tables()["merged"]["z_row_offset"]
+            z_idx = device_rans.z_channel_indexes(*shape, z_sym.shape[-1]) \
+                + z_off
+            seg_ends = z_n + s_n * np.arange(n_slices + 1, dtype=np.int64)
+
+            def one(b):
+                sym = np.concatenate([z_sym[b].ravel(), y_syms[:, b].ravel()])
+                idx = np.concatenate([z_idx, y_idxs[:, b].ravel()])
+                alive = alive_of(b)
+                if alive is not None:
+                    alive = np.concatenate([np.ones(z_n, bool), alive])
+                return self._lane_blob(sym, idx, seg_ends, lanes, shape,
+                                       alive, None if gate_host is None
+                                       else gate_host[b])
+        else:
+            t = self.eb_tables
+            z_indexes = np.broadcast_to(
+                np.arange(z_sym.shape[-1], dtype=np.int32),
+                z_sym.shape[1:]).ravel()
+
+            def one(b):
+                z_string = rans.encode_with_indexes(
+                    z_sym[b].ravel(), z_indexes, t["quantized_cdfs"],
+                    t["cdf_lengths"], t["offsets"])
+                # slice-major order: the decoder reads slice 0 first
+                syms_b, idxs_b = y_syms[:, b].ravel(), y_idxs[:, b].ravel()
+                alive = alive_of(b)
+                if alive is not None:
+                    syms_b, idxs_b = syms_b[alive], idxs_b[alive]
+                y_string = rans.encode_with_indexes(
+                    syms_b, idxs_b, self.gc.quantized_cdfs,
+                    self.gc.cdf_lengths, self.gc.offsets)
+                out = {"strings": [y_string, z_string], "shape": shape}
+                if gate_host is not None:
+                    out["gate"] = gate_host[b]
+                return out
 
         return list(self._pool.map(one, range(z_sym.shape[0])))
 
+    # ------------------------------------------------------- lane streams
+
+    def _lane_tables(self) -> dict:
+        """The lane coder's tables: the Gaussian rows, then the z rows at
+        ``z_row_offset`` with their columns padded to a multiple of 64 (the
+        JAX package's layout), as numpy ("merged") and as tensors on the
+        codec's device, with the Gaussian rows' inverse tables."""
+        if self._lane_state is None:
+            g = device_rans.pack_tables(self.gc.quantized_cdfs,
+                                        self.gc.cdf_lengths, self.gc.offsets)
+            t = self.eb_tables
+            zc = int(np.asarray(t["quantized_cdfs"]).shape[1])
+            z = device_rans.pack_tables(t["quantized_cdfs"], t["cdf_lengths"],
+                                        t["offsets"], pad_cols=-(-zc // 64) * 64)
+            merged = device_rans.merge_tables(g, z)
+            self._lane_state = {
+                "merged": merged,
+                "tables": {k: torch.from_numpy(merged[k]).to(self.device)
+                           for k in ("cdfs", "max_values", "offsets")},
+                "inverse": _gauss_inverse(self.gc, self.device),
+            }
+        return self._lane_state
+
+    def _lane_blob(self, sym_flat, idx_flat, seg_ends, lanes, shape,
+                   alive=None, gate=None) -> dict:
+        m = self._lane_tables()["merged"]
+        words, lane_nwords = rans.encode_lanes(
+            sym_flat, idx_flat, seg_ends, lanes, m["cdfs"],
+            m["max_values"] + 2, m["offsets"], alive=alive)
+        out = {"format": "lanes32", "lanes": lanes,
+               "stream": device_rans.split_stream(words, lane_nwords),
+               "shape": shape}
+        if gate is not None:
+            out["gate"] = gate
+        return out
+
+    def _all_active(self, n: int, batch: int, lanes: int):
+        """(T, B, L) active flags of an ungated segment of n symbols: every
+        step but the tail's padding."""
+        key = ("active", n, batch, lanes)
+        if key not in self._steps_cache:
+            t = -(-n // lanes)
+            act = (torch.arange(t * lanes, device=self.device) < n)
+            self._steps_cache[key] = act.reshape(t, 1, lanes).expand(
+                t, batch, lanes).contiguous()
+        return self._steps_cache[key]
+
+    def _z_indexes(self, zh: int, zw: int, batch: int, lanes: int):
+        key = ("z", zh, zw, batch, lanes)
+        if key not in self._steps_cache:
+            c = self.eb_tables["quantized_cdfs"].shape[0]
+            idx = device_rans.z_channel_indexes(zh, zw, c) + \
+                self._lane_tables()["merged"]["z_row_offset"]
+            flat = torch.from_numpy(idx).to(self.device)[None]
+            self._steps_cache[key] = device_rans.to_steps(
+                flat.expand(batch, -1), lanes)
+        return self._steps_cache[key]
+
+    def decompress_device_latent(self, compressed: Sequence[dict],
+                                 max_slices: Optional[int] = None):
+        """Decode lane-format streams on the card: z segment (row search)
+        -> hyper decode -> per slice: stats, CDF-row indexes, the segment's
+        symbols (inverse tables), y = sym + mu + lrp -> mean-fill of slices
+        >= max_slices.  One launch of the decode kernel per segment (1 + k);
+        the lane state and pointer stay on the card between them.  Returns
+        y_hat (B, M, H/8, W/8), a device tensor."""
+        zh, zw = compressed[0]["shape"]
+        lanes = compressed[0].get("lanes")
+        for i, c in enumerate(compressed):
+            if c.get("format") != "lanes32" or tuple(c["shape"]) != (zh, zw) \
+                    or c["lanes"] != lanes:
+                raise ValueError(f"stream {i}: decompress_device requires "
+                                 f"same-shaped lanes32 streams")
+        gated = ["gate" in c for c in compressed]
+        if any(gated) and not all(gated):
+            raise ValueError("decompress_device: either every stream carries "
+                             "its rate gate or none does")
+        k = self._slices(max_slices)
+        flat, base, end = device_rans.pack_streams(
+            [device_rans.parse_stream(c["stream"], lanes) for c in compressed],
+            lanes)
+        st = self._lane_tables()
+        b, s = len(compressed), self.max_support
+        with self._scope():
+            words = device_rans.words_tensor(flat, self.device)
+            lane_end = torch.from_numpy(end).to(self.device)
+            state, ptr = device_rans.init_lanes(
+                words, torch.from_numpy(base).to(self.device))
+            c_z = self.eb_tables["quantized_cdfs"].shape[0]
+            z_n = zh * zw * c_z
+            syms, state, ptr = _rd.rans_decode(
+                st["tables"], words, state, ptr,
+                self._z_indexes(zh, zw, b, lanes),
+                self._all_active(z_n, b, lanes), lane_end)
+            z_sym = device_rans.from_steps(syms, z_n).reshape(
+                b, zh, zw, c_z).permute(0, 3, 1, 2)
+            lm, ls = self._hyper(z_sym.float() + self._medians)
+            h, w = lm.shape[2], lm.shape[3]
+            gate = None
+            if gated[0]:
+                gate = torch.from_numpy(np.stack(
+                    [np.asarray(c["gate"], bool).reshape(h, w, 1)
+                     for c in compressed])).to(self.device)
+            y_hats: List = []
+            for i in range(k):
+                sup = y_hats[:s]
+                mu, index = self._stats(lm, ls, sup, i)
+                sw = index.shape[1]
+                n_i = h * w * sw
+                idx = device_rans.to_steps(
+                    index.permute(0, 2, 3, 1).reshape(b, n_i), lanes)
+                if gate is None:
+                    act = self._all_active(n_i, b, lanes)
+                else:
+                    act = device_rans.to_steps(
+                        gate.expand(b, h, w, sw).reshape(b, n_i), lanes,
+                        fill=False)
+                syms, state, ptr = _rd.rans_decode(
+                    st["tables"], words, state, ptr, idx, act, lane_end,
+                    inverse=st["inverse"])
+                sym = device_rans.from_steps(syms, n_i).reshape(
+                    b, h, w, sw).permute(0, 3, 1, 2)
+                y_hats.append(self._finish(lm, sup, sym, mu, i))
+            self._fill(lm, ls, y_hats, k)
+            return torch.cat(y_hats, dim=1)
+
+    def decompress_device(self, compressed: Sequence[dict], mask=None,
+                          max_slices: Optional[int] = None):
+        """Decode lane-format streams wholly on the card (see
+        ``decompress_device_latent``), then the synthesis transform, gated
+        by the mask pyramid of ``mask`` (the decoded alpha, RGB codec).
+        Returns the NHWC reconstruction as a device tensor.  On the card it
+        launches the CUDA decode kernel or raises; there is no other route."""
+        if self.kind == "rgb" and mask is None:
+            raise ValueError("the RGB codec's decompress_device needs "
+                             "mask= (the decoded alpha)")
+        y_hat = self.decompress_device_latent(compressed, max_slices)
+        return self.decode_image(y_hat, mask=mask, device=True)
+
     # -------------------------------------------------------------- decode
 
-    def _decode_slice(self, dec, idx):
-        return dec.decode_stream(idx, self.gc.quantized_cdfs,
-                                 self.gc.cdf_lengths, self.gc.offsets)
+    def _decode_slice(self, dec, idx, alive=None):
+        """One slice's symbols from one image's stream; cells whose alive
+        flag is False are not in the stream and decode as 0."""
+        if alive is None:
+            return dec.decode_stream(idx, self.gc.quantized_cdfs,
+                                     self.gc.cdf_lengths, self.gc.offsets)
+        out = np.zeros(idx.size, np.int32)
+        out[alive] = dec.decode_stream(
+            idx.ravel()[alive], self.gc.quantized_cdfs, self.gc.cdf_lengths,
+            self.gc.offsets)
+        return out.reshape(idx.shape)
 
     def _upload(self, syms: np.ndarray):
         """NHWC int symbols -> int16 NCHW (channels_last) on the device."""
         t = torch.from_numpy(np.ascontiguousarray(syms, np.int16))
         return t.to(self.device).permute(0, 3, 1, 2)
 
-    def decompress_chain(self, compressed: Sequence[dict],
+    def decompress_chain(self, compressed: Sequence[dict], gate_host=None,
+                         max_slices: Optional[int] = None,
                          tail_parallel: bool = True):
         """Generator form of the decode slice loop for a batch of
-        same-shaped streams: yields right after each device step, returns
-        the device-resident y_hat (B, M, H/8, W/8) as its StopIteration
-        value.  tail_parallel: see the module docstring."""
+        same-shaped v64 streams: yields right after each device step,
+        returns the device-resident y_hat (B, M, H/8, W/8) as its
+        StopIteration value.  gate_host: (B, lh, lw, 1) bool, the encoder's
+        rate gate of each stream.  max_slices: decode the first k slices
+        and mean-fill the rest.  tail_parallel: see the module docstring."""
         batch = len(compressed)
         zh, zw = compressed[0]["shape"]
         if any(tuple(c["shape"]) != (zh, zw) for c in compressed):
             raise ValueError("decompress requires same-shaped streams")
+        k = self._slices(max_slices)
         t = self.eb_tables
         c = t["quantized_cdfs"].shape[0]
         z_indexes = np.broadcast_to(np.arange(c, dtype=np.int32),
@@ -237,10 +541,13 @@ class CodecIO:
                 t["cdf_lengths"], t["offsets"])
 
         z_sym = np.concatenate(list(self._pool.map(decode_z, range(batch))))
-        decoders = [rans.RansDecoder(cc["strings"][0]) for cc in compressed]
+        # k = 0 reads no y bytes
+        decoders = [rans.RansDecoder(cc["strings"][0])
+                    for cc in compressed] if k else []
         n, s = self.num_slices, self.max_support
-        tail = n - s if tail_parallel and n > s else 0
-        serial = n - tail
+        tail = k - s if tail_parallel and k > s else 0
+        serial = k - tail
+        alives: List = [None] * batch
         y_hats: List = []
         # native decoder state is freed when the chain ends, raises, or is
         # closed by drive_chains after a sibling chain raised
@@ -248,50 +555,82 @@ class CodecIO:
             with self._scope():
                 z_hat = self._upload(z_sym).float() + self._medians
                 lm, ls = self._hyper(z_hat)
-                mu, index = self._stats(lm, ls, [], 0)
-                index = index.to(torch.uint8)
+                if k:
+                    mu, index = self._stats(lm, ls, [], 0)
+                    index = index.to(torch.uint8)
+                else:
+                    self._fill(lm, ls, y_hats, 0)
             yield
             for i in range(serial):
                 idx_np = _to_host(index)
+                if gate_host is not None and alives[0] is None:
+                    lh, lw, sw = idx_np.shape[1:]
+                    alives = [np.broadcast_to(
+                        np.asarray(gate_host[b], bool).reshape(lh, lw, 1),
+                        (lh, lw, sw)).ravel() for b in range(batch)]
                 syms = list(self._pool.map(
-                    lambda b: self._decode_slice(decoders[b],
-                                                 idx_np[b:b + 1]),
+                    lambda b: self._decode_slice(decoders[b], idx_np[b:b + 1],
+                                                 alives[b]),
                     range(batch)))
                 with self._scope():
                     sym = self._upload(np.concatenate(syms))
-                    y_prev = self._finish(lm, y_hats[:s], sym, mu, i)
-                    y_hats.append(y_prev)
+                    y_hats.append(self._finish(lm, y_hats[:s], sym, mu, i))
                     if i + 1 < serial:
                         mu, index = self._stats(lm, ls, y_hats[:s], i + 1)
                         index = index.to(torch.uint8)
                     elif tail:
                         tail_stats = [self._stats(lm, ls, y_hats[:s], j)
                                       for j in range(s, n)]
-                        idx_tail = torch.stack(
-                            [ix.to(torch.uint8) for _, ix in tail_stats])
+                        idx_tail = torch.stack([ix.to(torch.uint8)
+                                                for _, ix in tail_stats[:tail]])
+                    else:
+                        self._fill(lm, ls, y_hats, k)
                 yield
             if tail:
-                # one fetch for every tail slice's indexes; each image's
+                # one fetch for the tail slices' indexes; each image's
                 # stream decodes its whole tail back to back on a thread
                 idxs_np = np.stack([_to_host(ix) for ix in idx_tail])
 
                 def decode_tail(b):
                     return np.stack([self._decode_slice(
-                        decoders[b], idxs_np[j, b:b + 1]) for j in range(tail)])
+                        decoders[b], idxs_np[j, b:b + 1], alives[b])
+                        for j in range(tail)])
 
                 syms = list(self._pool.map(decode_tail, range(batch)))
                 tail_syms = np.concatenate(syms, axis=1)  # (tail, B, ...)
                 with self._scope():
                     sup = y_hats[:s]
                     for j, (mu_j, _) in enumerate(tail_stats):
-                        y_hats.append(self._finish(
-                            lm, sup, self._upload(tail_syms[j]), mu_j, s + j))
+                        sym = self._upload(tail_syms[j]) if j < tail else None
+                        y_hats.append(self._finish(lm, sup, sym, mu_j, s + j))
                 yield
             with self._scope():
                 return torch.cat(y_hats, dim=1)
         finally:
             for dec in decoders:
                 dec.close()
+
+    def _gate_of(self, compressed: Sequence[dict], mask, rate_gate: bool):
+        """The rate gate of each stream, (B, lh, lw, 1) bool, or None.  A
+        stream's gate is the one it carries; every stream must carry one
+        or none.  Only when none does and the caller passes rate_gate=True
+        is it derived from ``mask`` (safe only for streams coded from that
+        same mask); the constructor's ``rate_gate`` never applies here, so
+        ungated streams are never read as gated."""
+        has = ["gate" in c for c in compressed]
+        if all(has):
+            return np.stack([np.asarray(c["gate"], bool) for c in compressed])
+        if any(has):
+            missing = has.index(False)
+            raise ValueError(f"stream {missing} carries no rate gate while "
+                             f"others do")
+        if not (rate_gate and self.kind == "rgb"):
+            return None
+        if mask is None:
+            raise ValueError("rate-gated streams without a gate need mask=")
+        with self._scope():
+            gate = mask_pyramid(self._nchw(mask))[2] > 0
+        return gate.permute(0, 2, 3, 1).cpu().numpy()
 
     def decode_image(self, y_hat, mask=None, device: bool = False):
         """Synthesis transform of a decoded latent (gated by the mask
@@ -306,20 +645,35 @@ class CodecIO:
             x = torch.clamp(x, 0.0, 1.0).permute(0, 2, 3, 1)
             return x if device else x.cpu().numpy()
 
-    def decompress_batch(self, compressed: Sequence[dict], mask=None,
-                         device: bool = False, tail_parallel: bool = True):
-        """Batched decompress of same-shaped streams: the slice loop runs
-        once for the whole batch, then the synthesis transform."""
+    def _decode_latent(self, compressed, mask, rate_gate, max_slices,
+                       tail_parallel):
+        compressed = list(compressed)
+        gate_host = self._gate_of(compressed, mask, rate_gate)
         (y_hat,) = drive_chains([self.decompress_chain(
-            list(compressed), tail_parallel=tail_parallel)])
+            compressed, gate_host, max_slices, tail_parallel)])
+        return y_hat
+
+    def decompress_batch(self, compressed: Sequence[dict], mask=None,
+                         device: bool = False, rate_gate: bool = False,
+                         max_slices: Optional[int] = None,
+                         tail_parallel: bool = True):
+        """Batched decompress of same-shaped v64 streams: the slice loop
+        runs once for the whole batch, then the synthesis transform.
+        Rate-gated streams decode with the gate they carry; rate_gate=True
+        derives it from ``mask`` for streams that carry none (see
+        ``_gate_of``).  max_slices=k gives the preview."""
+        y_hat = self._decode_latent(compressed, mask, rate_gate, max_slices,
+                                    tail_parallel)
         return self.decode_image(y_hat, mask=mask, device=device)
 
     def decompress_batch_with_latent(self, compressed: Sequence[dict],
-                                     mask=None, tail_parallel: bool = True):
+                                     mask=None, rate_gate: bool = False,
+                                     max_slices: Optional[int] = None,
+                                     tail_parallel: bool = True):
         """decompress_batch that also returns the decoded latent y_hat
         (host arrays: NHWC x_hat, NCHW y_hat)."""
-        (y_hat,) = drive_chains([self.decompress_chain(
-            list(compressed), tail_parallel=tail_parallel)])
+        y_hat = self._decode_latent(compressed, mask, rate_gate, max_slices,
+                                    tail_parallel)
         return (self.decode_image(y_hat, mask=mask),
                 y_hat.float().cpu().numpy())
 

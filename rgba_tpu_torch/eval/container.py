@@ -21,10 +21,12 @@ One self-describing blob holds both codecs' streams.  Layout
   version 3: each codec's y section is "u16 lane count || lane stream"
   and its z section is empty.
 
-``pack_rgba``/``unpack_rgba`` handle every version.  ``RGBAFileCodec``
-encodes version 1 and decodes version 1; a version-2 (rate-gated) or
-version-3 (lane) blob raises NotImplementedError: those decoders come with
-later slices of the port.
+``pack_rgba``/``unpack_rgba`` handle every version, and so does
+``RGBAFileCodec``: it encodes and decodes versions 1 and 2 through the
+host-coded v64 chains (a version-2 blob decodes with the gate it ships,
+never one derived again), and version 3 through ``decompress_device``,
+where the card decodes the lane streams of both codecs itself.
+``decode(max_slices=k)`` gives the progressive preview of the RGB stream.
 """
 
 from __future__ import annotations
@@ -157,14 +159,19 @@ class RGBAFileCodec:
         self.device = rgb_io.device
 
     def encode(self, image: np.ndarray, alpha: np.ndarray,
-               bbox: bool = False) -> bytes:
+               bbox: bool = False, rate_gate: bool = False,
+               deadzone: float = 0.0, stream_format: str = "v64") -> bytes:
         """image: (1, H, W, 3); alpha: (1, H, W, 1); float32 in [0, 1] or
         uint8."""
-        return self.encode_batch(image, alpha, bbox=bbox)[0]
+        return self.encode_batch(image, alpha, bbox=bbox, rate_gate=rate_gate,
+                                 deadzone=deadzone,
+                                 stream_format=stream_format)[0]
 
-    def decode(self, blob: bytes, output: str = "float32") -> np.ndarray:
-        """Returns (1, H, W, 4) RGBA."""
-        return self.decode_batch([blob], output=output)
+    def decode(self, blob: bytes, output: str = "float32",
+               max_slices: int | None = None) -> np.ndarray:
+        """Returns (1, H, W, 4) RGBA; max_slices=k decodes a preview (see
+        ``decode_batch``)."""
+        return self.decode_batch([blob], output=output, max_slices=max_slices)
 
     def _recon_alpha(self, rm_sub, b, h, w, hp, wp, rows):
         """The decoded alphas of images ``rows`` (8-bit, constraint_rgb)
@@ -179,13 +186,20 @@ class RGBAFileCodec:
         return rm
 
     def encode_batch(self, images: np.ndarray, alphas: np.ndarray,
-                     bbox: bool = False) -> list[bytes]:
+                     bbox: bool = False, rate_gate: bool = False,
+                     deadzone: float = 0.0,
+                     stream_format: str = "v64") -> list[bytes]:
         """Compress B same-shaped RGBA images, one batched device pass per
-        stage; returns one version-1 container per image.  uint8 inputs
-        are turned into floats on the card.  Any H, W: the images are
-        padded to the /64 grid with transparent pixels, and decode crops
-        back.  bbox=True crops the batch to the union alpha bounding box
-        first; the container records the canvas and the offset."""
+        stage; returns one container per image.  uint8 inputs are turned
+        into floats on the card.  Any H, W: the images are padded to the
+        /64 grid with transparent pixels, and decode crops back.  bbox=True
+        crops the batch to the union alpha bounding box first; the
+        container records the canvas and the offset.  rate_gate=True codes
+        no RGB latent where the decoded alpha's /8 pool is 0 and ships the
+        gate (version 2); deadzone > 0 widens the RGB quantizer's zero bin
+        (no header flag: any decoder reads it); stream_format="lanes32"
+        writes lane streams for both codecs (version 3), decoded on the
+        card."""
         images, alphas = np.asarray(images), np.asarray(alphas)
         b, h, w = images.shape[:3]
         crop = None
@@ -209,59 +223,79 @@ class RGBAFileCodec:
             pad = ((0, 0), (0, hp - h), (0, wp - w), (0, 0))
             images, alphas = np.pad(images, pad), np.pad(alphas, pad)
 
+        lanes32 = stream_format == "lanes32"
         with torch.inference_mode():
             x_dev = self.rgb_io._nchw(images).permute(0, 2, 3, 1)
             a_dev = self.rgb_io._nchw(alphas).permute(0, 2, 3, 1)
             mask_comps: dict[int, dict] = {}
             rm_sub = None
             if non_op:
-                comps = self.mask_io.compress_batch(mask=a_dev[non_op])
-                rm_sub = self.mask_io.decompress_batch(comps, device=True)
+                comps = self.mask_io.compress_batch(
+                    mask=a_dev[non_op], stream_format=stream_format)
+                rm_sub = (self.mask_io.decompress_device(comps) if lanes32
+                          else self.mask_io.decompress_batch(comps,
+                                                             device=True))
                 mask_comps = dict(zip(non_op, comps))
             recon = self._recon_alpha(rm_sub, b, h, w, hp, wp, non_op)
             masked = torch.where(recon > 0, x_dev, recon)
-        rgb_comps = self.rgb_io.compress_batch(image=masked, mask=recon)
+        rgb_comps = self.rgb_io.compress_batch(
+            image=masked, mask=recon, rate_gate=rate_gate, deadzone=deadzone,
+            stream_format=stream_format)
         return [pack_rgba(h, w, rgb_comps[i], mask_comps.get(i), crop)
                 for i in range(b)]
 
-    def decode_batch(self, blobs: list[bytes],
-                     output: str = "float32") -> np.ndarray:
-        """Decode B same-shaped version-1 blobs; returns (B, H, W, 4)
-        RGBA, float32 in [0, 1] or, with output="uint8", 8-bit."""
+    def decode_batch(self, blobs: list[bytes], output: str = "float32",
+                     max_slices: int | None = None) -> np.ndarray:
+        """Decode B same-shaped blobs of one container version; returns
+        (B, H, W, 4) RGBA, float32 in [0, 1] or, with output="uint8",
+        8-bit.  Versions 1 and 2 run the mask and RGB slice chains together
+        (``drive_chains``), the RGB chain of a version-2 blob with the gate
+        it ships; version 3 decodes both codecs' lane streams on the card
+        (``decompress_device``).  max_slices=k decodes the first k of the
+        RGB codec's slices and mean-fills the rest; the alpha is always
+        decoded in full (the RGB synthesis needs the exact alpha the
+        encoder used)."""
         if output not in ("float32", "uint8"):
             raise ValueError(f"output must be 'float32' or 'uint8', got "
                              f"{output!r}")
         metas = [unpack_rgba(blob) for blob in blobs]
-        for m in metas:
-            if m["rate_gated"]:
-                raise NotImplementedError(
-                    "rate-gated (version 2) containers decode in a later "
-                    "slice of the port (rate gate, ROADMAP queue 1 item 6)")
-            if m["stream_format"] == "lanes32":
-                raise NotImplementedError(
-                    "lane-stream (version 3) containers decode in a later "
-                    "slice of the port (lane codec, ROADMAP queue 2 item 6)")
         h, w = metas[0]["height"], metas[0]["width"]
         crop = metas[0]["crop"]
         if any((m["height"], m["width"], m["crop"]) != (h, w, crop)
                for m in metas):
             raise ValueError("decode_batch requires same-sized images with "
                              "identical crop placements")
+        kind = (metas[0]["stream_format"], metas[0]["rate_gated"])
+        if any((m["stream_format"], m["rate_gated"]) != kind for m in metas):
+            raise ValueError("decode_batch requires blobs of one container "
+                             "version")
         b = len(metas)
         zh, zw = metas[0]["rgb"]["shape"]
         hp, wp = zh * 64, zw * 64
 
         with_mask = [i for i, m in enumerate(metas) if m["mask"] is not None]
-        chains = [self.rgb_io.decompress_chain([m["rgb"] for m in metas])]
-        if with_mask:
-            chains.append(self.mask_io.decompress_chain(
-                [metas[i]["mask"] for i in with_mask]))
-        outs = drive_chains(chains)
-        rm_sub = (self.mask_io.decode_image(outs[1], device=True)
-                  if with_mask else None)
-        with torch.inference_mode():
-            recon = self._recon_alpha(rm_sub, b, h, w, hp, wp, with_mask)
+        rgbs = [m["rgb"] for m in metas]
+        masks = [metas[i]["mask"] for i in with_mask]
+        if kind[0] == "lanes32":
+            rm_sub = (self.mask_io.decompress_device(masks)
+                      if with_mask else None)
+            with torch.inference_mode():
+                recon = self._recon_alpha(rm_sub, b, h, w, hp, wp, with_mask)
+            rgb = self.rgb_io.decompress_device(rgbs, mask=recon,
+                                                max_slices=max_slices)
+        else:
+            gate = (np.stack([r["gate"] for r in rgbs]) if kind[1] else None)
+            chains = [self.rgb_io.decompress_chain(rgbs, gate_host=gate,
+                                                   max_slices=max_slices)]
+            if with_mask:
+                chains.append(self.mask_io.decompress_chain(masks))
+            outs = drive_chains(chains)
+            rm_sub = (self.mask_io.decode_image(outs[1], device=True)
+                      if with_mask else None)
+            with torch.inference_mode():
+                recon = self._recon_alpha(rm_sub, b, h, w, hp, wp, with_mask)
             rgb = self.rgb_io.decode_image(outs[0], mask=recon, device=True)
+        with torch.inference_mode():
             rgba = torch.cat([rgb[:, :h, :w], recon[:, :h, :w]], dim=-1)
             if output == "uint8":
                 rgba = torch.round(rgba * 255.0).to(torch.uint8)

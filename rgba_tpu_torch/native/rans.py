@@ -3,8 +3,10 @@
 Port of ``rgba_tpu/native/rans.py`` (the 64-bit streams, "v64"): the card
 produces int32 symbols and CDF-row indexes, and this module turns them into
 bytes on the CPU and back.  ``RansDecoder`` streams one byte string slice
-by slice for the channel-autoregressive decode.  The lane entry points of
-``rans.cpp`` (the device-decodable format) are not bound yet.
+by slice for the channel-autoregressive decode.  ``encode_lanes`` /
+``decode_lanes`` code the lane format ("lanes32": L interleaved 32-bit
+rANS lanes per image, see ``entropy/device_rans.py``), which the card
+decodes itself (``ops/kernels/rans_decode.py``).
 
 g++ builds the library at first use into ``<repo>/build/native/`` under a
 name that carries a digest of the source, the flags and the host CPU's
@@ -95,6 +97,17 @@ def _get_lib() -> ctypes.CDLL:
         lib.rans_decode_with_indexes.argtypes = [
             u8p, ctypes.c_int64, i32p, ctypes.c_int64, i32p, ctypes.c_int,
             ctypes.c_int, i32p, i32p, i32p]
+        i64p = ctypes.POINTER(ctypes.c_int64)
+        u16p = ctypes.POINTER(ctypes.c_uint16)
+        lib.rans32_encode_lanes.restype = ctypes.c_int64
+        lib.rans32_encode_lanes.argtypes = [
+            i32p, i32p, u8p, i64p, ctypes.c_int32, ctypes.c_int64,
+            ctypes.c_int32, i32p, ctypes.c_int, i32p, i32p, u16p,
+            ctypes.c_int64, i32p]
+        lib.rans32_decode_lanes.restype = ctypes.c_int
+        lib.rans32_decode_lanes.argtypes = [
+            u16p, i32p, i32p, u8p, i64p, ctypes.c_int32, ctypes.c_int64,
+            ctypes.c_int32, i32p, ctypes.c_int, i32p, i32p, i32p]
         _lib = lib
         return lib
 
@@ -172,6 +185,91 @@ def decode_with_indexes(data: bytes, indexes, cdfs, cdf_lengths,
         _ptr(out, ctypes.c_int32))
     if rc != 0:
         raise RuntimeError(f"rans decode failed: {rc}")
+    return out.reshape(shape)
+
+
+def _segments(seg_ends, n: int) -> np.ndarray:
+    seg_ends = np.ascontiguousarray(seg_ends, dtype=np.int64).ravel()
+    if seg_ends.size == 0 or seg_ends[-1] != n or \
+            (np.diff(seg_ends, prepend=0) < 0).any():
+        raise ValueError(f"segment ends {seg_ends.tolist()[:8]} must rise "
+                         f"to the symbol count {n}")
+    return seg_ends
+
+
+def _alive(alive, n: int):
+    """uint8 alive mask (or None) and its ctypes pointer."""
+    if alive is None:
+        return None, None
+    alive = np.ascontiguousarray(alive, dtype=np.uint8).ravel()
+    if alive.size != n:
+        raise ValueError(f"{alive.size} alive flags for {n} symbols")
+    return alive, _ptr(alive, ctypes.c_uint8)
+
+
+def encode_lanes(symbols, indexes, seg_ends, lanes: int, cdfs, cdf_lengths,
+                 offsets, alive=None) -> tuple:
+    """Encode one flat symbol sequence, cut into segments at ``seg_ends``,
+    into ``lanes`` interleaved 32-bit rANS lanes.  Within a segment,
+    position p goes to lane p % lanes; positions whose ``alive`` flag is 0
+    are not coded.  Returns (words uint16, lane_nwords int32): every lane's
+    words in decode order, lane after lane, and each lane's word count."""
+    lib = _get_lib()
+    symbols = _i32(symbols).ravel()
+    indexes = _i32(indexes).ravel()
+    cdfs, cdf_lengths, offsets = _tables(cdfs, cdf_lengths, offsets)
+    if symbols.shape != indexes.shape:
+        raise ValueError(f"{symbols.size} symbols but {indexes.size} indexes")
+    if lanes < 1:
+        raise ValueError(f"lanes must be at least 1, got {lanes}")
+    _check_indexes(indexes, cdfs.shape[0])
+    seg_ends = _segments(seg_ends, symbols.size)
+    alive, alive_p = _alive(alive, symbols.size)
+    cap = symbols.size * 3 + 4 * lanes + 64
+    out = np.zeros(cap, dtype=np.uint16)
+    lane_nwords = np.zeros(lanes, dtype=np.int32)
+    n = lib.rans32_encode_lanes(
+        _ptr(symbols, ctypes.c_int32), _ptr(indexes, ctypes.c_int32),
+        alive_p, _ptr(seg_ends, ctypes.c_int64), seg_ends.size,
+        symbols.size, lanes, _ptr(cdfs, ctypes.c_int32), cdfs.shape[1],
+        _ptr(cdf_lengths, ctypes.c_int32), _ptr(offsets, ctypes.c_int32),
+        _ptr(out, ctypes.c_uint16), cap, _ptr(lane_nwords, ctypes.c_int32))
+    if n == -1:
+        raise RuntimeError("rans32 encode buffer overflow")
+    if n < 0:
+        raise RuntimeError(f"rans32_encode_lanes failed: {n}")
+    return out[:n].copy(), lane_nwords
+
+
+def decode_lanes(words, lane_nwords, indexes, seg_ends, cdfs, cdf_lengths,
+                 offsets, alive=None) -> np.ndarray:
+    """Decode a lane stream on the host (the C++ twin of the card's
+    decoder); positions whose ``alive`` flag is 0 decode as 0.  Each lane
+    reads no word past its own end."""
+    lib = _get_lib()
+    words = np.ascontiguousarray(words, dtype=np.uint16).ravel()
+    lane_nwords = _i32(lane_nwords).ravel()
+    indexes = _i32(indexes)
+    shape = indexes.shape
+    flat = indexes.ravel()
+    cdfs, cdf_lengths, offsets = _tables(cdfs, cdf_lengths, offsets)
+    _check_indexes(flat, cdfs.shape[0])
+    if lane_nwords.size < 1 or lane_nwords.min() < 2 or \
+            int(lane_nwords.sum()) > words.size:
+        raise ValueError(f"lane word counts (sum {int(lane_nwords.sum())}, "
+                         f"each at least 2) do not fit {words.size} words")
+    seg_ends = _segments(seg_ends, flat.size)
+    alive, alive_p = _alive(alive, flat.size)
+    out = np.zeros(flat.size, dtype=np.int32)
+    rc = lib.rans32_decode_lanes(
+        _ptr(words, ctypes.c_uint16), _ptr(lane_nwords, ctypes.c_int32),
+        _ptr(flat, ctypes.c_int32), alive_p,
+        _ptr(seg_ends, ctypes.c_int64), seg_ends.size, flat.size,
+        lane_nwords.size, _ptr(cdfs, ctypes.c_int32), cdfs.shape[1],
+        _ptr(cdf_lengths, ctypes.c_int32), _ptr(offsets, ctypes.c_int32),
+        _ptr(out, ctypes.c_int32))
+    if rc != 0:
+        raise RuntimeError(f"rans32_decode_lanes failed: {rc}")
     return out.reshape(shape)
 
 

@@ -21,10 +21,11 @@ from ..core.precision import Policy, batch_invariant
 
 
 def per_image(fn, x):
-    """fn(x), or inside ``batch_invariant_scope`` on the card fn of each
-    image on its own: cuDNN picks a convolution's algorithm, and so its sum
-    order, by the batch size among the rest of the shape."""
-    if batch_invariant() and x.is_cuda and x.shape[0] > 1:
+    """fn(x), or inside ``batch_invariant_scope`` fn of each image on its
+    own: cuDNN on the card and oneDNN on the CPU pick a convolution's
+    algorithm, and so its sum order, by the batch size among the rest of
+    the shape."""
+    if batch_invariant() and x.shape[0] > 1:
         return torch.cat([fn(x[i:i + 1]) for i in range(x.shape[0])])
     return fn(x)
 

@@ -22,7 +22,7 @@ torch = pytest.importorskip("torch")
 from rgba_tpu_torch.core.precision import SERVE_POLICY  # noqa: E402
 from rgba_tpu_torch.data.synthetic import synthetic_rgba_batch  # noqa: E402
 from rgba_tpu_torch.models.pipeline import RGBAPipeline  # noqa: E402
-from rgba_tpu_torch.ops.kernels import dse, gate_chain, gdn, win_attn  # noqa: E402
+from rgba_tpu_torch.ops.kernels import dse, gate_chain, gdn, rans_decode, win_attn  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -495,6 +495,170 @@ def test_codec_round_trip_on_the_card(card):
                            mask_pyramid(recon))
         want = torch.clamp(fwd["x_hat"], 0, 1).permute(0, 2, 3, 1).cpu().numpy()
     np.testing.assert_allclose(dec[..., :3], want, atol=1e-5)
+
+
+# ------------------------------------------------------------ rANS decode
+
+
+def _lane_case(dev, path, batch=3, lanes=64, n=9000, seed=0):
+    """Lane streams of ``batch`` images (two segments, gated positions,
+    bypass escapes), packed on ``dev``; the tables, the inverse (path
+    "inverse") and the expected symbols."""
+    import numpy as np
+    from rgba_tpu_torch.entropy import device_rans as dr
+    from rgba_tpu_torch.entropy.gaussian import GaussianConditional, get_scale_table
+    from rgba_tpu_torch.native import rans
+
+    gc = GaussianConditional(get_scale_table())
+    gc.update()
+    tables = dr.pack_tables(gc.quantized_cdfs, gc.cdf_lengths, gc.offsets)
+    rng = np.random.RandomState(seed)
+    seg_ends = np.array([n // 3, n], np.int64)
+    per, want, idxs, alives = [], [], [], []
+    for _ in range(batch):
+        idx = rng.randint(0, 64, n).astype(np.int32)
+        sym = rng.randint(-6, 7, n).astype(np.int32)
+        sym[::37] = rng.randint(-3000, 3000, sym[::37].size)
+        alive = rng.rand(n) > 0.25
+        words, lnw = rans.encode_lanes(sym, idx, seg_ends, lanes,
+                                       tables["cdfs"], tables["max_values"] + 2,
+                                       tables["offsets"], alive=alive)
+        per.append((words, lnw))
+        want.append(np.where(alive, sym, 0))
+        idxs.append(idx)
+        alives.append(alive)
+    flat, base, end = dr.pack_streams(per, lanes)
+    t = {k: torch.from_numpy(v).to(dev) for k, v in tables.items()}
+    inv = None
+    if path == "inverse":
+        inv = {k: torch.from_numpy(v).to(dev) for k, v in
+               dr.build_inverse(gc.quantized_cdfs, gc.cdf_lengths).items()}
+    segs = []
+    for a, b in zip([0, *seg_ends[:-1]], seg_ends):
+        ii = torch.from_numpy(np.stack([i[a:b] for i in idxs])).to(dev)
+        aa = torch.from_numpy(np.stack([x[a:b] for x in alives])).to(dev)
+        segs.append((dr.to_steps(ii, lanes), dr.to_steps(aa, lanes, fill=False),
+                     int(b - a)))
+    return dict(words=dr.words_tensor(flat, dev),
+                base=torch.from_numpy(base).to(dev),
+                end=torch.from_numpy(end).to(dev), tables=t, inverse=inv,
+                segs=segs, want=np.stack(want), lanes=lanes)
+
+
+def _run_lanes(case, fn, words=None):
+    from rgba_tpu_torch.entropy import device_rans as dr
+    words = case["words"] if words is None else words
+    state, ptr = dr.init_lanes(words, case["base"])
+    out = []
+    for idx, act, n in case["segs"]:
+        syms, state, ptr = fn(case["tables"], words, state, ptr, idx, act,
+                              case["end"], inverse=case["inverse"])
+        out.append(dr.from_steps(syms, n))
+    torch.cuda.synchronize()
+    return torch.cat(out, dim=-1), state, ptr
+
+
+@pytest.mark.parametrize("path", ["inverse", "row_search"])
+def test_rans_decode_matches_plain_and_the_host(card, path):
+    """The kernel gives the plain version's symbols, state and pointer bit
+    for bit, and the host coder's symbols; one launch per segment; a word
+    flipped in the stream changes the symbols, and kernel and plain still
+    agree on it (each lane reads no word past its end)."""
+    import numpy as np
+    case = _lane_case(card, path)
+    before = rans_decode.KERNEL.launches
+    got = _run_lanes(case, rans_decode.rans_decode)
+    assert rans_decode.KERNEL.launches - before == len(case["segs"])
+    want = _run_lanes(case, rans_decode.rans_decode_plain)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w.cpu())
+    np.testing.assert_array_equal(got[0].cpu().numpy(), case["want"])
+    assert torch.equal(got[2].cpu(), case["end"].cpu())
+    bad = case["words"].clone()
+    bad[int(case["base"][1, 5]) + 1] ^= 0x2AAA
+    flipped = _run_lanes(case, rans_decode.rans_decode, bad)
+    assert not torch.equal(flipped[0], got[0])
+    plain = _run_lanes(case, rans_decode.rans_decode_plain, bad)
+    for g, w in zip(flipped, plain):
+        assert torch.equal(g.cpu(), w.cpu())
+
+
+def test_rans_decode_refuses_bad_arguments(card):
+    case = _lane_case(card, "inverse", batch=1, n=500)
+    from rgba_tpu_torch.entropy import device_rans as dr
+    state, ptr = dr.init_lanes(case["words"], case["base"])
+    idx, act, _ = case["segs"][0]
+    with pytest.raises(TypeError, match="state"):
+        rans_decode.rans_decode(case["tables"], case["words"], state.int(), ptr,
+                                idx, act, case["end"])
+    with pytest.raises(ValueError, match="indexes"):
+        rans_decode.rans_decode(case["tables"], case["words"], state, ptr,
+                                idx[:, :, :3], act, case["end"])
+    with pytest.raises(ValueError, match="device"):
+        rans_decode.rans_decode(case["tables"], case["words"], state, ptr,
+                                idx.cpu(), act, case["end"])
+
+
+def test_lane_codec_round_trip_on_the_card(card):
+    """Version-3 containers, fp32 with all kernels: the decode launches the
+    rANS kernel once per segment (1 + 10 RGB, 1 + 5 mask), re-encodes byte
+    for byte, decodes alone as in the batch and gives the v1 decode."""
+    import numpy as np
+    from rgba_tpu_torch.core.precision import DEFAULT_POLICY
+    from rgba_tpu_torch.eval.codec_io import CodecIO
+    from rgba_tpu_torch.eval.container import RGBAFileCodec
+
+    pipe = RGBAPipeline(_all_kernels(DEFAULT_POLICY), seed=0)
+    codec = RGBAFileCodec(CodecIO(pipe.rgb_codec, "rgb"),
+                          CodecIO(pipe.mask_codec, "mask"))
+    d = synthetic_rgba_batch(2, 64, 128, seed=1)
+    img = np.round(d["image"] * 255).astype(np.uint8)
+    alpha = np.round(d["alpha"] * 255).astype(np.uint8)
+    blobs = codec.encode_batch(img, alpha, stream_format="lanes32")
+    before = rans_decode.KERNEL.launches
+    dec = codec.decode_batch(blobs)
+    assert rans_decode.KERNEL.launches - before == 17
+    assert codec.encode_batch(img, alpha, stream_format="lanes32") == blobs
+    assert np.array_equal(codec.decode_batch(blobs[:1])[0], dec[0])
+    assert np.array_equal(codec.decode_batch(codec.encode_batch(img, alpha)),
+                          dec)
+    before = rans_decode.KERNEL.launches
+    codec.decode_batch(blobs, max_slices=3)
+    assert rans_decode.KERNEL.launches - before == 6 + 4
+
+
+def test_gated_lane_codec_on_the_card(card):
+    """Rate-gated version-3 containers whose gate closes cells: 48x112
+    images padded to the /64 grid, the first opaque (its decoded alpha is
+    0 in the padding).  The kernel's active flags come from the shipped
+    gate: the decode re-encodes byte for byte, decodes alone as in the
+    batch and equals the gated version-2 decode."""
+    import numpy as np
+    from rgba_tpu_torch.core.precision import DEFAULT_POLICY
+    from rgba_tpu_torch.eval.codec_io import CodecIO
+    from rgba_tpu_torch.eval.container import RGBAFileCodec, unpack_rgba
+
+    pipe = RGBAPipeline(_all_kernels(DEFAULT_POLICY), seed=0)
+    codec = RGBAFileCodec(CodecIO(pipe.rgb_codec, "rgb"),
+                          CodecIO(pipe.mask_codec, "mask"))
+    d = synthetic_rgba_batch(2, 64, 128, seed=1)
+    img = np.round(d["image"][:, :48, :112] * 255).astype(np.uint8)
+    alpha = np.round(d["alpha"][:, :48, :112] * 255).astype(np.uint8)
+    alpha[0] = 255
+    v3 = codec.encode_batch(img, alpha, rate_gate=True,
+                            stream_format="lanes32")
+    gate = np.stack([unpack_rgba(b)["rgb"]["gate"] for b in v3])
+    assert not gate[0].all()
+    before = rans_decode.KERNEL.launches
+    dec = codec.decode_batch(v3)
+    assert rans_decode.KERNEL.launches - before == 17
+    assert codec.encode_batch(img, alpha, rate_gate=True,
+                              stream_format="lanes32") == v3
+    assert np.array_equal(codec.decode_batch(v3[:1])[0], dec[0])
+    v2 = codec.encode_batch(img, alpha, rate_gate=True)
+    assert np.array_equal(np.stack([unpack_rgba(b)["rgb"]["gate"]
+                                    for b in v2]), gate)
+    assert np.array_equal(codec.decode_batch(v2), dec)
 
 
 # ------------------------------------------------------------- training

@@ -2,10 +2,10 @@
 
 Encoder and decoder recompute the CDF indexes apart, so an image's result
 must not depend on the batch it runs in: a blob must decode the same alone
-or in any batch.  cuDNN picks a convolution's algorithm by the batch size,
-and an fp32 sum in another order can move a CDF index, so inside the scope
-the convolutions (``ops.conv.per_image``) run each image of a CUDA batch
-on their own.  The card test ``test_codec_round_trip_on_the_card`` and
+or in any batch.  cuDNN (oneDNN on the CPU) picks a convolution's
+algorithm by the batch size, and an fp32 sum in another order can move a
+CDF index, so inside the scope the convolutions (``ops.conv.per_image``)
+run each image of a batch on their own.  The card test ``test_codec_round_trip_on_the_card`` and
 chip_smoke.py decode blobs apart against their batch; here the scope's
 plumbing is checked.
 """

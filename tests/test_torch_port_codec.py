@@ -372,14 +372,6 @@ def test_rgba_file_codec_round_trip_bbox(ios):
     np.testing.assert_array_equal(np.round(f2 * 255).astype(np.uint8), out2)
 
 
-@pytest.mark.parametrize("kind", ["rate_gated", "lanes32"])
-def test_rgba_file_codec_refuses_later_slice_versions(ios, kind):
-    rgb, mask, _ = _sections()["v2" if kind == "rate_gated" else "v3"]
-    blob = tcontainer.pack_rgba(64, 64, rgb, mask)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        RGBAFileCodec(*ios).decode(blob)
-
-
 def test_codec_io_needs_a_known_kind(pipe):
     with pytest.raises(ValueError, match="kind"):
         CodecIO(pipe.rgb_codec, "alpha")
