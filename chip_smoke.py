@@ -51,7 +51,27 @@ failure:
    against v64 and one profiled v3 decode.  Rate-gated containers
    (version 2): byte-identical re-encode, blob 0 alone, real bpp beside
    version 1's.  Previews at max_slices 0, 5 and 10 (10 equal to the full
-   decode, 5 the same for v3 as for v64);
+   decode, 5 the same for v3 as for v64).  The throughput options:
+   ``PipelinedCodec`` round trips (depth 2) of 4 batches from seeds 10-13
+   against the serial loop (depth 1), v64 and v3, byte-identical blobs,
+   equal decodes and the same launches per batch, images/s of each;
+   ``decode_batch`` of 8 blobs with interleave 1 and 2 (equal, images/s);
+   a bucketed encode of the 496x752 images on a 576x832 canvas (decodes to
+   496x752, re-encodes byte for byte, blob 0 alone as in the batch, bpp
+   beside the minimal canvas's); the v64 encode's whole-batch fetch of
+   symbols and indexes (ms) beside the encode's wall.  The device lane
+   encode (``RGBA_TPU_DEVICE_ENCODE=1``, the ``rans_encode`` kernel): (a)
+   on the model with the encoders' gain at 3 (under the word budget): blobs
+   byte-identical to the host coder's, 17 launches (1 + 10 RGB, 1 + 5
+   mask), no overflow, every segment's state, pointer and words equal to
+   the plain ``encode_segment``, every RGB stream equal to the host C++
+   ``encode_lanes``, a changed symbol changes the words; the kernel's ms
+   per launch (RGB y slice 0 and z) with its bound, the plain version's
+   and the host coder's, v3 encode images/s of the device and host
+   routes; (b) on the live weights (21 bpp): the RGB lanes overflow their
+   budget and the card codes the segments again with room for the
+   longest lane (11 launches more, 6 more if the mask codec's lanes
+   overflow too), to the host coder's bytes;
 5. train: the full-width codecs on synthetic 256x256 RGBA at batch 8
    (train_lambda 1024, aux_lr 1e-3, no curriculum).  First each kernel
    against its plain version, as in phase 2, at the shapes this path gives
@@ -82,7 +102,8 @@ failure:
 
 The line before the last is one JSON object with every kernel's numbers
 (the four conv kernels' headline cases are bf16 forward shapes; the
-``rans_decode`` entry's are the first y slice of the v3 RGB decode);
+``rans_decode`` entry's are the first y slice of the v3 RGB decode, the
+``rans_encode`` entry's that of the device v3 encode);
 the last line is {"ok": true, "device": {...}}.  Without CUDA, or without
 the rest of the repository beside it, the script exits non-zero and prints
 no result.
@@ -470,7 +491,7 @@ def dse_cases(torch, batch: int, iters: int, h: int = 512, w: int = 768):
     return cases
 
 
-def _liven(torch, pipe, seed: int = 1) -> None:
+def _liven(torch, pipe, seed: int = 1, gain: float = 10.0) -> None:
     """Random init leaves the latents within one quantization bin of the
     prior's mean (std ~0.05) and x_hat below 0, so every rate is the same
     constant and the clipped output is all 0.  Seeded bias noise, the DSE
@@ -484,8 +505,8 @@ def _liven(torch, pipe, seed: int = 1) -> None:
                 p.add_((0.02 * torch.randn(p.shape, generator=g)).to(p.device))
             if name.endswith("output_conv.bias"):
                 p.fill_(0.5)
-        pipe.rgb_codec.Encoder.x4.weight.mul_(10.0)
-        pipe.mask_codec.EncoderMask[7].weight.mul_(10.0)
+        pipe.rgb_codec.Encoder.x4.weight.mul_(gain)
+        pipe.mask_codec.EncoderMask[7].weight.mul_(gain)
 
 
 def profile_run(torch, fn, what: str, top: int = 15) -> dict:
@@ -523,12 +544,13 @@ def profile_run(torch, fn, what: str, top: int = 15) -> dict:
 
 
 KERNEL_NAMES = ("fused_window_attention", "fused_gdn", "fused_gate_chain",
-                "fused_dse", "rans_decode")
+                "fused_dse", "rans_decode", "rans_encode")
 CONV_KERNELS = KERNEL_NAMES[:4]
 
 
-def _launch_counts(attn, gdn, gate_chain, dse, rans=0):
-    return dict(zip(KERNEL_NAMES, (attn, gdn, gate_chain, dse, rans)))
+def _launch_counts(attn, gdn, gate_chain, dse, rans=0, rans_encode=0):
+    return dict(zip(KERNEL_NAMES, (attn, gdn, gate_chain, dse, rans,
+                                   rans_encode)))
 
 
 FORWARD_LAUNCHES = _launch_counts(4, 12, 8, 2)
@@ -539,6 +561,10 @@ CODEC_LAUNCHES = _launch_counts(4, 15, 10, 3)
 LANE_ENCODE_RANS, LANE_DECODE_RANS = 6, 17
 LANE_LAUNCHES = _launch_counts(4, 15, 10, 3,
                                LANE_ENCODE_RANS + LANE_DECODE_RANS)
+# the device lane encode of a v3 container (RGBA_TPU_DEVICE_ENCODE=1): 1 + 10
+# RGB and 1 + 5 mask segments
+LANE_ENCODE_SEGMENTS = 17
+ENCODE_GAIN = 3.0   # encode_phase (a): the encoders' gain (_liven's is 10)
 # one training forward + backward (the backward launches no kernel)
 MAX_FLIPS = 2      # latents the two fp32 routes may round apart (train phase)
 RGB_STEP_LAUNCHES = _launch_counts(4, 6, 4, 1)
@@ -548,10 +574,10 @@ TRAIN_BATCH, TRAIN_SIZE, TRAIN_STEPS = 8, 256, 20
 
 def _kernels():
     from rgba_tpu_torch.ops.kernels import (dse, gate_chain, gdn, rans_decode,
-                                            win_attn)
+                                            rans_encode, win_attn)
     return dict(zip(KERNEL_NAMES, (win_attn.KERNEL, gdn.KERNEL,
                                    gate_chain.KERNEL, dse.KERNEL,
-                                   rans_decode.KERNEL)))
+                                   rans_decode.KERNEL, rans_encode.KERNEL)))
 
 
 def _all_kernels(policy):
@@ -775,13 +801,17 @@ def codec_phase(torch, batch: int, iters: int) -> dict:
     lanes = lane_phase(torch, codec, img, alpha, blobs, dec, iters)
     options = options_phase(torch, codec, img, alpha, blobs, dec)
     gated = gated_phase(torch, codec, img, alpha)
+    print("codec throughput options (same codec):")
+    throughput = throughput_phase(torch, codec, img, blobs)
+    print("device lane encode (RGBA_TPU_DEVICE_ENCODE=1):")
+    encode = encode_phase(torch, codec, img, alpha, iters)
     for c in codecs.values():
         c.rgb_io.close()
         c.mask_io.close()
     return {"launches": launches, "bpp": bpp, "bytes": nbytes,
             "forward_match": forward_match, "img_per_s": img_s,
             "profile": profile, "lanes": lanes, "options": options,
-            "gated": gated}
+            "gated": gated, "throughput": throughput, "encode": encode}
 
 
 @contextlib.contextmanager
@@ -1057,6 +1087,17 @@ def options_phase(torch, codec, img, alpha, blobs_v64, dec_v64) -> dict:
             "gated_share": float(1 - gate.mean()), "previews": previews}
 
 
+def _cut_images(img, alpha):
+    """The images less 16 rows and columns (512x768 -> 496x752), the first
+    half of the batch opaque."""
+    import numpy as np
+    h, w = img.shape[1] - 16, img.shape[2] - 16
+    img_c = np.ascontiguousarray(img[:, :h, :w])
+    alpha_c = np.array(alpha[:, :h, :w])
+    alpha_c[:img.shape[0] // 2] = 255
+    return img_c, alpha_c
+
+
 def gated_phase(torch, codec, img, alpha) -> dict:
     """The rate gate where cells really close.  The images lose 16 rows
     and columns (512x768 -> 496x752), so the /64 grid pads them with 16
@@ -1070,10 +1111,8 @@ def gated_phase(torch, codec, img, alpha) -> dict:
     import numpy as np
     from rgba_tpu_torch.eval.container import unpack_rgba
 
-    batch, h, w = img.shape[0], img.shape[1] - 16, img.shape[2] - 16
-    img_c = np.ascontiguousarray(img[:, :h, :w])
-    alpha_c = np.array(alpha[:, :h, :w])
-    alpha_c[:batch // 2] = 255
+    img_c, alpha_c = _cut_images(img, alpha)
+    batch, h, w = img_c.shape[:3]
     res, decs, gates = {}, {}, {}
     for name, fmt, rans_want in (("v2", "v64", 0),
                                  ("v3", "lanes32", LANE_DECODE_RANS)):
@@ -1117,6 +1156,388 @@ def gated_phase(torch, codec, img, alpha) -> dict:
                              "decode of the same images")
     print("  gated v3 decode equal to the gated v2 decode: yes (same gate)")
     return res
+
+
+def throughput_phase(torch, codec, img, blobs_v64) -> dict:
+    """The codec's throughput options on the live codec: PipelinedCodec
+    (depth 2) round trips against the serial loop (depth 1), v64 and v3;
+    decode with interleave 1 and 2; a bucketed encode; the encode's
+    whole-batch fetch against its wall."""
+    import numpy as np
+    from rgba_tpu_torch.data.synthetic import synthetic_rgba_batch
+    from rgba_tpu_torch.eval.container import unpack_rgba
+    from rgba_tpu_torch.eval.pipeline import PipelinedCodec
+
+    batch, h, w = img.shape[:3]
+    t = time.perf_counter()
+    batches = []
+    for s in range(4):
+        d = synthetic_rgba_batch(batch, h, w, seed=10 + s)
+        batches.append((np.round(d["image"] * 255.0).astype(np.uint8),
+                        np.round(d["alpha"] * 255.0).astype(np.uint8)))
+    print(f"  4 batches of {batch} (seeds 10-13) made in "
+          f"{time.perf_counter() - t:.1f} s")
+    per_batch = {"v64": CODEC_LAUNCHES, "lanes32": LANE_LAUNCHES}
+    res = {}
+    for fmt in ("v64", "lanes32"):
+        runs = {}
+        for depth in (1, 2):
+            pipe = PipelinedCodec(codec, depth=depth)
+            _reset_launches()
+            t = time.perf_counter()
+            out = list(pipe.roundtrip_stream(iter(batches), output="uint8",
+                                             stream_format=fmt))
+            wall = time.perf_counter() - t
+            pipe.close()
+            launches = {n: k.launches for n, k in _kernels().items()}
+            want = {n: 4 * v for n, v in per_batch[fmt].items()}
+            if launches != want:
+                raise AssertionError(f"{fmt} depth {depth}: launches "
+                                     f"{launches}, want 4 x {per_batch[fmt]}")
+            runs[depth] = {"out": out, "img_per_s": 4 * batch / wall,
+                           "wall_s": wall}
+            print(f"  roundtrip_stream {fmt} depth {depth}: "
+                  f"{runs[depth]['img_per_s']:.3f} img/s (4 x {batch}, "
+                  f"{h}x{w}, fp32, uint8 out; {wall:.3f} s); launches 4 x "
+                  f"the serial round trip's")
+        for (b1, r1), (b2, r2) in zip(runs[1]["out"], runs[2]["out"]):
+            if b1 != b2 or not np.array_equal(r1, r2):
+                raise AssertionError(f"{fmt}: the pipelined round trip "
+                                     f"differs from the serial loop")
+        print(f"  {fmt}: pipelined blobs byte-identical and decodes equal "
+              f"to the serial loop's")
+        res[fmt] = {f"depth{d}_img_per_s": runs[d]["img_per_s"]
+                    for d in (1, 2)}
+
+    # interleaved decode chains
+    blobs = blobs_v64[:8]
+    outs, rates = {}, {}
+    for g in (1, 2, 2, 1):
+        t = time.perf_counter()
+        outs[g] = codec.decode_batch(blobs, output="uint8", interleave=g)
+        rates.setdefault(g, []).append(len(blobs) / (time.perf_counter() - t))
+    if not np.array_equal(codec.decode_batch(blobs, interleave=1),
+                          codec.decode_batch(blobs, interleave=2)):
+        raise AssertionError("interleave=2 decodes differently from 1")
+    for g in (1, 2):
+        print(f"  decode_batch of 8 blobs, interleave={g}: "
+              + " / ".join(f"{r:.3f}" for r in rates[g])
+              + " img/s (float32 decodes of 1 and 2 exactly equal)")
+    res["interleave_img_per_s"] = {str(g): rates[g] for g in (1, 2)}
+
+    # a bucketed encode of the cut images, on the minimal canvas grown by 64
+    # each way (576x832 for 496x752)
+    img_c, alpha_c = _cut_images(*batches[0])
+    bucket = (-(-img_c.shape[1] // 64) * 64 + 64,
+              -(-img_c.shape[2] // 64) * 64 + 64)
+    bl = codec.encode_batch(img_c, alpha_c, bucket=bucket)
+    if codec.encode_batch(img_c, alpha_c, bucket=bucket) != bl:
+        raise AssertionError("re-encoding the bucketed batch changed the bytes")
+    metas = [unpack_rgba(b) for b in bl]
+    dec = codec.decode_batch(bl, output="uint8")
+    if dec.shape != img_c.shape[:3] + (4,) or \
+            metas[0]["rgb"]["shape"] != (bucket[0] // 64, bucket[1] // 64):
+        raise AssertionError(f"bucketed decode {dec.shape}, z shape "
+                             f"{metas[0]['rgb']['shape']}")
+    if not np.array_equal(codec.decode_batch(bl[:1], output="uint8"), dec[:1]):
+        raise AssertionError("bucketed blob 0 decoded alone differs")
+    plain = codec.encode_batch(img_c, alpha_c)
+    npx = img_c.shape[0] * img_c.shape[1] * img_c.shape[2]
+    bpp_b = sum(map(len, bl)) * 8.0 / npx
+    bpp_p = sum(map(len, plain)) * 8.0 / npx
+    print(f"  bucket {bucket} of {img_c.shape[1]}x{img_c.shape[2]} (half "
+          f"opaque): decodes to {dec.shape[1:3]}, re-encode byte-identical, "
+          f"blob 0 alone as in the batch; bpp {bpp_b:.6f} against "
+          f"{bpp_p:.6f} on the minimal canvas")
+    res["bucket"] = {"bucket": list(bucket), "bpp": bpp_b,
+                     "bpp_minimal": bpp_p}
+
+    # the v64 encode's one fetch of the whole batch (both codecs' symbols
+    # and indexes to int32 host arrays) against the encode's wall: the most
+    # a fetch split under the host coding could hide is half of it
+    img0, alpha0 = batches[0]
+    rgb_io, mask_io = codec.rgb_io, codec.mask_io
+    dev = (rgb_io._compress_tensors(rgb_io._nchw(img0), rgb_io._nchw(alpha0))
+           + mask_io._compress_tensors(mask_io._nchw(alpha0)))
+    torch.cuda.synchronize()
+    fetch_ms = []
+    for _ in range(3):
+        t = time.perf_counter()
+        host = [a.cpu().numpy().astype(np.int32) for a in dev]
+        fetch_ms.append((time.perf_counter() - t) * 1e3)
+    nbytes = sum(a.numel() * a.element_size() for a in dev)
+    enc_ms = []
+    for _ in range(2):
+        t = time.perf_counter()
+        codec.encode_batch(img0, alpha0)
+        enc_ms.append((time.perf_counter() - t) * 1e3)
+    print(f"  v64 encode's whole-batch fetch ({nbytes / 1e6:.3f} MB on the "
+          f"card, {sum(a.nbytes for a in host) / 1e6:.3f} MB as int32): "
+          + " / ".join(f"{x:.3f}" for x in fetch_ms) + " ms, against "
+          + " / ".join(f"{x:.3f}" for x in enc_ms) + " ms for the encode")
+    res["fetch"] = {"bytes": nbytes, "fetch_ms": fetch_ms,
+                    "encode_ms": enc_ms}
+    return res
+
+
+@contextlib.contextmanager
+def _recorded_encodes(torch):
+    """Keeps every ``rans_encode`` call's inputs (the lane state, pointer
+    and words as they were before it) and outputs while the block runs."""
+    from rgba_tpu_torch.ops.kernels import rans_encode as re_
+    calls, wrapped = [], re_.rans_encode
+
+    def record(tables, state, wptr, out, idx, sym, act):
+        before = (state.clone(), wptr.clone(), out.clone())
+        st, wp, ow = wrapped(tables, state, wptr, out, idx, sym, act)
+        calls.append({"tables": tables, "state": before[0],
+                      "wptr": before[1], "out": before[2], "idx": idx,
+                      "sym": sym, "act": act, "state_out": st.clone(),
+                      "wptr_out": wp.clone(), "out_out": ow.clone()})
+        return st, wp, ow
+
+    re_.rans_encode = record
+    try:
+        yield calls
+    finally:
+        re_.rans_encode = wrapped
+
+
+def _encode_bound(torch, call) -> dict:
+    """Bytes one segment's encode must move, each once: the indexes and
+    symbols of every position in the types the path holds them in (uint8
+    and int16 for a y slice, int32 and int16 for z) and its active flags
+    (1 B); the lane state (8 B) and pointer (4 B), read and written; the
+    16-bit words it emits (2 B); the CDF entries the active positions
+    address (start and next, 4 B each) and their rows' max value and
+    offset."""
+    t = call["tables"]
+    act = call["act"]
+    idx = call["idx"].long()[act]
+    maxv = t["max_values"].long()[idx]
+    value = call["sym"].long()[act] - t["offsets"].long()[idx]
+    value = torch.where((value < 0) | (value >= maxv), maxv, value)
+    base = idx * t["cdfs"].shape[1] + value
+    entries = int(torch.unique(torch.cat([base, base + 1])).numel())
+    rows = int(torch.unique(idx).numel())
+    words = int((call["wptr_out"] - call["wptr"]).sum())
+    lanes = call["state"].numel()
+    escapes = int((value == maxv).sum())
+    per_step = call["idx"].element_size() + call["sym"].element_size() + 1
+    nbytes = float(per_step * call["idx"].numel()) + 24.0 * lanes + \
+        2.0 * words + 4.0 * entries + 8.0 * rows
+    return {"bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": nbytes, "words_emitted": words, "entries": entries,
+            "rows": rows, "escapes": escapes,
+            "active_symbols": int(act.sum()),
+            "shape": list(call["idx"].shape),
+            "dtypes": [str(call["idx"].dtype), str(call["sym"].dtype)]}
+
+
+def encode_phase(torch, live, img, alpha, iters) -> dict:
+    """The device lane encode.  (a) Under budget: the codec with the
+    encoders' gain at ENCODE_GAIN (same seed, bias noise and DSE bias):
+    byte-identical to the host coder, 17 launches, no overflow, every
+    segment bit for bit against the plain version, a changed symbol
+    changes the words; times.  (b) The live codec (21 bpp): the RGB lanes
+    overflow their budget, and the card codes the segments again with room
+    for the longest lane, to the host coder's bytes."""
+    import os
+    import numpy as np
+    from rgba_tpu_torch.core.precision import DEFAULT_POLICY
+    from rgba_tpu_torch.entropy import device_rans as dr
+    from rgba_tpu_torch.eval.codec_io import CodecIO
+    from rgba_tpu_torch.eval.container import RGBAFileCodec
+    from rgba_tpu_torch.models.pipeline import RGBAPipeline
+    from rgba_tpu_torch.native import rans
+    from rgba_tpu_torch.ops.kernels import rans_encode as re_
+
+    batch, h, w = img.shape[:3]
+    model = RGBAPipeline(_all_kernels(DEFAULT_POLICY), seed=0)
+    _liven(torch, model, gain=ENCODE_GAIN)
+    codec = RGBAFileCodec(CodecIO(model.rgb_codec, "rgb"),
+                          CodecIO(model.mask_codec, "mask"))
+
+    def encode(c, route):
+        os.environ["RGBA_TPU_DEVICE_ENCODE"] = route
+        try:
+            return c.encode_batch(img, alpha, stream_format="lanes32")
+        finally:
+            os.environ["RGBA_TPU_DEVICE_ENCODE"] = "0"
+
+    host = encode(codec, "0")                   # warm-up, and the bytes
+    encode(codec, "1")
+    _reset_launches()
+    with _recorded_encodes(torch) as calls:
+        dev = encode(codec, "1")
+    torch.cuda.synchronize()
+    launches = _kernels()["rans_encode"].launches
+    infos = {k: getattr(codec, f"{k}_io").last_lane_encode
+             for k in ("rgb", "mask")}
+    bpp = sum(map(len, dev)) * 8.0 / (batch * h * w)
+    for k, i in infos.items():
+        print(f"  (a) {k}: {i['lanes']} lanes, budget {i['budget']} words, "
+              f"largest lane {i['max_nwords'] - 2} words "
+              f"({'OVERFLOW' if i['overflow'] else 'within'})")
+    print(f"  (a) encoder gain {ENCODE_GAIN:g}: v3 real bpp {bpp:.6f}; "
+          f"{launches} rans_encode launches (want {LANE_ENCODE_SEGMENTS})")
+    if launches != LANE_ENCODE_SEGMENTS or len(calls) != LANE_ENCODE_SEGMENTS \
+            or any(i["overflow"] for i in infos.values()):
+        raise AssertionError("the device encode under budget: wrong launch "
+                             "count or an overflow")
+    if dev != host:
+        raise AssertionError("the device encode's blobs differ from the host "
+                             "coder's")
+    print("  (a) RGBA_TPU_DEVICE_ENCODE=1 blobs byte-identical to =0: yes")
+
+    # every segment against the plain version, from the same inputs
+    worst = 0
+    for i, c in enumerate(calls):
+        plain = re_.rans_encode_plain(c["tables"], c["state"].clone(),
+                                      c["wptr"].clone(), c["out"].clone(),
+                                      c["idx"], c["sym"], c["act"])
+        got = (c["state_out"], c["wptr_out"], c["out_out"])
+        diffs = [int((a.long() - b.long()).abs().max()) for a, b in
+                 zip(got, plain)]
+        worst = max(worst, *diffs)
+        if any(diffs):
+            raise AssertionError(f"rans_encode segment {i} differs from the "
+                                 f"plain version: {diffs}")
+    print(f"  (a) all {len(calls)} segments: state, pointer and words equal "
+          f"to the plain encode_segment (max |d| {worst})")
+
+    # the mask codec encodes first (5 y slices, z), then the RGB codec: y
+    # slice 9 down to 0, then z
+    rgb = calls[-11:]
+    y0, z = rgb[9], rgb[10]
+
+    # a changed symbol must change the finished words (the last steps coded
+    # may change only the final state, the first two words of each lane)
+    def finished(st, wp, ow):
+        return dr.finish_lanes(st, wp, ow)[0]
+    sym = y0["sym"].clone()
+    sym[5, -1, 7] += 1
+    changed = re_.rans_encode(y0["tables"], y0["state"].clone(),
+                              y0["wptr"].clone(), y0["out"].clone(),
+                              y0["idx"], sym, y0["act"])
+    torch.cuda.synchronize()
+    if torch.equal(finished(*changed), finished(
+            y0["state_out"], y0["wptr_out"], y0["out_out"])):
+        raise AssertionError("a changed symbol left the words unchanged")
+    print("  (a) one symbol changed in y slice 0: the words change")
+
+    # times: each launch from its own copies of the lane state and words,
+    # made before the clock starts
+    segs = {}
+    for name, c in (("y slice 0", y0), ("z", z)):
+        res = _encode_bound(torch, c)
+        n = iters * 4
+        fresh = [(c["state"].clone(), c["wptr"].clone(), c["out"].clone())
+                 for _ in range(n + 2)]
+
+        def run():
+            s_, w_, o_ = fresh.pop()
+            re_.rans_encode(c["tables"], s_, w_, o_, c["idx"], c["sym"],
+                            c["act"])
+        res["ms"] = _time_ms(torch, run, n)
+        res["plain_ms"] = _time_ms(torch, lambda: re_.rans_encode_plain(
+            c["tables"], c["state"].clone(), c["wptr"].clone(),
+            c["out"].clone(), c["idx"], c["sym"], c["act"]), 1)
+        segs[name] = res
+        print(f"  rans_encode {name} ({tuple(c['idx'].shape)} steps x images "
+              f"x lanes, {res['active_symbols']} symbols, {res['escapes']} "
+              f"escapes, {res['words_emitted']} words): kernel "
+              f"{res['ms']:.4f} ms, plain {res['plain_ms']:.3f} ms, "
+              f"{_bound_text(res)} ({res['bytes'] / 1e6:.3f} MB), "
+              f"{100.0 * res['bound_ms'] / res['ms']:.2f}% of the bound, "
+              f"library: none")
+
+    # the host C++ coder on the same 16 RGB streams (its symbols as the
+    # kernel took them), and its bytes against the kernel's words
+    rgb_calls = rgb[::-1]               # z, y 0..9: decode order
+    lanes = infos["rgb"]["lanes"]
+    n_z = int(codec.rgb_io.eb_tables["quantized_cdfs"].shape[0]) * \
+        (h // 64) * (w // 64)
+    sizes = [n_z] + [(h // 8) * (w // 8) * 8] * 10
+    seg_ends = np.cumsum(sizes)
+    m = codec.rgb_io._lane_tables()["merged"]
+    words, nwords, _ = dr.finish_lanes(z["state_out"], z["wptr_out"],
+                                       z["out_out"])
+    words, nwords = words.cpu().numpy(), nwords.cpu().numpy()
+    host_ms = 0.0
+    for b in range(batch):
+        def flat(key):
+            return np.concatenate([dr.from_steps(c[key][:, b], n).cpu()
+                                   .numpy() for c, n in zip(rgb_calls, sizes)])
+        sym_b, idx_b, act_b = flat("sym"), flat("idx"), flat("act")
+        t = time.perf_counter()
+        hw, lnw = rans.encode_lanes(sym_b, idx_b, seg_ends, lanes, m["cdfs"],
+                                    m["max_values"] + 2, m["offsets"],
+                                    alive=act_b)
+        host_ms += (time.perf_counter() - t) * 1e3
+        mine = words[b][np.arange(words.shape[-1]) < nwords[b][:, None]]
+        if not (np.array_equal(nwords[b], lnw) and np.array_equal(mine, hw)):
+            raise AssertionError(f"RGB stream {b}: kernel words differ from "
+                                 f"the host encode_lanes")
+    print(f"  (a) every RGB stream: the kernel's words equal the host C++ "
+          f"encode_lanes ({batch} streams of {int(seg_ends[-1])} symbols; "
+          f"host {host_ms:.3f} ms on one thread)")
+    chain_ms = _time_ms(torch, lambda: [re_.rans_encode(
+        c["tables"], c["state"].clone(), c["wptr"].clone(), c["out"].clone(),
+        c["idx"], c["sym"], c["act"]) for c in rgb], iters)
+    print(f"  the 11 RGB segments (each from a copy of its inputs): "
+          f"{chain_ms:.3f} ms on the card against {host_ms:.3f} ms for the "
+          f"host C++ encode_lanes of the same {batch} streams")
+
+    rates = {}
+    for route in ("1", "0", "0", "1"):
+        t = time.perf_counter()
+        encode(codec, route)
+        rates.setdefault("device" if route == "1" else "host", []).append(
+            batch / (time.perf_counter() - t))
+    print(f"  v3 encode img/s (batch {batch}, {h}x{w}, fp32): device route "
+          + " / ".join(f"{r:.3f}" for r in rates["device"]) + ", host route "
+          + " / ".join(f"{r:.3f}" for r in rates["host"]))
+
+    # (b) the live weights overflow the budget: the card codes the segments
+    # again with room for the longest lane, to the host coder's bytes
+    want = encode(live, "0")
+    _reset_launches()
+    got = encode(live, "1")
+    k = _kernels()["rans_encode"].launches
+    over = {n: getattr(live, f"{n}_io").last_lane_encode
+            for n in ("rgb", "mask")}
+    passes = {n: 2 if i["overflow"] else 1 for n, i in over.items()}
+    k_want = 11 * passes["rgb"] + 6 * passes["mask"]
+    for n, i in over.items():
+        print(f"  (b) live weights (encoder gain 10), {n}: budget "
+              f"{i['budget']} words, largest lane {i['max_nwords'] - 2} "
+              f"words -> " + (f"overflow, coded again on the card with "
+                              f"{i['rerun_budget']} words" if i["overflow"]
+                              else "no overflow"))
+    print(f"  (b) {k} rans_encode launches (want {k_want}); bytes equal to "
+          f"=0: {'yes' if got == want else 'NO'}")
+    if not over["rgb"]["overflow"] or k != k_want or got != want:
+        raise AssertionError("(b): the overflowing encode did not code again "
+                             "on the card to the host coder's bytes")
+    rates_b = {}
+    for route in ("1", "0", "0", "1"):
+        t = time.perf_counter()
+        encode(live, route)
+        rates_b.setdefault("device" if route == "1" else "host", []).append(
+            batch / (time.perf_counter() - t))
+    print(f"  (b) v3 encode img/s at 21 bpp: device route (two passes) "
+          + " / ".join(f"{r:.3f}" for r in rates_b["device"]) + ", host route "
+          + " / ".join(f"{r:.3f}" for r in rates_b["host"]))
+    del codec, model
+    return {"launches": launches, "max_abs_err": float(worst),
+            "bpp": bpp, "lanes": infos, "segments": segs,
+            "rgb_chain_ms": chain_ms, "host_encode_lanes_ms": host_ms,
+            "encode_img_per_s": rates, "overflow_case": over,
+            "overflow_launches": k, "overflow_img_per_s": rates_b,
+            "ms": segs["y slice 0"]["ms"],
+            "plain_ms": segs["y slice 0"]["plain_ms"],
+            "bound_ms": segs["y slice 0"]["bound_ms"]}
 
 
 class _SynthDataset:
@@ -1575,6 +1996,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    # the host lane coder, unless a phase asks for the device encode
+    import os
+    os.environ["RGBA_TPU_DEVICE_ENCODE"] = "0"
     try:
         from rgba_tpu_torch.native import rans
         from rgba_tpu_torch.ops.kernels import build
@@ -1682,16 +2106,40 @@ def main(argv=None) -> int:
                 "library_ms": None,
                 "shape": "y slice 0, (steps, images, lanes) = %s"
                          % (tuple(y0["shape"]),),
-                "dtype": "int32", "z_segment": z,
+                "dtype": "uint8 indexes, int16 symbols", "z_segment": z,
                 "rgb_chain_ms": lanes["rgb_chain_ms"],
                 "host_decode_lanes_ms": lanes["host_decode_lanes_ms"]}
 
+    enc = codec["encode"]
+
+    def rans_encode_entry():
+        # the device v3 encode's RGB y slice 0; launches of one container
+        # encode with RGBA_TPU_DEVICE_ENCODE=1
+        y0, z = enc["segments"]["y slice 0"], enc["segments"]["z"]
+        return {"name": "rans_encode", "route": "cuda",
+                "source": "rgba_tpu_torch/csrc/rans_encode.cu",
+                "replaces": "rgba_tpu/entropy/device_rans.py:272",
+                "status": "ported", "launches": enc["launches"],
+                "launches_forward": path["launches"]["rans_encode"],
+                "launches_codec_v1": codec["launches"]["rans_encode"],
+                "launches_train": train["launches_train"]["rans_encode"],
+                "max_abs_err": enc["max_abs_err"], "ms": y0["ms"],
+                "plain_ms": y0["plain_ms"], "bound_ms": y0["bound_ms"],
+                "bound_by": "bytes", "library_ms": None,
+                "shape": "y slice 0, (steps, images, lanes) = %s"
+                         % (tuple(y0["shape"]),),
+                "dtype": "uint8 indexes, int16 symbols", "z_segment": z,
+                "rgb_chain_ms": enc["rgb_chain_ms"],
+                "host_encode_lanes_ms": enc["host_encode_lanes_ms"]}
+
     line = {
-        "kernels": [entry(name) for name in CONV_KERNELS] + [rans_entry()],
+        "kernels": [entry(name) for name in CONV_KERNELS] + [rans_entry(),
+                                                            rans_encode_entry()],
         "pending": [],
         "path": {k: v for k, v in path.items() if k != "launches"},
         "codec": {k: v for k, v in codec.items()
-                  if k not in ("launches", "lanes")},
+                  if k not in ("launches", "lanes", "encode")},
+        "encode": {k: v for k, v in enc.items() if k != "segments"},
         "lanes": {k: v for k, v in lanes.items() if k != "segments"},
         "train": {k: v for k, v in train.items() if k != "launches_train"},
     }

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -54,42 +55,83 @@ class Policy:
         return F.gelu(x, approximate="none" if self.exact else "tanh")
 
 
+# The flags below are process-wide, while scopes open and close on any
+# thread (PipelinedCodec runs whole encodes and decodes on two workers).
+# Each scope kind is counted under one lock: the first scope to open saves
+# the flags and sets them, later ones only count, and the last to close
+# restores them, so no thread closes the flags another still runs under.
+_LOCK = threading.Lock()
+_OPEN = {"tf32_off": 0, "deterministic": 0, "batch_invariant": 0}
+_SAVED: dict = {}
+
+
+def _tf32_flags():
+    return (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+
+
+def _set_tf32_flags(flags):
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+def _cudnn_flags():
+    return (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+
+
+def _set_cudnn_flags(flags):
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+
+
+_FLAGS = {"tf32_off": (_tf32_flags, _set_tf32_flags, (False, False)),
+          "deterministic": (_cudnn_flags, _set_cudnn_flags, (True, False))}
+
+
 @contextlib.contextmanager
-def precision_scope(policy: Policy):
-    """TF32 off for fp32 policies (the twin of the JAX HIGHEST pin); the
-    previous flags come back on exit."""
-    saved = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    if policy.exact:
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+def _counted(kind: str):
+    """One scope of ``kind``, counted across threads (see above)."""
+    flags = _FLAGS.get(kind)
+    with _LOCK:
+        if _OPEN[kind] == 0 and flags is not None:
+            _SAVED[kind] = flags[0]()
+            flags[1](flags[2])
+        _OPEN[kind] += 1
     try:
         yield
     finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = saved
+        with _LOCK:
+            _OPEN[kind] -= 1
+            if _OPEN[kind] == 0 and flags is not None:
+                flags[1](_SAVED.pop(kind))
 
 
-_BATCH_INVARIANT = [0]      # open batch_invariant_scope()s, any thread
+def precision_scope(policy: Policy):
+    """TF32 off for fp32 policies (the twin of the JAX HIGHEST pin) while
+    any such scope is open, on any thread; the flags come back when the
+    last one closes.  A bf16 policy changes nothing."""
+    return _counted("tf32_off") if policy.exact else contextlib.nullcontext()
 
 
-@contextlib.contextmanager
+def deterministic_scope():
+    """Deterministic cuDNN algorithms without autotuning while any such
+    scope is open, on any thread (the codec's encoder and decoder must
+    compute the same indexes)."""
+    return _counted("deterministic")
+
+
 def batch_invariant_scope():
     """Inside it an image's result must not depend on the batch it runs in:
     the codec's encoder and decoder recompute the CDF indexes apart, and a
     blob must decode the same alone or in any batch.  cuDNN (and oneDNN on
     the CPU) picks a convolution's algorithm by the batch size, and two
     algorithms sum in different orders, so the convolutions
-    (``ops.conv.per_image``) then run each image on its own."""
-    _BATCH_INVARIANT[0] += 1
-    try:
-        yield
-    finally:
-        _BATCH_INVARIANT[0] -= 1
+    (``ops.conv.per_image``) then run each image on its own, on every
+    thread while any such scope is open."""
+    return _counted("batch_invariant")
 
 
 def batch_invariant() -> bool:
-    return _BATCH_INVARIANT[0] > 0
+    return _OPEN["batch_invariant"] > 0
 
 
 DEFAULT_POLICY = Policy()

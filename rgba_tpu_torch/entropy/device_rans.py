@@ -1,4 +1,4 @@
-"""The lane stream format and its decode, on the card (port of
+"""The lane stream format, its decode and its encode, on the card (port of
 ``rgba_tpu/entropy/device_rans.py``).
 
 Format (written by ``native/rans.encode_lanes``): each image's stream is L
@@ -16,8 +16,10 @@ A bypass escape carries one 4-bit count and at most 8 4-bit chunks (the
 raw values are 32-bit).
 
 ``decode_segment`` here is the plain PyTorch version of one segment's
-decode: the CPU runs it, and the tests and ``chip_smoke.py`` hold the CUDA
-kernel (``ops/kernels/rans_decode.py``) to it bit for bit.  Host-side
+decode, and ``init_encode`` / ``encode_segment`` / ``finish_lanes`` that of
+the lane encode: the CPU runs them, and the tests and ``chip_smoke.py``
+hold the CUDA kernels (``ops/kernels/rans_decode.py``,
+``ops/kernels/rans_encode.py``) to them bit for bit.  Host-side
 helpers (tables, stream packing) work on numpy.  The tables stay separate
 tensors on the card (the JAX package packs them into one buffer because
 its TPU runtime charged per argument buffer), with the same layout: z rows
@@ -263,3 +265,125 @@ def decode_segment(tables: dict, words, state, ptr, indexes, active,
                                                  v + maxv), value)
         syms[t] = torch.where(act, _wrap_i32(value + offsets[idx]), 0)
     return syms, state, ptr.to(torch.int32)
+
+
+# ------------------------------------------------------ the encode, plainly
+
+def init_encode(batch_shape, lanes: int, max_words: int, device):
+    """Fresh encode carries: state 2^16 (int64 holding the uint32), write
+    pointer 0 (int32), and a (..., L, W) int32 word buffer of zeros; W is
+    the per-lane word budget."""
+    lead = tuple(batch_shape) + (lanes,)
+    return (torch.full(lead, _L32, dtype=torch.int64, device=device),
+            torch.zeros(lead, dtype=torch.int32, device=device),
+            torch.zeros(lead + (max_words,), dtype=torch.int32,
+                        device=device))
+
+
+def _emit(out_words, wptr, need, word):
+    """Lanes with ``need`` write ``word`` at their pointer, clamped to the
+    last slot W-1, and count on: a lane whose pointer reaches W has
+    overflowed (``finish_lanes``) and never writes out of bounds.
+    ``out_words`` is updated in place."""
+    slot = wptr.clamp(max=out_words.shape[-1] - 1).long()[..., None]
+    cur = out_words.gather(-1, slot)
+    out_words.scatter_(-1, slot, torch.where(
+        need[..., None], word.to(torch.int32)[..., None], cur))
+    return wptr + need.to(torch.int32)
+
+
+def _put_sym(state, out_words, wptr, act, start, freq):
+    """rANS push of one CDF-coded value (the host's ``enc32_put``): renorm
+    by one 16-bit word when state >= freq << 16, then
+    state = (state // freq) << 16 + state % freq + start.  ``freq << 16``
+    wraps modulo 2^32 as in the uint32 programs; freq = 2^16 would wrap it
+    to 0, but a packed row codes at least one value and the escape, each
+    with a frequency of at least 1, so freq <= 2^16 - 1."""
+    need = act & (state >= ((freq << 16) & _MASK32))
+    wptr = _emit(out_words, wptr, need, state & _MASK16)
+    state = torch.where(need, state >> 16, state)
+    # exact division: after the renorm the quotient fits 16 bits (the JAX
+    # program's bit search gives the same quotient)
+    q = state // freq.clamp_min(1)
+    new = (q << PRECISION) + (state - q * freq) + start
+    return torch.where(act, new & _MASK32, state), wptr
+
+
+def _put_bits(state, out_words, wptr, act, val, nbits: int):
+    """Push ``nbits`` raw bits (the host's ``enc32_put_bits``)."""
+    need = act & (state >= (1 << (32 - nbits)))
+    wptr = _emit(out_words, wptr, need, state & _MASK16)
+    state = torch.where(need, state >> 16, state)
+    new = ((state << nbits) | val) & _MASK32
+    return torch.where(act, new, state), wptr
+
+
+def encode_segment(tables: dict, state, wptr, out_words, indexes, symbols,
+                   active):
+    """Encode one segment (the plain version of the CUDA kernel).
+
+    rANS encodes in reverse of decode order, so the steps are walked
+    T-1..0; per active position it pushes the bypass chunks (high chunk
+    first), the chunk count, then the CDF-coded value: the exact reverse of
+    ``decode_segment``'s reads.  tables as in ``decode_segment``; state
+    (B, L) int64 holding uint32 values, wptr (B, L) int32, out_words
+    (B, L, W) int32 (the words in emission order, reversed by
+    ``finish_lanes``); indexes, symbols (T, B, L) integers (the codec
+    passes uint8 / int16 indexes and int16 symbols) in decode step order,
+    active (T, B, L) bool.  Returns (state, wptr, out_words);
+    ``out_words`` is written in place, the state and pointer come back as
+    new tensors.  Arithmetic is the uint32 arithmetic of the host coder's
+    ``rans32_encode_lanes``, so the three encoders agree bit for bit."""
+    cdfs = tables["cdfs"]
+    cols = cdfs.shape[-1]
+    flat = cdfs.reshape(-1).long()
+    max_values = tables["max_values"].long()
+    offsets = tables["offsets"].long()
+    state, wptr = state.long(), wptr.to(torch.int32)
+    for t in reversed(range(indexes.shape[0])):
+        idx, act = indexes[t].long(), active[t].bool()
+        maxv = max_values[idx]
+        value = symbols[t].long() - offsets[idx]
+        neg, over = value < 0, value >= maxv
+        raw = torch.where(neg, -2 * value - 1,
+                          torch.where(over, 2 * (value - maxv), 0)) & _MASK32
+        esc = act & (neg | over)
+        value = torch.where(esc, maxv, value)
+        if bool(esc.any()):
+            # raw fits 32 bits: at most 8 chunks and one count chunk
+            n_byp = torch.zeros_like(raw)
+            for j in range(1, MAX_BYPASS_CHUNKS + 1):
+                n_byp = torch.where((raw >> ((j - 1) * _BYPASS_BITS)) != 0,
+                                    j, n_byp)
+            for j in reversed(range(MAX_BYPASS_CHUNKS)):
+                chunk = (raw >> (j * _BYPASS_BITS)) & ((1 << _BYPASS_BITS) - 1)
+                state, wptr = _put_bits(state, out_words, wptr,
+                                        esc & (j < n_byp), chunk, _BYPASS_BITS)
+            state, wptr = _put_bits(state, out_words, wptr, esc, n_byp,
+                                    _BYPASS_BITS)
+        # an inactive step's value may lie outside its row: read entry 0
+        base = idx * cols + torch.where(act, value, 0)
+        start = flat[base]
+        state, wptr = _put_sym(state, out_words, wptr, act, start,
+                               flat[base + 1] - start)
+    return state, wptr, out_words
+
+
+def finish_lanes(state, wptr, out_words):
+    """Flush and reorder into decode order: each lane's stream becomes
+    [state >> 16, state & 0xFFFF, its emitted words reversed].  Returns
+    (words (..., L, W + 2) int32, nwords (..., L) int32, overflow): a lane
+    whose pointer reached the budget W has lost words (its writes were
+    clamped to slot W-1), and ``overflow`` (a 0-dim bool tensor) says the
+    caller must code the segments again with a larger budget (the budget is
+    not part of the bytes).  Plain tensor
+    indexing: layout, not the coder's arithmetic, so it is the same on the
+    CPU and on the card."""
+    w = out_words.shape[-1]
+    src = wptr.long()[..., None] - 1 - torch.arange(w, device=wptr.device)
+    rev = out_words.gather(-1, src.clamp(0, w - 1))
+    rev = torch.where(src >= 0, rev, 0)
+    state = state.long()
+    head = torch.stack([state >> 16, state & _MASK16], dim=-1).to(torch.int32)
+    return (torch.cat([head, rev], dim=-1), wptr.to(torch.int32) + 2,
+            (wptr >= w).any())

@@ -27,6 +27,9 @@ host-coded v64 chains (a version-2 blob decodes with the gate it ships,
 never one derived again), and version 3 through ``decompress_device``,
 where the card decodes the lane streams of both codecs itself.
 ``decode(max_slices=k)`` gives the progressive preview of the RGB stream.
+``encode_batch(bucket=)`` codes on a larger /64 canvas (``eval/buckets.py``)
+and ``decode_batch(interleave=)`` cuts the RGB chain into sub-batch chains
+(``CodecIO.decompress_chains``); neither changes the format.
 """
 
 from __future__ import annotations
@@ -188,6 +191,7 @@ class RGBAFileCodec:
     def encode_batch(self, images: np.ndarray, alphas: np.ndarray,
                      bbox: bool = False, rate_gate: bool = False,
                      deadzone: float = 0.0,
+                     bucket: tuple[int, int] | None = None,
                      stream_format: str = "v64") -> list[bytes]:
         """Compress B same-shaped RGBA images, one batched device pass per
         stage; returns one container per image.  uint8 inputs are turned
@@ -199,7 +203,11 @@ class RGBAFileCodec:
         gate (version 2); deadzone > 0 widens the RGB quantizer's zero bin
         (no header flag: any decoder reads it); stream_format="lanes32"
         writes lane streams for both codecs (version 3), decoded on the
-        card."""
+        card.  bucket=(bh, bw) pads to that canvas instead of the minimal
+        /64 one (after the bbox crop; ``eval/buckets.py`` picks a ladder):
+        it must be /64-aligned and cover the minimal canvas, else
+        ValueError.  The header keeps the original (h, w), so a bucketed
+        blob is the same container version and decodes to the same size."""
         images, alphas = np.asarray(images), np.asarray(alphas)
         b, h, w = images.shape[:3]
         crop = None
@@ -219,6 +227,13 @@ class RGBAFileCodec:
         # mask stream, and the decoder rebuilds ones inside (h, w)
         non_op = [i for i in range(b) if not np.all(alphas[i] == one)]
         hp, wp = -(-h // 64) * 64, -(-w // 64) * 64
+        if bucket is not None:
+            bh, bw = int(bucket[0]), int(bucket[1])
+            if bh < hp or bw < wp or bh % 64 or bw % 64:
+                raise ValueError(f"bucket {tuple(bucket)} must be /64-aligned "
+                                 f"and cover the minimal padded canvas "
+                                 f"{(hp, wp)}")
+            hp, wp = bh, bw
         if (hp, wp) != (h, w):
             pad = ((0, 0), (0, hp - h), (0, wp - w), (0, 0))
             images, alphas = np.pad(images, pad), np.pad(alphas, pad)
@@ -245,7 +260,8 @@ class RGBAFileCodec:
                 for i in range(b)]
 
     def decode_batch(self, blobs: list[bytes], output: str = "float32",
-                     max_slices: int | None = None) -> np.ndarray:
+                     max_slices: int | None = None,
+                     interleave: int | None = None) -> np.ndarray:
         """Decode B same-shaped blobs of one container version; returns
         (B, H, W, 4) RGBA, float32 in [0, 1] or, with output="uint8",
         8-bit.  Versions 1 and 2 run the mask and RGB slice chains together
@@ -254,7 +270,10 @@ class RGBAFileCodec:
         (``decompress_device``).  max_slices=k decodes the first k of the
         RGB codec's slices and mean-fills the rest; the alpha is always
         decoded in full (the RGB synthesis needs the exact alpha the
-        encoder used)."""
+        encoder used).  interleave=G cuts the RGB chain of versions 1 and
+        2 into G sub-batch chains driven with the mask chain
+        (``CodecIO.decompress_chains``; None picks 2 for batches of 4, 6
+        and 8); the result is the same."""
         if output not in ("float32", "uint8"):
             raise ValueError(f"output must be 'float32' or 'uint8', got "
                              f"{output!r}")
@@ -285,16 +304,19 @@ class RGBAFileCodec:
                                                 max_slices=max_slices)
         else:
             gate = (np.stack([r["gate"] for r in rgbs]) if kind[1] else None)
-            chains = [self.rgb_io.decompress_chain(rgbs, gate_host=gate,
-                                                   max_slices=max_slices)]
+            chains = self.rgb_io.decompress_chains(
+                rgbs, gate_host=gate, max_slices=max_slices,
+                interleave=interleave)
+            n_rgb = len(chains)
             if with_mask:
                 chains.append(self.mask_io.decompress_chain(masks))
             outs = drive_chains(chains)
-            rm_sub = (self.mask_io.decode_image(outs[1], device=True)
+            rm_sub = (self.mask_io.decode_image(outs[n_rgb], device=True)
                       if with_mask else None)
             with torch.inference_mode():
                 recon = self._recon_alpha(rm_sub, b, h, w, hp, wp, with_mask)
-            rgb = self.rgb_io.decode_image(outs[0], mask=recon, device=True)
+                y_rgb = outs[0] if n_rgb == 1 else torch.cat(outs[:n_rgb])
+            rgb = self.rgb_io.decode_image(y_rgb, mask=recon, device=True)
         with torch.inference_mode():
             rgba = torch.cat([rgb[:, :h, :w], recon[:, :h, :w]], dim=-1)
             if output == "uint8":

@@ -87,13 +87,15 @@ class WindowAttention(nn.Module):
         params = (self.qkv.weight, self.qkv.bias, self.proj.weight,
                   self.proj.bias, self.relative_position_bias_table)
         key = (dtype, *param_key(params))
-        if self._kernel_cache[0] != key:
+        cached = self._kernel_cache      # one read: another thread may fill it
+        if cached[0] != key:
             with torch.no_grad():
                 wts = kernel_weights(self.qkv.weight.t(), self.qkv.bias,
                                      self.proj.weight.t(), self.proj.bias,
                                      self.num_heads, dtype)
-                self._kernel_cache = (key, (wts, self.rel_bias().contiguous()))
-        return self._kernel_cache[1]
+                cached = (key, (wts, self.rel_bias().contiguous()))
+            self._kernel_cache = cached
+        return cached[1]
 
     def _dense(self, x, wqkv, bqkv, wproj, bproj, rel_bias, bias=None):
         """The plain formulation on explicit weights in torch layout
@@ -269,11 +271,13 @@ class _Gate(nn.Module):
         version)."""
         params = self.gate_parameters()
         key = (dtype, *param_key(params))
-        if self._kernel_cache[0] != key:
+        cached = self._kernel_cache      # one read: another thread may fill it
+        if cached[0] != key:
             with torch.no_grad():
-                self._kernel_cache = (key, gck.kernel_weights(
+                cached = (key, gck.kernel_weights(
                     *gate_kernel_weights(params), dtype))
-        return self._kernel_cache[1]
+            self._kernel_cache = cached
+        return cached[1]
 
     def gate(self, x, g=None):
         """The plain gate around g (the attention output, or x itself)."""

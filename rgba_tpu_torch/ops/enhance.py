@@ -59,11 +59,13 @@ class DSE(nn.Module):
         (``dse.kernel_weights``), built once and kept until a parameter is
         written or moved (an optimizer step bumps its version)."""
         key = (dtype, *param_key(self.parameters()))
-        if self._kernel_cache[0] != key:
+        cached = self._kernel_cache      # one read: another thread may fill it
+        if cached[0] != key:
             with torch.no_grad():
-                self._kernel_cache = (key, dsek.kernel_weights(
-                    *self.kernel_weights(), dtype))
-        return self._kernel_cache[1]
+                cached = (key, dsek.kernel_weights(*self.kernel_weights(),
+                                                   dtype))
+            self._kernel_cache = cached
+        return cached[1]
 
     def forward(self, x):
         p = self.policy

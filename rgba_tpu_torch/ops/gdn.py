@@ -53,11 +53,12 @@ class GDN(nn.Module):
         storage changes; inference tensors keep no version, so only a move
         counts for them)."""
         key = (dtype, *param_key((self.gamma,)))
-        if self._kernel_cache[0] != key:
+        cached = self._kernel_cache      # one read: another thread may fill it
+        if cached[0] != key:
             with torch.no_grad():
-                self._kernel_cache = (key, kernel_weights(
-                    self.reparam()[1].t(), dtype))
-        return self._kernel_cache[1]
+                cached = (key, kernel_weights(self.reparam()[1].t(), dtype))
+            self._kernel_cache = cached
+        return cached[1]
 
     def forward(self, x):
         """x: (B, C, H, W); gamma[i, j] weights input channel j into output

@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
@@ -35,7 +36,8 @@ class CudaKernel:
     """One csrc source, its C entry point, and the count of its launches.
 
     ``launch`` calls the entry point, which launches on the given stream
-    and returns ``cudaGetLastError()``; a non-zero code raises.
+    and returns ``cudaGetLastError()``; a non-zero code raises.  Safe
+    across threads: the first launch builds and loads the library once.
     """
 
     def __init__(self, source: str, symbol: str, argtypes):
@@ -45,6 +47,7 @@ class CudaKernel:
         self.launches = 0
         self._lib = None
         self._fn = None
+        self._lock = threading.Lock()
 
     @property
     def library(self) -> Path:
@@ -61,26 +64,27 @@ class CudaKernel:
         if lib.exists():
             return None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / self.source)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         return _Build(proc, tmp, lib)
 
     def _function(self):
-        if self._fn is None:
-            build = self.start_build()
-            if build is not None:
-                build.finish()
-            self._lib = ctypes.CDLL(str(self.library))
-            fn = getattr(self._lib, self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            err = self._lib.rgba_cuda_error_string
-            err.argtypes = [ctypes.c_int]
-            err.restype = ctypes.c_char_p
-            self._fn = fn
-        return self._fn
+        with self._lock:
+            if self._fn is None:
+                build = self.start_build()
+                if build is not None:
+                    build.finish()
+                self._lib = ctypes.CDLL(str(self.library))
+                fn = getattr(self._lib, self.symbol)
+                fn.argtypes = self.argtypes
+                fn.restype = ctypes.c_int
+                err = self._lib.rgba_cuda_error_string
+                err.argtypes = [ctypes.c_int]
+                err.restype = ctypes.c_char_p
+                self._fn = fn
+            return self._fn
 
     def launch(self, *args) -> None:
         rc = self._function()(*args)
@@ -88,7 +92,8 @@ class CudaKernel:
             msg = self._lib.rgba_cuda_error_string(rc).decode()
             raise RuntimeError(f"{self.symbol} launch failed: CUDA error "
                                f"{rc} ({msg})")
-        self.launches += 1
+        with self._lock:
+            self.launches += 1
 
 
 class _Build:

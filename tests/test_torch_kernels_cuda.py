@@ -22,7 +22,7 @@ torch = pytest.importorskip("torch")
 from rgba_tpu_torch.core.precision import SERVE_POLICY  # noqa: E402
 from rgba_tpu_torch.data.synthetic import synthetic_rgba_batch  # noqa: E402
 from rgba_tpu_torch.models.pipeline import RGBAPipeline  # noqa: E402
-from rgba_tpu_torch.ops.kernels import dse, gate_chain, gdn, rans_decode, win_attn  # noqa: E402
+from rgba_tpu_torch.ops.kernels import dse, gate_chain, gdn, rans_decode, rans_encode, win_attn  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -659,6 +659,189 @@ def test_gated_lane_codec_on_the_card(card):
     assert np.array_equal(np.stack([unpack_rgba(b)["rgb"]["gate"]
                                     for b in v2]), gate)
     assert np.array_equal(codec.decode_batch(v2), dec)
+
+
+# ------------------------------------------------------------ rANS encode
+
+
+def _encode_case(dev, rows, gated, batch=3, lanes=64, n=9000, seed=0):
+    """One segment's inputs on ``dev`` in the lane layout: indexes on the
+    Gaussian rows (y) or the z rows of a merged table, symbols around each
+    row's centre with escapes, active flags (gated or only the tail's
+    padding off); the tables and the flat arrays the host coder takes."""
+    import numpy as np
+    from rgba_tpu_torch.entropy import device_rans as dr
+    from rgba_tpu_torch.entropy.gaussian import GaussianConditional, get_scale_table
+
+    gc = GaussianConditional(get_scale_table())
+    gc.update()
+    g = dr.pack_tables(gc.quantized_cdfs, gc.cdf_lengths, gc.offsets)
+    rng = np.random.RandomState(seed)
+    # rows after the 64 Gaussian ones stand in for z's: a copy of 24 of them
+    part = slice(10, 34)
+    merged = dr.merge_tables(g, dr.pack_tables(
+        gc.quantized_cdfs[part], gc.cdf_lengths[part], gc.offsets[part]))
+    lo, hi = (0, 64) if rows == "y" else (64, 64 + 24)
+    idx = rng.randint(lo, hi, (batch, n)).astype(np.int32)
+    sym = (merged["offsets"][idx] + merged["max_values"][idx] // 2
+           + rng.randint(-5, 6, (batch, n))).astype(np.int32)
+    sym[:, ::37] = rng.randint(-3000, 3000, sym[:, ::37].shape)
+    alive = rng.rand(batch, n) > 0.25 if gated else np.ones((batch, n), bool)
+    t = {k: torch.from_numpy(merged[k]).to(dev)
+         for k in ("cdfs", "max_values", "offsets")}
+
+    def steps(a, fill=0):
+        return dr.to_steps(torch.from_numpy(a).to(dev), lanes, fill=fill)
+    return dict(tables=t, idx=steps(idx), sym=steps(sym),
+                act=steps(alive, False), merged=merged, flat=(sym, idx, alive),
+                batch=batch, lanes=lanes, n=n)
+
+
+def _encode(case, fn, budget):
+    from rgba_tpu_torch.entropy import device_rans as dr
+    dev = case["idx"].device
+    state, wptr, out = dr.init_encode((case["batch"],), case["lanes"], budget,
+                                      dev)
+    state, wptr, out = fn(case["tables"], state, wptr, out, case["idx"],
+                          case["sym"], case["act"])
+    torch.cuda.synchronize()
+    return state, wptr, out
+
+
+@pytest.mark.parametrize("rows", ["y", "z"])
+@pytest.mark.parametrize("gated", [False, True], ids=["dense", "gated"])
+def test_rans_encode_matches_plain_and_the_host(card, rows, gated):
+    """The kernel gives the plain version's state, pointer and words bit for
+    bit, one launch a segment; after finish_lanes each image's lanes are
+    the host coder's words; a changed symbol changes the finished words."""
+    import numpy as np
+    from rgba_tpu_torch.entropy import device_rans as dr
+    from rgba_tpu_torch.native import rans
+
+    case = _encode_case(card, rows, gated)
+    budget = 4096
+    before = rans_encode.KERNEL.launches
+    got = _encode(case, rans_encode.rans_encode, budget)
+    assert rans_encode.KERNEL.launches - before == 1
+    want = _encode(case, rans_encode.rans_encode_plain, budget)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w.cpu())
+    words, nwords, ovf = dr.finish_lanes(*got)
+    assert not bool(ovf)
+    words, nwords = words.cpu().numpy(), nwords.cpu().numpy()
+    sym, idx, alive = case["flat"]
+    m = case["merged"]
+    for b in range(case["batch"]):
+        host, lnw = rans.encode_lanes(sym[b], idx[b], [case["n"]],
+                                      case["lanes"], m["cdfs"],
+                                      m["max_values"] + 2, m["offsets"],
+                                      alive=alive[b])
+        np.testing.assert_array_equal(nwords[b], lnw)
+        lanes = [words[b, lane, :nwords[b, lane]]
+                 for lane in range(case["lanes"])]
+        np.testing.assert_array_equal(np.concatenate(lanes), host)
+    case["sym"][3, 1, 5] += 1
+    changed = _encode(case, rans_encode.rans_encode, budget)
+    # a symbol coded among the last may change only the final state: the
+    # finished words hold it
+    assert not torch.equal(dr.finish_lanes(*changed)[0],
+                           dr.finish_lanes(*got)[0])
+
+
+def test_rans_encode_overflow_stays_in_bounds(card):
+    """A budget of 16 words: the lanes run past it, the kernel's pointers
+    count on and its writes stay in each lane's last slot (the 8 words
+    after the buffer, the last lane's slot W-1, are untouched), as in the
+    plain version."""
+    from rgba_tpu_torch.entropy import device_rans as dr
+    case = _encode_case(card, "y", True, n=4000)
+    budget = 16
+    size = case["batch"] * case["lanes"] * budget
+    flat = torch.full((size + 8,), -7, dtype=torch.int32, device=card)
+    out = flat[:size].view(case["batch"], case["lanes"], budget)
+    out.zero_()
+    state, wptr, _ = dr.init_encode((case["batch"],), case["lanes"], budget,
+                                    card)
+    got = rans_encode.rans_encode(case["tables"], state, wptr, out,
+                                  case["idx"], case["sym"], case["act"])
+    assert got[2].data_ptr() == flat.data_ptr()
+    want = _encode(case, rans_encode.rans_encode_plain, budget)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w.cpu())
+    assert bool(dr.finish_lanes(*got)[2])
+    assert int(got[1].min()) >= budget
+    assert bool((flat[size:] == -7).all())
+
+
+@pytest.mark.parametrize("rows", ["y", "z"])
+def test_rans_encode_reads_narrow_types(card, rows):
+    """The codec's types (uint8 y rows, int16 z rows, int16 symbols): the
+    kernel widens them itself and gives the int32 launch's state, pointer
+    and words, and the plain version's."""
+    case = _encode_case(card, rows, True)
+    budget = 4096
+    want = _encode(case, rans_encode.rans_encode, budget)
+    narrow = dict(case, idx=case["idx"].to(
+        torch.uint8 if rows == "y" else torch.int16),
+        sym=case["sym"].to(torch.int16))
+    got = _encode(narrow, rans_encode.rans_encode, budget)
+    plain = _encode(narrow, rans_encode.rans_encode_plain, budget)
+    for g, w, p in zip(got, want, plain):
+        assert torch.equal(g, w) and torch.equal(g.cpu(), p.cpu())
+
+
+def test_rans_encode_refuses_bad_arguments(card):
+    from rgba_tpu_torch.entropy import device_rans as dr
+    case = _encode_case(card, "y", False, batch=1, n=500)
+    state, wptr, out = dr.init_encode((1,), case["lanes"], 64, card)
+    args = (case["idx"], case["sym"], case["act"])
+    with pytest.raises(TypeError, match="state"):
+        rans_encode.rans_encode(case["tables"], state.int(), wptr, out, *args)
+    with pytest.raises(ValueError, match="symbols"):
+        rans_encode.rans_encode(case["tables"], state, wptr, out, args[0],
+                                args[1][:, :, :3].contiguous(), args[2])
+    with pytest.raises(ValueError, match="device"):
+        rans_encode.rans_encode(case["tables"], state, wptr, out,
+                                args[0].cpu(), *args[1:])
+    with pytest.raises(TypeError, match="indexes"):
+        rans_encode.rans_encode(case["tables"], state, wptr, out,
+                                args[0].long(), *args[1:])
+    with pytest.raises(TypeError, match="symbols"):
+        rans_encode.rans_encode(case["tables"], state, wptr, out, args[0],
+                                args[1].to(torch.uint8), args[2])
+
+
+def test_device_lane_encode_on_the_card(card, monkeypatch):
+    """RGBA_TPU_DEVICE_ENCODE=1: a version-3 container encode launches the
+    encode kernel once per segment (1 + 10 RGB, 1 + 5 mask), twice for a
+    codec whose lanes overflowed the first budget, and writes the host
+    route's bytes, gated and not."""
+    import numpy as np
+    from rgba_tpu_torch.core.precision import DEFAULT_POLICY
+    from rgba_tpu_torch.eval.codec_io import CodecIO
+    from rgba_tpu_torch.eval.container import RGBAFileCodec
+
+    pipe = RGBAPipeline(_all_kernels(DEFAULT_POLICY), seed=0)
+    codec = RGBAFileCodec(CodecIO(pipe.rgb_codec, "rgb"),
+                          CodecIO(pipe.mask_codec, "mask"))
+    d = synthetic_rgba_batch(2, 64, 128, seed=1)
+    img = np.round(d["image"] * 255).astype(np.uint8)
+    alpha = np.round(d["alpha"] * 255).astype(np.uint8)
+    for gate in (False, True):
+        monkeypatch.setenv("RGBA_TPU_DEVICE_ENCODE", "0")
+        host = codec.encode_batch(img, alpha, rate_gate=gate,
+                                  stream_format="lanes32")
+        monkeypatch.setenv("RGBA_TPU_DEVICE_ENCODE", "1")
+        before = rans_encode.KERNEL.launches
+        dev = codec.encode_batch(img, alpha, rate_gate=gate,
+                                 stream_format="lanes32")
+        passes = {k: 2 if getattr(codec, f"{k}_io").last_lane_encode[
+            "overflow"] else 1 for k in ("rgb", "mask")}
+        assert rans_encode.KERNEL.launches - before == \
+            11 * passes["rgb"] + 6 * passes["mask"]
+        assert not codec.rgb_io.last_lane_encode["overflow"]
+        assert dev == host
 
 
 # ------------------------------------------------------------- training
