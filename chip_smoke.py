@@ -72,7 +72,33 @@ failure:
    budget and the card codes the segments again with room for the
    longest lane (11 launches more, 6 more if the mask codec's lanes
    overflow too), to the host coder's bytes;
-5. train: the full-width codecs on synthetic 256x256 RGBA at batch 8
+5. eval and CLI entry points, at the Kodak size (512x768), full width, on
+   the live weights saved with the port's ``save_checkpoint``: a synthetic
+   Kodak tree of 8 images; ``evaluate_kodak(real_codec=True)`` with all
+   four kernels on (fp32) and with them off (the launches of one eval step,
+   4 / 12 / 8 / 2, of one image's encode + decode, 4 / 15 / 10 / 3, and of
+   the whole eval, which adds the RGB forward that codec_err reads; the
+   averages on against off: bpp 1e-4 relative, PSNR and psnr_real 0.01 dB,
+   MS-SSIM 1e-4; codec_err <= 1e-5 on each route, or, where a value
+   within fp32 noise of a rounding boundary rounded apart in the eval
+   step's forward and the codec, each image's decoded RGB within 1e-5 of
+   the forward on the container's inputs (or its bulk) and its decoded
+   alpha against the eval step's (mean |d| <= 1e-3, at most 5% of the
+   pixels off by more than 1e-3: a desynced stream moves most); the time per
+   image of the eval step and of the codec); ``cli.codec`` encode-dir / decode-dir
+   of 16 RGBA PNGs at ``-b 8``, v64 and lanes32 (every blob equal to
+   ``encode_batch``'s, every PNG to ``decode_batch(output="uint8")``'s,
+   2 x 17 ``rans_decode`` launches in the lanes32 decode-dir; img/s of each
+   command); ``cli.train_rgb``: 2 steps from a config in a temporary
+   directory, ``iter_2.ckpt``, read back by ``--test`` over the tree;
+   ``torch.export`` of the bf16 ``RGBAPipeline`` at batch 16, under
+   ``SERVE_POLICY`` and with all four kernels: saved, loaded and run in a
+   fresh process that imports only ``rgba_tpu_torch.ops.kernels`` (x_hat
+   within the bf16 gate of eager, 2^-5 x max(1, max|x_hat|), bpp 1e-3
+   relative; the same artifact with one weight moved must fail that gate;
+   the kernels' launches of one call), and img/s of eager against the
+   exported program in this process, in turns;
+6. train: the full-width codecs on synthetic 256x256 RGBA at batch 8
    (train_lambda 1024, aux_lr 1e-3, no curriculum).  First each kernel
    against its plain version, as in phase 2, at the shapes this path gives
    it (GDN M=131072; attention 512 windows of N=64 and of N=16; the gate
@@ -125,12 +151,14 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM
 PEAK_BF16 = 989e12                   # dense bf16 tensor cores
 PEAK_TF32 = 495e12                   # dense TF32 tensor cores
@@ -1540,6 +1568,457 @@ def encode_phase(torch, live, img, alpha, iters) -> dict:
             "bound_ms": segs["y slice 0"]["bound_ms"]}
 
 
+# the eval step launches what one forward does (FORWARD_LAUNCHES); the
+# real-codec branch adds one encode + decode and the RGB codec forward it
+# checks the decode against (4 attention, 6 GDN, 4 gate chains, 1 DSE)
+CODEC_FORWARD_LAUNCHES = _launch_counts(4, 6, 4, 1)
+EVAL_HW, EVAL_IMAGES, CLI_BATCH, EXPORT_BATCH = (512, 768), 8, 4, 16
+EVAL_GATES = {"bpp": 1e-4, "psnr": 0.01, "msssim": 1e-4, "psnr_real": 0.01}
+CODEC_ERR_MAX = 1e-5
+# codec_err above CODEC_ERR_MAX (_codec_err_parts): the decoded alpha
+# against the eval step's, a quarter of an 8-bit level on average and at
+# most 5% of the pixels off
+ALPHA_MEAN_MAX, ALPHA_SHARE_MAX = 1e-3, 0.05
+
+# loads exported artifacts in a process that imports nothing of the
+# package but its kernel operators, runs each, and runs it again with one
+# weight perturbed (the check below must see that)
+EXPORT_WORKER = """
+import json, sys, time, torch
+import rgba_tpu_torch.ops.kernels as kernels
+inputs, jobs = sys.argv[1], json.loads(sys.argv[2])
+x, a = torch.load(inputs)
+ks = (kernels.win_attn.KERNEL, kernels.gdn.KERNEL,
+      kernels.gate_chain.KERNEL, kernels.dse.KERNEL)
+results = []
+for path, out_path in jobs:
+    program = torch.export.load(path)
+    module = program.module()
+
+    def run(x, a, module=module):
+        with torch.inference_mode():
+            return module(x, a)
+    run(x, a)
+    torch.cuda.synchronize()
+    for k in ks:
+        k.launches = 0
+    out = run(x, a)
+    torch.cuda.synchronize()
+    launches = [k.launches for k in ks]
+    t = time.perf_counter()
+    for _ in range(3):
+        run(x, a)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) / 3 * 1e3
+    with torch.no_grad():
+        program.state_dict["model.rgb_codec.Decoder.dse.output_conv.bias"].add_(0.25)
+    bad = run(x, a, program.module())
+    torch.save({"good": {k: v.float().cpu() for k, v in out.items()},
+                "bad": {k: v.float().cpu() for k, v in bad.items()}}, out_path)
+    results.append({"launches": launches, "ms": ms})
+mods = sorted(m for m in sys.modules if m.startswith("rgba_tpu")
+              and not m.startswith("rgba_tpu_torch.ops.kernels")
+              and m not in ("rgba_tpu_torch", "rgba_tpu_torch.ops"))
+print("RESULT " + json.dumps({"modules": mods, "results": results}))
+"""
+
+
+def _rgba_dir(root: str, tree: str) -> str:
+    """The Kodak tree's images and masks as RGBA PNGs, the codec CLI's
+    input."""
+    import numpy as np
+    from rgba_tpu_torch.data import png
+    from rgba_tpu_torch.data.datasets import KodakDataset
+    os.makedirs(root, exist_ok=True)
+    ds = KodakDataset(tree)
+    for img, anno in zip(ds.img_paths, ds.anno_paths):
+        rgba = np.concatenate([png.load(img, "RGB"),
+                               png.load(anno, "L")[..., None]], -1)
+        png.write_png(os.path.join(root, os.path.basename(img)), rgba)
+    return root
+
+
+def _sum_launches(*counts):
+    return {n: sum(c[n] for c in counts) for n in KERNEL_NAMES}
+
+
+def _kodak_eval(torch, tree: str, ckpt: dict) -> dict:
+    """evaluate_kodak(real_codec=True) with all four kernels on (fp32) and
+    with them off, on the live weights."""
+    import numpy as np
+    from rgba_tpu_torch.core.precision import DEFAULT_POLICY
+    from rgba_tpu_torch.data.datasets import KodakDataset
+    from rgba_tpu_torch.eval.codec_io import CodecIO
+    from rgba_tpu_torch.eval.container import RGBAFileCodec
+    from rgba_tpu_torch.eval.kodak import evaluate_kodak, make_eval_step
+    from rgba_tpu_torch.models.pipeline import RGBAPipeline
+    from rgba_tpu_torch.train.checkpoint import load_checkpoint
+
+    item = KodakDataset(tree).get(0)
+    out = {}
+    for route, policy in (("on", _all_kernels(DEFAULT_POLICY)),
+                          ("off", DEFAULT_POLICY)):
+        pipe = RGBAPipeline(policy, seed=5)
+        for codec_name, m in (("rgb", pipe.rgb_codec),
+                              ("mask", pipe.mask_codec)):
+            if load_checkpoint(m, ckpt[codec_name]):
+                raise AssertionError(f"{codec_name} checkpoint incomplete")
+        rgb, mask = pipe.rgb_codec, pipe.mask_codec
+        codec = RGBAFileCodec(CodecIO(rgb, "rgb"), CodecIO(mask, "mask"))
+        step = make_eval_step(rgb, mask)
+        # warm-up, and the launches of one eval step and of one encode +
+        # decode of one image
+        step(item["masked_image"][None], item["alpha"][None])
+        codec.decode(codec.encode(item["image"][None], item["alpha"][None]))
+        torch.cuda.synchronize()
+        per = {}
+        _reset_launches()
+        {k: v.cpu() for k, v in step(item["masked_image"][None],
+                                    item["alpha"][None]).items()}
+        per["step"] = _read_launches(
+            FORWARD_LAUNCHES if route == "on" else _launch_counts(0, 0, 0, 0),
+            f"one eval step, kernels {route}")
+        _reset_launches()
+        codec.decode(codec.encode(item["image"][None], item["alpha"][None]))
+        per["codec"] = _read_launches(
+            CODEC_LAUNCHES if route == "on" else _launch_counts(0, 0, 0, 0),
+            f"one image's encode + decode, kernels {route}")
+        n = EVAL_IMAGES
+        want = (_sum_launches(*(n * [FORWARD_LAUNCHES, CODEC_LAUNCHES,
+                                     CODEC_FORWARD_LAUNCHES]))
+                if route == "on" else _launch_counts(0, 0, 0, 0))
+        _reset_launches()
+        t = time.perf_counter()
+        avg = evaluate_kodak(rgb, mask, tree, real_codec=True, codec=codec)
+        wall = time.perf_counter() - t
+        per["evaluate_kodak"] = _read_launches(
+            want, f"evaluate_kodak of {n} images, kernels {route}")
+        print(f"  kodak eval, kernels {route}: time {avg['time'] * 1e3:.3f} "
+              f"ms/image (eval step), codec {avg['codec_time'] * 1e3:.3f} "
+              f"ms/image (encode + decode), wall {wall:.2f} s for {n}; bpp "
+              f"{avg['bpp']:.6f} PSNR {avg['psnr']:.6f} MS-SSIM "
+              f"{avg['msssim']:.6f} real bpp {avg['real_bpp']:.6f} "
+              f"psnr_real {avg['psnr_real']:.6f} codec_err "
+              f"{avg['codec_err']:.3g}")
+        if not all(np.isfinite(v) for v in avg.values()):
+            raise AssertionError(f"kernels {route}: an average is not finite")
+        per_image = None
+        if avg["codec_err"] > CODEC_ERR_MAX:
+            per_image = _codec_err_parts(torch, tree, step, codec)
+        out[route] = {"avg": avg, "wall_s": wall, "launches": per,
+                      "codec_err_parts": per_image}
+        codec.rgb_io.close()
+        codec.mask_io.close()
+        del pipe, rgb, mask, codec, step
+    on, off = out["on"]["avg"], out["off"]["avg"]
+    gaps = {"bpp": abs(on["bpp"] - off["bpp"]) / abs(off["bpp"]),
+            "psnr": abs(on["psnr"] - off["psnr"]),
+            "msssim": abs(on["msssim"] - off["msssim"]),
+            "psnr_real": abs(on["psnr_real"] - off["psnr_real"])}
+    print("  kernels on against off: " + ", ".join(
+        f"{k} {v:.3g} (tol {EVAL_GATES[k]:g})" for k, v in gaps.items()))
+    for k, v in gaps.items():
+        if not v <= EVAL_GATES[k]:
+            raise AssertionError(f"kodak eval: {k} on against off {v} > "
+                                 f"{EVAL_GATES[k]}")
+    out["gaps"] = gaps
+    return out
+
+
+def _codec_err_parts(torch, tree: str, step, codec) -> list:
+    """codec_err above 1e-5: a value within fp32 noise of a rounding
+    boundary (a latent's half integer, or an 8-bit level of the decoded
+    alpha) rounded apart in two computations of the same values (the eval
+    step's forward and the codec's encode and decode, laid out and summed
+    apart).  Each image's parts are then held: the decoded RGB against the
+    forward on the container's own inputs within 1e-5, or its bulk
+    (``_bulk_agreement``), and the decoded alpha against the eval step's:
+    mean |d| <= ALPHA_MEAN_MAX and at most ALPHA_SHARE_MAX of the pixels
+    off by more than 1e-3.  A latent rounded apart changes its symbol, and
+    the channel-AR chain moves the slices after it a little: a patch of
+    the alpha by a few levels (on the CPU, 1.3% of a 192x256 image by up
+    to 5 levels); a desynced stream moves most of the image."""
+    import numpy as np
+    from rgba_tpu_torch.data.datasets import KodakDataset
+    from rgba_tpu_torch.eval.kodak import _codec_forward
+
+    print("  codec_err above 1e-5: a value at a rounding boundary rounded "
+          "apart in the eval step's forward and the codec; holding each "
+          "image's parts:")
+    ds = KodakDataset(tree)
+    parts = []
+    for i in range(len(ds)):
+        item = ds.get(i)
+        ref = step(item["masked_image"][None], item["alpha"][None])
+        rgba = codec.decode(codec.encode(item["image"][None],
+                                         item["alpha"][None]))
+        rm = rgba[..., 3:]
+        x_fwd = _codec_forward(codec.rgb_io,
+                               np.where(rm > 0, item["image"][None], rm), rm)
+        got = torch.from_numpy(rgba)
+        rgb_err = float(np.abs(rgba[..., :3] - x_fwd).max())
+        rgb = (rgb_err <= CODEC_ERR_MAX or _bulk_agreement(
+            got[..., :3], torch.from_numpy(x_fwd),
+            f"image {i} decoded RGB vs forward")["ok"])
+        d = (got[..., 3:] - ref["recon_mask"].cpu()).abs()
+        alpha = {"max_abs": float(d.max()), "mean_abs": float(d.mean()),
+                 "share_above_1e-3": float((d > 1e-3).float().mean())}
+        alpha["ok"] = (alpha["mean_abs"] <= ALPHA_MEAN_MAX
+                       and alpha["share_above_1e-3"] <= ALPHA_SHARE_MAX)
+        print(f"    image {i}: RGB max_abs {rgb_err:.3g}; alpha max_abs "
+              f"{alpha['max_abs']:.3g} mean_abs {alpha['mean_abs']:.3g} "
+              f"(tol {ALPHA_MEAN_MAX:g}) share>1e-3 "
+              f"{alpha['share_above_1e-3']:.3g} (tol {ALPHA_SHARE_MAX:g}) -> "
+              f"{'ok' if rgb and alpha['ok'] else 'FAIL'}")
+        if not (rgb and alpha["ok"]):
+            raise AssertionError(f"image {i}: the decode disagrees with the "
+                                 f"forward beyond a rounded tie")
+        parts.append({"rgb_max_abs": rgb_err, "alpha": alpha})
+    return parts
+
+
+def _codec_cli(torch, rgba: str, work: str, ckpt: dict) -> dict:
+    """``cli.codec`` encode-dir / decode-dir, v64 and lanes32, against
+    ``encode_batch`` / ``decode_batch(output="uint8")``."""
+    import glob
+    import numpy as np
+    from rgba_tpu_torch.cli import codec as cli
+    from rgba_tpu_torch.data import png
+
+    weights = ["-r", ckpt["rgb"], "-m", ckpt["mask"]]
+    paths = sorted(glob.glob(os.path.join(rgba, "*.png")))
+    c = cli._load_codecs(ckpt["rgb"], ckpt["mask"])
+    out = {}
+    for fmt in ("v64", "lanes32"):
+        enc, dec = os.path.join(work, f"enc_{fmt}"), os.path.join(work, f"dec_{fmt}")
+        t = time.perf_counter()
+        cli.main(["encode-dir", rgba, enc, "-b", str(CLI_BATCH),
+                  "--stream-format", fmt] + weights)
+        t_enc = time.perf_counter() - t
+        _reset_launches()
+        t = time.perf_counter()
+        cli.main(["decode-dir", enc, dec, "-b", str(CLI_BATCH)] + weights)
+        t_dec = time.perf_counter() - t
+        batches = len(paths) // CLI_BATCH
+        want = _launch_counts(0, 0, 0, 0,
+                              batches * LANE_DECODE_RANS if fmt == "lanes32"
+                              else 0)
+        launches = _read_launches(want, f"decode-dir of {len(paths)} {fmt} "
+                                        f"blobs")
+        for b0 in range(0, len(paths), CLI_BATCH):
+            chunk = paths[b0:b0 + CLI_BATCH]
+            x = np.stack([png.load(p, "RGBA") for p in chunk]).astype(
+                np.float32) / 255.0
+            blobs = c.encode_batch(x[..., :3], x[..., 3:], stream_format=fmt)
+            pixels = c.decode_batch(blobs, output="uint8")
+            for p, blob, px in zip(chunk, blobs, pixels):
+                stem = os.path.splitext(os.path.basename(p))[0]
+                with open(os.path.join(enc, stem + ".rgbc"), "rb") as f:
+                    if f.read() != blob:
+                        raise AssertionError(f"{fmt}: the CLI's {stem}.rgbc "
+                                             f"is not encode_batch's")
+                if not np.array_equal(
+                        png.load(os.path.join(dec, stem + ".png"), "RGBA"), px):
+                    raise AssertionError(f"{fmt}: the CLI's {stem}.png is not "
+                                         f"decode_batch's uint8")
+        out[fmt] = {"encode_img_per_s": len(paths) / t_enc,
+                    "decode_img_per_s": len(paths) / t_dec,
+                    "launches_decode": launches}
+        print(f"  codec CLI {fmt}: encode-dir {out[fmt]['encode_img_per_s']:.3f}"
+              f" img/s, decode-dir {out[fmt]['decode_img_per_s']:.3f} img/s "
+              f"({len(paths)} images, -b {CLI_BATCH}, weights loaded in each "
+              f"command); blobs = encode_batch's, PNGs = decode_batch's uint8")
+    c.rgb_io.close()
+    c.mask_io.close()
+    return out
+
+
+def _train_cli(torch, rgba: str, tree: str, work: str, ckpt: dict) -> dict:
+    """``cli.train_rgb``: 2 steps from a config, then ``--test`` on the
+    checkpoint it wrote (inside ``work``: the CLI writes checkpoints/ and
+    outputKodak/ under the working directory)."""
+    import numpy as np
+    from rgba_tpu_torch.cli import train_rgb
+
+    cfg = os.path.join(work, "cfg.json")
+    with open(cfg, "w") as f:
+        json.dump({"tot_epoch": 10, "tot_step": 2, "train_lambda": 1024,
+                   "batch_size": 2, "print_freq": 1,
+                   "save_model_freq": 10 ** 9}, f)
+    here = os.getcwd()
+    os.chdir(work)
+    try:
+        t = time.perf_counter()
+        train_rgb.main(["--config", cfg, "-n", "smoke", "--train-coco", rgba,
+                        "--train-p3m", "", "-pm", ckpt["mask"],
+                        "--kodak", os.path.join(work, "nokodak")])
+        t_train = time.perf_counter() - t
+        written = os.path.join(work, "checkpoints", "smoke", "iter_2.ckpt")
+        if not os.path.isfile(written):
+            raise AssertionError("train_rgb wrote no iter_2.ckpt")
+        avg = train_rgb.main(["--test", "-p", written, "-pm", ckpt["mask"],
+                              "--kodak", tree])
+        n_out = len(os.listdir(os.path.join(work, "outputKodak")))
+    finally:
+        os.chdir(here)
+    if not all(np.isfinite(avg[k]) for k in ("bpp", "psnr", "msssim")):
+        raise AssertionError(f"train_rgb --test: averages {avg}")
+    if n_out != EVAL_IMAGES:
+        raise AssertionError(f"train_rgb --test wrote {n_out} images")
+    print(f"  train_rgb CLI: 2 steps in {t_train:.2f} s (set-up included), "
+          f"iter_2.ckpt read back by --test: bpp {avg['bpp']:.6f} PSNR "
+          f"{avg['psnr']:.6f} over {n_out} images")
+    return {"train_s": t_train, "test_avg": avg}
+
+
+def _exports(torch, state: dict, work: str, iters: int) -> dict:
+    """The bf16 ``RGBAPipeline`` at batch 16 under ``SERVE_POLICY`` and
+    with all four kernels: exported, saved, and run in one fresh process
+    that imports only ``rgba_tpu_torch.ops.kernels``; then img/s of eager
+    against the exported program here, in turns (the same program the
+    fresh process loaded; its own img/s is printed beside)."""
+    from rgba_tpu_torch.core.precision import BF16_POLICY, SERVE_POLICY
+    from rgba_tpu_torch.data.synthetic import synthetic_rgba_batch
+    from rgba_tpu_torch.eval.export import (export_serving_forward,
+                                            save_artifact)
+    from rgba_tpu_torch.models.pipeline import RGBAPipeline
+
+    d = synthetic_rgba_batch(EXPORT_BATCH, *EVAL_HW, seed=40)
+    x = torch.from_numpy(d["masked_image"]).cuda()
+    a = torch.from_numpy(d["alpha"]).cuda()
+    inputs = os.path.join(work, "export_in.pt")
+    torch.save((x, a), inputs)
+    routes = {}
+    for name, policy in (("serve", SERVE_POLICY),
+                         ("all_kernels", _all_kernels(BF16_POLICY))):
+        pipe = RGBAPipeline(policy, seed=0)
+        pipe.load_state_dict(state)
+        eager = pipe(x, a)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        art = export_serving_forward(pipe, (x, a))
+        t_export = time.perf_counter() - t
+        path = os.path.join(work, f"{name}.pt2")
+        routes[name] = {"pipe": pipe, "art": art, "eager": eager,
+                        "path": path,
+                        "result": os.path.join(work, f"{name}_out.pt"),
+                        "export_s": t_export, "ops": art.kernel_ops(),
+                        "bytes": save_artifact(art, path),
+                        "want": [(FORWARD_LAUNCHES if policy.fused_gdn
+                                  else SERVE_LAUNCHES)[k]
+                                 for k in CONV_KERNELS]}
+    jobs = [[r["path"], r["result"]] for r in routes.values()]
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", EXPORT_WORKER, inputs,
+                           json.dumps(jobs)], capture_output=True, text=True,
+                          timeout=600,
+                          env=dict(os.environ, PYTHONPATH=str(REPO)))
+    t_fresh = time.perf_counter() - t
+    res = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")]
+    if proc.returncode or not res:
+        raise AssertionError(f"the artifacts failed in a fresh process:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    fresh = json.loads(res[-1][len("RESULT "):])
+    print(f"  fresh process: {t_fresh:.1f} s for both artifacts; modules of "
+          f"the package it imported besides the kernels: {fresh['modules']}")
+    if fresh["modules"]:
+        raise AssertionError(f"the fresh process imported {fresh['modules']}")
+    out = {}
+    for (name, r), got in zip(routes.items(), fresh["results"]):
+        outs = torch.load(r["result"])
+        ref = r["eager"]["x_hat"].float().cpu()
+        tol = BF16_TOL * max(1.0, float(ref.abs().max()))
+
+        def gate(o):
+            err = float((o["x_hat"] - ref).abs().max())
+            rel = (abs(float(o["bpp"]) - float(r["eager"]["bpp"]))
+                   / float(r["eager"]["bpp"]))
+            return err, rel, err <= tol and rel <= 1e-3
+
+        err, rel, ok = gate(outs["good"])
+        berr, brel, bok = gate(outs["bad"])
+        print(f"  export {name}: {r['export_s']:.1f} s, "
+              f"{r['bytes'] / 2 ** 20:.1f} MiB, ops {r['ops']}; in the fresh "
+              f"process: x_hat max_abs {err:.3g} (tol {tol:.4g}), bpp rel "
+              f"{rel:.3g} (tol 1e-3) -> {'ok' if ok else 'FAIL'}; with one "
+              f"weight moved: x_hat max_abs {berr:.3g}, bpp rel {brel:.3g} "
+              f"-> {'FAIL (the check cannot see it)' if bok else 'seen'}")
+        if not ok:
+            raise AssertionError(f"{name}: the artifact disagrees with eager")
+        if bok:
+            raise AssertionError(f"{name}: a perturbed artifact passed")
+        launches = dict(zip(CONV_KERNELS, got["launches"]))
+        print(f"  launches of one {name} artifact call in the fresh "
+              f"process: {launches}")
+        if got["launches"] != r["want"]:
+            raise AssertionError(f"{name}: the artifact launched "
+                                 f"{got['launches']}, not {r['want']}")
+        art, pipe = r["art"], r["pipe"]
+        art(x, a)
+
+        def img_per_s(fn):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(iters):
+                fn(x, a)
+            torch.cuda.synchronize()
+            return EXPORT_BATCH * iters / (time.perf_counter() - t)
+
+        rates = {turn: img_per_s(pipe if turn.startswith("eager") else art)
+                 for turn in ("eager", "artifact", "artifact again",
+                              "eager again")}
+        fresh_rate = EXPORT_BATCH / got["ms"] * 1e3
+        print(f"  {name} img/s: " + ", ".join(f"{k} {v:.3f}"
+                                              for k, v in rates.items())
+              + f" (batch {EXPORT_BATCH}, {EVAL_HW[0]}x{EVAL_HW[1]}; in the "
+              f"fresh process {fresh_rate:.3f})")
+        out[name] = {"export_s": r["export_s"], "bytes": r["bytes"],
+                     "ops": r["ops"], "x_hat_max_abs": err, "bpp_rel": rel,
+                     "perturbed_max_abs": berr, "launches": launches,
+                     "img_per_s": rates, "fresh_img_per_s": fresh_rate}
+    out["fresh_process_s"] = t_fresh
+    return out
+
+
+def eval_phase(torch, iters: int) -> dict:
+    """The eval and CLI entry points at the Kodak size (512x768), full
+    width, on the live weights."""
+    import tempfile
+    from rgba_tpu_torch.core.precision import BF16_POLICY
+    from rgba_tpu_torch.data.synthetic import write_synthetic_kodak_tree
+    from rgba_tpu_torch.models.pipeline import RGBAPipeline
+    from rgba_tpu_torch.train.checkpoint import save_checkpoint
+
+    out, secs = {}, {}
+    with tempfile.TemporaryDirectory() as work:
+        t = time.perf_counter()
+        tree = os.path.join(work, "kodak")
+        write_synthetic_kodak_tree(tree, EVAL_IMAGES, *EVAL_HW, seed=0)
+        rgba = _rgba_dir(os.path.join(work, "rgba"), tree)
+        live = RGBAPipeline(BF16_POLICY, seed=0)
+        _liven(torch, live)
+        state = live.state_dict()
+        ckpt = {k: save_checkpoint(getattr(live, f"{k}_codec").state_dict(),
+                                   os.path.join(work, k), 2)
+                for k in ("rgb", "mask")}
+        del live
+        secs["set_up"] = time.perf_counter() - t
+        for part, fn in (("kodak", lambda: _kodak_eval(torch, tree, ckpt)),
+                         ("codec_cli", lambda: _codec_cli(torch, rgba, work,
+                                                          ckpt)),
+                         ("train_cli", lambda: _train_cli(torch, rgba, tree,
+                                                          work, ckpt)),
+                         ("export", lambda: _exports(torch, state, work,
+                                                     iters))):
+            t = time.perf_counter()
+            out[part] = fn()
+            secs[part] = time.perf_counter() - t
+    print("  eval phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                               for k, v in secs.items()))
+    out["seconds"] = secs
+    return out
+
+
 class _SynthDataset:
     """Synthetic RGBA samples by index, as the trainers' loader reads them;
     drawn once (0.07 s a sample), so that the loader is not what a run's
@@ -2027,16 +2506,28 @@ def main(argv=None) -> int:
             if "registers" in line or "Compiling entry" in line or "spill" in line:
                 print(f"  {source}: {line.strip()}")
 
+    phase_s = {"build": time.perf_counter() - t0}
+    t = time.perf_counter()
     print("kernels at the main paths' shapes:")
     res = {"fused_gdn": gdn_cases(torch, args.batch, args.iters),
            "fused_window_attention": attention_cases(torch, args.batch,
                                                      args.iters),
            "fused_gate_chain": gate_chain_cases(torch, args.batch, args.iters),
            "fused_dse": dse_cases(torch, args.batch, args.iters)}
+    phase_s["kernels"] = time.perf_counter() - t
+    t = time.perf_counter()
     print("forward path:")
     path = path_phase(torch, args.batch, args.iters)
+    phase_s["forward"] = time.perf_counter() - t
+    t = time.perf_counter()
     print("codec path:")
     codec = codec_phase(torch, args.batch, args.iters)
+    phase_s["codec"] = time.perf_counter() - t
+    t = time.perf_counter()
+    print("eval and CLI entry points (Kodak size, 512x768):")
+    evals = eval_phase(torch, args.iters)
+    phase_s["eval"] = time.perf_counter() - t
+    t = time.perf_counter()
     print(f"kernels at the train path's shapes (batch {TRAIN_BATCH}, "
           f"{TRAIN_SIZE}x{TRAIN_SIZE}):")
     size = (TRAIN_BATCH, args.iters, TRAIN_SIZE, TRAIN_SIZE)
@@ -2047,6 +2538,9 @@ def main(argv=None) -> int:
         res[name] += cases(torch, *size)
     print("train path:")
     train = train_phase(torch)
+    phase_s["train"] = time.perf_counter() - t
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                        for k, v in phase_s.items()))
 
     meta = {
         "fused_window_attention": ("rgba_tpu_torch/csrc/win_attn.cu",
@@ -2082,6 +2576,10 @@ def main(argv=None) -> int:
                 "launches": path["launches"][name],
                 "launches_codec": codec["launches"][name],
                 "launches_train": train["launches_train"][name],
+                "launches_eval": evals["kodak"]["on"]["launches"]
+                ["evaluate_kodak"][name],
+                "launches_export": evals["export"]["all_kernels"]["launches"]
+                [name],
                 "max_abs_err": h["max_abs_err"], "ms": h["ms"],
                 "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
                 "bound_by": h["bound_by"], "library_ms": h["library_ms"],
@@ -2100,6 +2598,8 @@ def main(argv=None) -> int:
                 "launches_forward": path["launches"]["rans_decode"],
                 "launches_codec_v1": codec["launches"]["rans_decode"],
                 "launches_train": train["launches_train"]["rans_decode"],
+                "launches_cli_decode_dir": evals["codec_cli"]["lanes32"]
+                ["launches_decode"]["rans_decode"],
                 "max_abs_err": lanes["max_abs_err"], "ms": y0["ms"],
                 "plain_ms": y0["plain_ms"],
                 "bound_ms": y0["bound_ms"], "bound_by": "bytes",
@@ -2142,6 +2642,8 @@ def main(argv=None) -> int:
         "encode": {k: v for k, v in enc.items() if k != "segments"},
         "lanes": {k: v for k, v in lanes.items() if k != "segments"},
         "train": {k: v for k, v in train.items() if k != "launches_train"},
+        "eval": evals,
+        "phase_seconds": phase_s,
     }
     print(card)
     print(json.dumps(line))

@@ -2,7 +2,8 @@
 ``rgba_tpu/data/synthetic.py``).
 
 Smooth random images with blob-shaped alpha mattes, deterministic per
-seed.  The JAX package upsamples its noise octaves with Pillow's bilinear
+seed; ``write_synthetic_kodak_tree`` materializes a fake Kodak eval tree
+in the reference README's layout (written with the port's PNG writer).  The JAX package upsamples its noise octaves with Pillow's bilinear
 resize; ``_resize_bilinear_u8`` reproduces that resize on uint8 images
 bit for bit (Pillow's two-pass fixed-point resampling: horizontal pass,
 then vertical, 22 fractional bits), so both packages draw the same images
@@ -12,8 +13,11 @@ from the same seed without the port needing Pillow.
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
+
+from .png import write_png
 
 _PRECISION_BITS = 32 - 8 - 2
 
@@ -108,3 +112,26 @@ def synthetic_rgba_batch(batch: int, height: int, width: int, seed: int = 0,
         "image": image.astype(np.float32),
         "rgba": np.concatenate([image, alpha], -1).astype(np.float32),
     }
+
+
+def write_synthetic_kodak_tree(root: str, n_images: int = 2,
+                               height: int = 512, width: int = 768,
+                               seed: int = 0):
+    """Materialize <root>/{PNGImages,MaskImages,ImageSets} like the real
+    Kodak RGBA layout so the eval path can be driven without the dataset;
+    image i is ``synthetic_rgba_batch(1, ..., seed=seed + i)``.  Returns
+    the ids."""
+    for sub in ("PNGImages", "MaskImages", "ImageSets"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    ids = []
+    for i in range(n_images):
+        batch = synthetic_rgba_batch(1, height, width, seed=seed + i)
+        img = (batch["image"][0] * 255).astype(np.uint8)
+        alpha = (batch["alpha"][0, ..., 0] * 255).astype(np.uint8)
+        name = f"synth{i:02d}"
+        write_png(os.path.join(root, "PNGImages", name + ".png"), img)
+        write_png(os.path.join(root, "MaskImages", name + ".png"), alpha)
+        ids.append(name)
+    with open(os.path.join(root, "ImageSets", "mask.txt"), "w") as f:
+        f.write("\n".join(ids) + "\n")
+    return ids

@@ -32,8 +32,13 @@ def _nchw(t):
 
 
 def _blur(x, win):
-    """Separable valid-conv Gaussian blur, per channel.  x: (B, C, H, W)."""
-    c, k = x.shape[1], win.shape[0]
+    """Separable valid-conv Gaussian blur, per channel.  x: (B, C, H, W).
+    A side shorter than the window leaves nothing (an empty map, whose
+    mean is nan, as the JAX package's valid convolution gives)."""
+    b, c, h, w = x.shape
+    k = win.shape[0]
+    if h < k or w < k:
+        return x.new_empty(b, c, max(h - k + 1, 0), max(w - k + 1, 0))
     x = F.conv2d(x, win.reshape(1, 1, k, 1).expand(c, 1, k, 1), groups=c)
     return F.conv2d(x, win.reshape(1, 1, 1, k).expand(c, 1, 1, k), groups=c)
 

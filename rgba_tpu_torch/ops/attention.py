@@ -46,6 +46,25 @@ def param_key(params) -> tuple:
                  for p in params)
 
 
+def cached_layout(module, params, dtype, build):
+    """``build()``, a kernel's layout of ``params`` for ``dtype``, kept on
+    ``module._kernel_cache`` until a parameter is written or moved
+    (``param_key``).  While the forward is traced (``torch.export``) the
+    layout is computed from the parameters in the graph and not cached:
+    the traced parameters have no storage, and a layout captured from the
+    eager weights would go stale in the artifact."""
+    if torch.compiler.is_compiling():
+        with torch.no_grad():
+            return build()
+    key = (dtype, *param_key(params))
+    cached = module._kernel_cache    # one read: another thread may fill it
+    if cached[0] != key:
+        with torch.no_grad():
+            cached = (key, build())
+        module._kernel_cache = cached
+    return cached[1]
+
+
 class WindowAttention(nn.Module):
     """W-MSA over (nWB, N, C) token windows with relative-position bias."""
 
@@ -86,16 +105,11 @@ class WindowAttention(nn.Module):
         version, so only a move counts for them)."""
         params = (self.qkv.weight, self.qkv.bias, self.proj.weight,
                   self.proj.bias, self.relative_position_bias_table)
-        key = (dtype, *param_key(params))
-        cached = self._kernel_cache      # one read: another thread may fill it
-        if cached[0] != key:
-            with torch.no_grad():
-                wts = kernel_weights(self.qkv.weight.t(), self.qkv.bias,
-                                     self.proj.weight.t(), self.proj.bias,
-                                     self.num_heads, dtype)
-                cached = (key, (wts, self.rel_bias().contiguous()))
-            self._kernel_cache = cached
-        return cached[1]
+        return cached_layout(self, params, dtype, lambda: (
+            kernel_weights(self.qkv.weight.t(), self.qkv.bias,
+                           self.proj.weight.t(), self.proj.bias,
+                           self.num_heads, dtype),
+            self.rel_bias().contiguous()))
 
     def _dense(self, x, wqkv, bqkv, wproj, bproj, rel_bias, bias=None):
         """The plain formulation on explicit weights in torch layout
@@ -168,17 +182,22 @@ class MaskedWinBlock(nn.Module):
         self._masks = {}   # (h, w, b, device) -> region ids / bias tensors
 
     def _static(self, kind: str, h: int, w: int, b: int, device):
+        """Region ids or the additive bias of the shifted windows, kept per
+        shape (not while the forward is traced: a traced tensor must not
+        outlive its trace)."""
         key = (kind, h, w, b, device)
-        if key not in self._masks:
-            ws, ss = self.window_size, self.shift_size
-            if kind == "region":
-                t = torch.from_numpy(swin_region_ids(h, w, ws, ss))
-                t = t.to(device).repeat(b, 1)
-            else:
-                t = torch.from_numpy(swin_attention_bias(h, w, ws, ss))
-                t = t.to(device)
+        if key in self._masks:
+            return self._masks[key]
+        ws, ss = self.window_size, self.shift_size
+        if kind == "region":
+            t = torch.from_numpy(swin_region_ids(h, w, ws, ss))
+            t = t.to(device).repeat(b, 1)
+        else:
+            t = torch.from_numpy(swin_attention_bias(h, w, ws, ss))
+            t = t.to(device)
+        if not torch.compiler.is_compiling():
             self._masks[key] = t
-        return self._masks[key]
+        return t
 
     def forward(self, x, alpha=None):
         """x: (B, C, H, W); alpha: (B, 1, H, W) alpha at this scale, or None
@@ -270,14 +289,8 @@ class _Gate(nn.Module):
         parameter is written or moved (an optimizer step bumps its
         version)."""
         params = self.gate_parameters()
-        key = (dtype, *param_key(params))
-        cached = self._kernel_cache      # one read: another thread may fill it
-        if cached[0] != key:
-            with torch.no_grad():
-                cached = (key, gck.kernel_weights(
-                    *gate_kernel_weights(params), dtype))
-            self._kernel_cache = cached
-        return cached[1]
+        return cached_layout(self, params, dtype, lambda: gck.kernel_weights(
+            *gate_kernel_weights(params), dtype))
 
     def gate(self, x, g=None):
         """The plain gate around g (the attention output, or x itself)."""

@@ -18,7 +18,7 @@ import torch.nn.functional as F
 
 from ..core.precision import Policy
 from .conv import Conv, conv2d
-from .attention import param_key
+from .attention import cached_layout
 from .kernels import dse as dsek
 from .kernels.dse import fused_dse
 from .kernels.nhwc import hwio3x3, io1x1
@@ -58,14 +58,9 @@ class DSE(nn.Module):
         """The kernel's layout of the weights for ``dtype``
         (``dse.kernel_weights``), built once and kept until a parameter is
         written or moved (an optimizer step bumps its version)."""
-        key = (dtype, *param_key(self.parameters()))
-        cached = self._kernel_cache      # one read: another thread may fill it
-        if cached[0] != key:
-            with torch.no_grad():
-                cached = (key, dsek.kernel_weights(*self.kernel_weights(),
-                                                   dtype))
-            self._kernel_cache = cached
-        return cached[1]
+        return cached_layout(self, list(self.parameters()), dtype,
+                             lambda: dsek.kernel_weights(
+                                 *self.kernel_weights(), dtype))
 
     def forward(self, x):
         p = self.policy

@@ -16,7 +16,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from ..core.precision import Policy
-from .attention import param_key
+from .attention import cached_layout
 from .conv import per_image
 from .kernels.gdn import fused_gdn, kernel_weights
 from .kernels.remat import fused_primal_plain_grad
@@ -52,13 +52,8 @@ class GDN(nn.Module):
         built once and kept until gamma is written or moved (its version or
         storage changes; inference tensors keep no version, so only a move
         counts for them)."""
-        key = (dtype, *param_key((self.gamma,)))
-        cached = self._kernel_cache      # one read: another thread may fill it
-        if cached[0] != key:
-            with torch.no_grad():
-                cached = (key, kernel_weights(self.reparam()[1].t(), dtype))
-            self._kernel_cache = cached
-        return cached[1]
+        return cached_layout(self, (self.gamma,), dtype, lambda: kernel_weights(
+            self.reparam()[1].t(), dtype))
 
     def forward(self, x):
         """x: (B, C, H, W); gamma[i, j] weights input channel j into output

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import itertools
 import os
 import shutil
 import subprocess
@@ -30,6 +31,9 @@ def _nvcc() -> str:
         if cand and os.path.isfile(cand):
             return cand
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+_BUILD_SEQ = itertools.count()
 
 
 class CudaKernel:
@@ -64,7 +68,10 @@ class CudaKernel:
         if lib.exists():
             return None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        # a thread's ident is reused once it has ended: the count keeps two
+        # builds of one process apart whichever threads start them
+        tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}."
+                              f"{next(_BUILD_SEQ)}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / self.source)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)

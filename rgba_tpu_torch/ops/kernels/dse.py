@@ -118,10 +118,28 @@ def fused_dse(x, w_in, b_in, w3, b3, w_out, b_out, leaky: bool,
           * (1 if dt == torch.bfloat16 else 2)):
         raise ValueError("fused_dse: prepared weights do not match x's "
                          "dtype, device or channels")
+    return torch.ops.rgba_tpu_torch.dse(x, *prepared, leaky)
+
+
+@torch.library.custom_op("rgba_tpu_torch::dse", mutates_args=(),
+                         device_types="cuda")
+def dse_op(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor,
+           w3: torch.Tensor, b3: torch.Tensor, w_out: torch.Tensor,
+           b_out: torch.Tensor, leaky: bool) -> torch.Tensor:
+    """The kernel's launch as an operator (``torch.export`` keeps it in the
+    graph): the inputs ``fused_dse`` checked, the weights in
+    ``kernel_weights``' layout for x's dtype."""
     out = torch.empty_like(x)
     if x.numel():
-        KERNEL.launch(x.data_ptr(), *(t.data_ptr() for t in prepared),
-                      out.data_ptr(), b, h, w, cio, int(leaky),
-                      int(dt == torch.bfloat16),
+        b, h, w, cio = x.shape
+        KERNEL.launch(x.data_ptr(), w_in.data_ptr(), b_in.data_ptr(),
+                      w3.data_ptr(), b3.data_ptr(), w_out.data_ptr(),
+                      b_out.data_ptr(), out.data_ptr(), b, h, w, cio,
+                      int(leaky), int(x.dtype == torch.bfloat16),
                       torch.cuda.current_stream(x.device).cuda_stream)
     return out
+
+
+@dse_op.register_fake
+def _dse_fake(x, *args):
+    return torch.empty_like(x)

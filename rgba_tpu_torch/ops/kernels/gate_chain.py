@@ -19,7 +19,7 @@ on the tensor cores in bf16, fp32 as 3xTF32 (``tf32.py``).
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import List, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -223,11 +223,6 @@ def fused_gate_chain(x, g, trunk: GateChainWeights, gate: GateChainWeights,
         raise ValueError(f"fused_gate_chain: {dt} needs C % {step} == 0 (the "
                          f"tensor-core K step), got C={c}")
     gg = None if g is None else g.to(dt).contiguous()
-    xc = x
-    if x.data_ptr() % 16:               # 16-byte copies of pixel rows
-        xc = x.clone()
-    if gg is not None and gg.data_ptr() % 16:
-        gg = gg.clone()
     hp = padded_half(c, dt)
     if prepared is None:
         prepared = kernel_weights(trunk, gate, fw, fb, dt)
@@ -235,14 +230,38 @@ def fused_gate_chain(x, g, trunk: GateChainWeights, gate: GateChainWeights,
           or prepared.fw.numel() != (-(-c // hp) * hp * c * (1 if bf16 else 2))):
         raise ValueError("fused_gate_chain: prepared weights do not match "
                          "x's dtype, device or width")
-    out = torch.empty_like(xc)
+    return torch.ops.rgba_tpu_torch.gate_chain(
+        x, gg, list(prepared.trunk), list(prepared.gate), prepared.fw,
+        prepared.fb, ACTS.index(act), post_act)
+
+
+@torch.library.custom_op("rgba_tpu_torch::gate_chain", mutates_args=(),
+                         device_types="cuda")
+def gate_chain_op(x: torch.Tensor, g: Optional[torch.Tensor],
+                  trunk: List[torch.Tensor], gate: List[torch.Tensor],
+                  fw: torch.Tensor, fb: torch.Tensor, act: int,
+                  post_act: bool) -> torch.Tensor:
+    """The kernel's launch as an operator (``torch.export`` keeps it in the
+    graph): the inputs ``fused_gate_chain`` checked, each chain's six
+    tensors and the final 1x1 in ``kernel_weights``' layout for x's dtype;
+    act indexes ``ACTS``."""
+    if x.data_ptr() % 16:               # 16-byte copies of pixel rows
+        x = x.clone()
+    if g is not None and g.data_ptr() % 16:
+        g = g.clone()
+    out = torch.empty_like(x)
     if x.numel():
+        b, h, w, c = x.shape
         ptrs = (ctypes.c_void_p * 6)
-        KERNEL.launch(xc.data_ptr(), None if gg is None else gg.data_ptr(),
-                      ptrs(*[t.data_ptr() for t in prepared.trunk]),
-                      ptrs(*[t.data_ptr() for t in prepared.gate]),
-                      prepared.fw.data_ptr(), prepared.fb.data_ptr(),
-                      out.data_ptr(), b, h, w, c, ACTS.index(act),
-                      int(post_act), int(bf16),
+        KERNEL.launch(x.data_ptr(), None if g is None else g.data_ptr(),
+                      ptrs(*[t.data_ptr() for t in trunk]),
+                      ptrs(*[t.data_ptr() for t in gate]),
+                      fw.data_ptr(), fb.data_ptr(), out.data_ptr(), b, h, w,
+                      c, act, int(post_act), int(x.dtype == torch.bfloat16),
                       torch.cuda.current_stream(x.device).cuda_stream)
     return out
+
+
+@gate_chain_op.register_fake
+def _gate_chain_fake(x, *args):
+    return torch.empty_like(x)

@@ -96,17 +96,33 @@ def fused_gdn(x, gamma_t, beta, inverse: bool = False, prepared=None):
           or prepared.numel() != _prepared_numel(c, x.dtype)):
         raise ValueError("fused_gdn: prepared gamma does not match x's "
                          "dtype, device or width")
-    g = prepared
     b = beta.float().contiguous()
-    for t in (g, b):
+    for t in (prepared, b):
         if t.device != x.device:
             raise ValueError("fused_gdn: all inputs must be on x's device")
+    return torch.ops.rgba_tpu_torch.gdn(x, prepared, b, inverse)
+
+
+@torch.library.custom_op("rgba_tpu_torch::gdn", mutates_args=(),
+                         device_types="cuda")
+def gdn_op(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+           inverse: bool) -> torch.Tensor:
+    """The kernel's launch as an operator (``torch.export`` keeps it in the
+    graph): the inputs ``fused_gdn`` checked, gamma in ``kernel_weights``'
+    layout for x's dtype."""
     if x.data_ptr() % 16:
         x = x.clone()                    # 16-byte (bf16) / 8-byte (fp32) loads
+    c = x.shape[-1]
     y = torch.empty_like(x)
     m = x.numel() // c
     if m:
-        KERNEL.launch(x.data_ptr(), g.data_ptr(), b.data_ptr(), y.data_ptr(),
-                      m, c, int(inverse), int(x.dtype == torch.bfloat16),
+        KERNEL.launch(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                      y.data_ptr(), m, c, int(inverse),
+                      int(x.dtype == torch.bfloat16),
                       torch.cuda.current_stream(x.device).cuda_stream)
     return y
+
+
+@gdn_op.register_fake
+def _gdn_fake(x, *args):
+    return torch.empty_like(x)

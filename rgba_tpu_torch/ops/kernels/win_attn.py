@@ -195,8 +195,6 @@ def fused_window_attention(tokens, region, alive, wqkv, bqkv, wproj, bproj,
         raise ValueError(f"fused_window_attention: needs N <= "
                          f"{MMA_MAX_TOKENS} and C / heads <= "
                          f"{MMA_MAX_HEAD_DIM} (N={n}, C={c}, heads={nh})")
-    if tokens.data_ptr() % 16:            # 16-byte copies of token rows
-        tokens = tokens.clone()
     reg = region.contiguous()
     gate = alive.float().contiguous()
     if prepared is None:
@@ -206,13 +204,33 @@ def fused_window_attention(tokens, region, alive, wqkv, bqkv, wproj, bproj,
                                        else 2 * nh * tf32_geometry(c, nh)[1] * c)):
         raise ValueError("fused_window_attention: prepared weights do not "
                          "match tokens' dtype, device or width")
-    wq, bq, wp, bp = prepared
-    rb = rel_bias.float().contiguous()
+    return torch.ops.rgba_tpu_torch.win_attn(
+        tokens, reg, gate, *prepared, rel_bias.float().contiguous(), nh)
+
+
+@torch.library.custom_op("rgba_tpu_torch::win_attn", mutates_args=(),
+                         device_types="cuda")
+def win_attn_op(tokens: torch.Tensor, region: torch.Tensor,
+                alive: torch.Tensor, wqkv: torch.Tensor, bqkv: torch.Tensor,
+                wproj: torch.Tensor, bproj: torch.Tensor,
+                rel_bias: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """The kernel's launch as an operator (``torch.export`` keeps it in the
+    graph): the inputs ``fused_window_attention`` checked, the weights in
+    ``kernel_weights``' layout for tokens' dtype."""
+    if tokens.data_ptr() % 16:            # 16-byte copies of token rows
+        tokens = tokens.clone()
+    nw, n, c = tokens.shape
     out = torch.empty_like(tokens)
     if nw:
-        KERNEL.launch(tokens.data_ptr(), reg.data_ptr(), gate.data_ptr(),
-                      wq.data_ptr(), bq.data_ptr(), wp.data_ptr(),
-                      bp.data_ptr(), rb.data_ptr(), out.data_ptr(),
-                      nw, n, c, nh, hd ** -0.5, int(bf16),
+        KERNEL.launch(tokens.data_ptr(), region.data_ptr(), alive.data_ptr(),
+                      wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(),
+                      bproj.data_ptr(), rel_bias.data_ptr(), out.data_ptr(),
+                      nw, n, c, num_heads, (c // num_heads) ** -0.5,
+                      int(tokens.dtype == torch.bfloat16),
                       torch.cuda.current_stream(tokens.device).cuda_stream)
     return out
+
+
+@win_attn_op.register_fake
+def _win_attn_fake(tokens, *args):
+    return torch.empty_like(tokens)

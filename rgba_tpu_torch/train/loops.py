@@ -2,9 +2,10 @@
 
 RD loss = lambda * distortion + bpp, Adam on value-clamped gradients, LR
 step decay, windowed meters, periodic rotating snapshots and full
-checkpoints.  The RGB loop keeps the curriculum: before ``curriculum_step``
-the input is the full image with an all-ones mask, and the GT mask gates
-the decoder.
+checkpoints, and with ``image_dump_dir`` a PNG of the first image's
+reconstruction at every snapshot.  The RGB loop keeps the curriculum:
+before ``curriculum_step`` the input is the full image with an all-ones
+mask, and the GT mask gates the decoder.
 
 One process drives one GPU: a batch moves to the device with one
 non-blocking copy per array, and the step runs eagerly.  With a kernel flag
@@ -16,6 +17,7 @@ from __future__ import annotations
 
 import logging
 import math
+import os
 import time
 from typing import Callable, Optional
 
@@ -24,6 +26,7 @@ import torch
 
 from ..core.config import TrainConfig
 from ..core.precision import policy_from_str, precision_scope, resolve_device
+from ..data.png import write_png
 from ..metrics.ms_ssim import masked_ms_ssim
 from ..models.mask_codec import MaskCodec
 from ..models.rgb_codec import RGBCodec
@@ -79,11 +82,13 @@ class Trainer:
     batch_keys = ("masked_image", "alpha", "image")
 
     def __init__(self, model_cls, cfg: TrainConfig, loss_fn, save_path: str,
-                 model=None, device=None, snapshot_keep_after: int = 1_495_000):
+                 model=None, device=None, snapshot_keep_after: int = 1_495_000,
+                 image_dump_dir: str = ""):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.save_path = save_path
         self.snapshot_keep_after = snapshot_keep_after
+        self.image_dump_dir = image_dump_dir
         if model is None:
             # cfg.compute_dtype selects the training policy; an explicitly
             # passed model keeps its own
@@ -172,6 +177,8 @@ class Trainer:
                     save_rotating(self.model.state_dict(), self.save_path,
                                   step, cfg.snapshot_freq,
                                   self.snapshot_keep_after)
+                    if self.image_dump_dir:
+                        self._dump_images(batch, step)
                 if step % cfg.save_model_freq == 0:
                     save_checkpoint(self.model.state_dict(), self.save_path,
                                     step)
@@ -183,25 +190,67 @@ class Trainer:
         save_checkpoint(self.model.state_dict(), self.save_path, state.step)
         return state
 
+    def _dump_images(self, batch: dict, step: int) -> None:
+        """Reconstruction snapshots, ``<image_dump_dir>/<step><name>.png``
+        (the reference's periodic image dumps)."""
+        os.makedirs(self.image_dump_dir, exist_ok=True)
+        for suffix, arr in self._render_recon(batch).items():
+            arr8 = (np.clip(arr, 0, 1) * 255).astype(np.uint8)
+            write_png(os.path.join(self.image_dump_dir, f"{step}{suffix}.png"),
+                      arr8)
+
+    def _render_recon(self, batch: dict) -> dict:
+        """{file suffix: (H, W, C) array in [0, 1]} of the first image of
+        a host batch, through an eval forward of the model."""
+        raise NotImplementedError
+
+    def _eval_forward(self, fn):
+        was_training = self.model.training
+        self.model.eval()
+        try:
+            with torch.no_grad(), precision_scope(self.model.policy):
+                return fn()
+        finally:
+            self.model.train(was_training)
+
 
 class MaskTrainer(Trainer):
     batch_keys = ("alpha",)
 
     def __init__(self, cfg: TrainConfig, save_path: str, model=None,
-                 device=None):
+                 device=None, image_dump_dir: str = ""):
         super().__init__(MaskCodec, cfg, _mask_loss_fn(cfg), save_path,
                          model=model, device=device,
-                         snapshot_keep_after=595_000)
+                         snapshot_keep_after=595_000,
+                         image_dump_dir=image_dump_dir)
+
+    def _render_recon(self, batch):
+        m = self.device_batch({"alpha": batch["alpha"][:1]})["alpha"]
+        recon = self._eval_forward(lambda: torch.clamp(
+            self.model(m, training=False)["x_hat"], 0, 1))
+        return {"mask": recon[0].permute(1, 2, 0).cpu().numpy()}
 
 
 class RGBTrainer(Trainer):
     batch_keys = ("masked_image", "alpha")
 
     def __init__(self, cfg: TrainConfig, save_path: str, model=None,
-                 device=None):
+                 device=None, image_dump_dir: str = ""):
         super().__init__(RGBCodec, cfg, _rgb_loss_fn(cfg), save_path,
                          model=model, device=device,
-                         snapshot_keep_after=1_495_000)
+                         snapshot_keep_after=1_495_000,
+                         image_dump_dir=image_dump_dir)
+
+    def _render_recon(self, batch):
+        d = self.device_batch({k: batch[k][:1]
+                               for k in ("masked_image", "alpha")})
+        x, m = d["masked_image"], d["alpha"]
+        recon = self._eval_forward(lambda: torch.clamp(self.model(
+            x, m, m, mask_pyramid(m), training=False)["x_hat"], 0, 1))
+        recon = recon[0].permute(1, 2, 0).cpu().numpy()
+        alpha = np.asarray(batch["alpha"][0], np.float32)
+        return {"image": np.concatenate([recon, alpha], axis=-1),
+                "mask": alpha}
 
     def train(self, loader, state, tb_writer=None, eval_fn=None,
               max_steps=None):

@@ -186,6 +186,8 @@ def state_dict_from_jax(tree, kind: str) -> dict:
         key, tkind = mapper(path)
         if key in sd:
             raise KeyError(f"{path} maps to {key} twice")
+        if torch.is_tensor(value):        # a bfloat16 leaf (flax_msgpack)
+            value = value.float().numpy()
         arr = np.asarray(value, dtype=np.float32)
         arr = _to_torch_layout(arr, tkind, path.endswith("kernel"))
         sd[key] = torch.from_numpy(np.ascontiguousarray(arr))

@@ -1001,3 +1001,154 @@ def test_trainer_step_on_the_card(card, kind, tmp_path):
         assert all(bool(torch.isfinite(v)) for v in m.values())
     assert state.step == 3
     assert all(bool(torch.isfinite(p).all()) for p in model.parameters())
+
+
+# ------------------------------------------------- the kernels as operators
+
+
+def _op_case(name, dtype, dev):
+    """(operator arguments, a direct ctypes launch of the same kernel on
+    them) at a small shape of each kernel."""
+    import ctypes
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    bf16 = int(dtype == torch.bfloat16)
+    if name == "win_attn":
+        t, region, alive, wq, bq, wp, bp, rb = _attn_args(24, 64, 192, 8,
+                                                          dtype, dev)
+        prep = win_attn.kernel_weights(wq, bq, wp, bp, 8, dtype)
+        args = (t, region, alive.float(), *prep, rb, 8)
+
+        def direct(out):
+            win_attn.KERNEL.launch(
+                t.data_ptr(), region.data_ptr(), args[2].data_ptr(),
+                *(w.data_ptr() for w in prep), rb.data_ptr(), out.data_ptr(),
+                24, 64, 192, 8, 24 ** -0.5, bf16, stream)
+        return args, direct
+    if name == "gdn":
+        x, gt, beta = _gdn_args(1000, 192, dtype, dev)
+        g = gdn.kernel_weights(gt, dtype)
+        args = (x, g, beta, True)
+
+        def direct(out):
+            gdn.KERNEL.launch(x.data_ptr(), g.data_ptr(), beta.data_ptr(),
+                              out.data_ptr(), 1000, 192, 1, bf16, stream)
+        return args, direct
+    if name == "gate_chain":
+        x, gg, trunk, gate, fw, fb = _gate_args(1, 32, 48, 192, dtype, dev,
+                                                True)
+        prep = gate_chain.kernel_weights(trunk, gate, fw, fb, dtype)
+        args = (x, gg, list(prep.trunk), list(prep.gate), prep.fw, prep.fb,
+                gate_chain.ACTS.index("gelu_erf"), True)
+
+        def direct(out):
+            ptrs = ctypes.c_void_p * 6
+            gate_chain.KERNEL.launch(
+                x.data_ptr(), gg.data_ptr(),
+                ptrs(*[t.data_ptr() for t in prep.trunk]),
+                ptrs(*[t.data_ptr() for t in prep.gate]), prep.fw.data_ptr(),
+                prep.fb.data_ptr(), out.data_ptr(), 1, 32, 48, 192,
+                args[6], 1, bf16, stream)
+        return args, direct
+    x, *w = _dse_args(1, 40, 56, 3, dtype, dev)
+    prep = dse.kernel_weights(*w, dtype)
+    args = (x, *prep, False)
+
+    def direct(out):
+        dse.KERNEL.launch(x.data_ptr(), *(t.data_ptr() for t in prep),
+                          out.data_ptr(), 1, 40, 56, 3, 0, bf16, stream)
+    return args, direct
+
+
+def _fake_of(name, args):
+    """The operator's fake on fake copies of ``args``: shape, dtype and
+    device of the output, as torch.export sees them."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils._pytree import tree_map
+    mode = FakeTensorMode()
+    fargs = tree_map(lambda t: mode.from_tensor(t) if torch.is_tensor(t)
+                     else t, args)
+    with mode:
+        out = getattr(torch.ops.rgba_tpu_torch, name)(*fargs)
+    return tuple(out.shape), out.dtype, out.device
+
+
+OPS = ["win_attn", "gdn", "gate_chain", "dse"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", OPS)
+def test_the_operator_is_the_direct_launch(card, name, dtype):
+    """torch.ops.rgba_tpu_torch.<name> gives the bits of a direct launch of
+    its kernel, counts one launch, and its fake gives the output's shape,
+    dtype and device."""
+    args, direct = _op_case(name, dtype, card)
+    kern = {"win_attn": win_attn, "gdn": gdn, "gate_chain": gate_chain,
+            "dse": dse}[name].KERNEL
+    before = kern.launches
+    got = getattr(torch.ops.rgba_tpu_torch, name)(*args)
+    assert kern.launches == before + 1
+    want = torch.empty_like(args[0])
+    direct(want)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert _fake_of(name, args) == (tuple(got.shape), got.dtype, got.device)
+
+
+def test_an_exported_serving_pipeline_launches_the_attention_kernel(card,
+                                                                    tmp_path):
+    """SERVE_POLICY (bf16, the attention kernel only): the artifact holds
+    the operator, runs it 4 times a call after a save and load, and
+    equals the eager forward."""
+    from rgba_tpu_torch.eval.export import (export_serving_forward,
+                                            load_artifact, save_artifact)
+    pipe = RGBAPipeline(SERVE_POLICY, seed=0)
+    d = synthetic_rgba_batch(2, 64, 128, seed=1)
+    x = torch.from_numpy(d["masked_image"]).to(card)
+    a = torch.from_numpy(d["alpha"]).to(card)
+    eager = pipe(x, a)
+    art = export_serving_forward(pipe, (x, a))
+    assert art.kernel_ops() == ["rgba_tpu_torch.win_attn.default"]
+    path = str(tmp_path / "serve.pt2")
+    save_artifact(art, path)
+    loaded = load_artifact(path)
+    assert loaded.compute_dtype == "bfloat16"
+    loaded(x, a)
+    before = _launches()
+    out = loaded(x, a)
+    torch.cuda.synchronize()
+    assert tuple(n - b for n, b in zip(_launches(), before)) == (4, 0, 0, 0)
+    ref = eager["x_hat"].float()
+    err = float((out["x_hat"].float() - ref).abs().max())
+    assert err <= 2.0 ** -5 * max(1.0, float(ref.abs().max()))
+    assert abs(float(out["bpp"]) - float(eager["bpp"])) <= \
+        1e-3 * float(eager["bpp"])
+
+
+def test_an_unbundled_artifact_lays_out_the_weights_it_is_given(card):
+    """Parameters as a runtime argument: the kernel layouts come from the
+    weights of each call, not from the weights at export time (a stale
+    layout would give the first weights' rate back)."""
+    from rgba_tpu_torch.eval.export import export_serving_forward
+    pipe = RGBAPipeline(SERVE_POLICY, seed=0)
+    with torch.no_grad():
+        for name, p in pipe.named_parameters():
+            if name.endswith("output_conv.bias"):
+                p.fill_(0.5)
+        pipe.rgb_codec.Encoder.x4.weight.mul_(10.0)
+    d = synthetic_rgba_batch(1, 64, 128, seed=2)
+    x = torch.from_numpy(d["masked_image"]).to(card)
+    a = torch.from_numpy(d["alpha"]).to(card)
+    art = export_serving_forward(pipe, (x, a), bundle_params=False)
+    assert art.kernel_ops() == ["rgba_tpu_torch.win_attn.default"]
+    params = {k: v.detach() for k, v in pipe.named_parameters()}
+    other = {k: v * 1.5 if ".attn.attn." in k else v
+             for k, v in params.items()}
+    got, first = art(other, x, a), art(params, x, a)
+    with torch.inference_mode():
+        want = torch.func.functional_call(pipe, other, (x, a))
+    ref = want["x_hat"].float()
+    tol = 2.0 ** -5 * max(1.0, float(ref.abs().max()))
+    assert float((got["x_hat"].float() - ref).abs().max()) <= tol
+    assert abs(float(got["bpp"]) - float(want["bpp"])) <= \
+        1e-3 * float(want["bpp"])
+    assert float(got["bpp"]) != float(first["bpp"])
