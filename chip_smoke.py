@@ -87,7 +87,8 @@ failure:
    pixels off by more than 1e-3: a desynced stream moves most); the time per
    image of the eval step and of the codec); ``cli.codec`` encode-dir / decode-dir
    of 16 RGBA PNGs at ``-b 8``, v64 and lanes32 (every blob equal to
-   ``encode_batch``'s, every PNG to ``decode_batch(output="uint8")``'s,
+   ``encode_batch``'s, every PNG to the JAX CLI's pixels of
+   ``decode_batch``'s float decode, clipped, times 255 and truncated,
    2 x 17 ``rans_decode`` launches in the lanes32 decode-dir; img/s of each
    command); ``cli.train_rgb``: 2 steps from a config in a temporary
    directory, ``iter_2.ckpt``, read back by ``--test`` over the tree;
@@ -136,12 +137,20 @@ no result.
 
     python3 chip_smoke.py --base DIR [--iters 20]
 
-compares all four kernels of another checkout DIR (for example a parent
-commit unpacked with ``git archive``) with this one's on the same card:
-each tree builds its four kernels and runs its own ``gdn_cases``,
+compares the kernels of another checkout DIR (for example a parent commit
+unpacked with ``git archive``) with this one's on the same card: each
+tree builds its kernels and runs its own ``gdn_cases``,
 ``attention_cases``, ``gate_chain_cases`` and ``dse_cases`` (the main
-paths' shapes, bf16 and fp32) in a process of its own, in turns base,
-head, head, base; it prints each case's kernel time per turn.
+paths' shapes, bf16 and fp32), and times its ``rans_decode`` and
+``rans_encode`` on the RGB z segment, on y slice 0 and on the 11 RGB
+segments back to back that this tree records from a v3 decode and a
+device v3 encode (``rans_ab_inputs``, the same inputs for both trees,
+each launch held to the recorded outputs bit for bit), in a process of
+its own, in turns base, head, head, base; both trees are timed with this
+tree's ``_time_ms``, and the rANS cases also without holding the card
+(``hold=False``, so that the host's gaps between launches count).  It
+prints each case's kernel time per turn (about 8 minutes with the
+builds).
 """
 
 from __future__ import annotations
@@ -175,19 +184,59 @@ def _card_line() -> str:
     return out[0].strip()
 
 
-def _time_ms(torch, fn, iters: int) -> float:
+HOLD_CYCLES = 50_000_000   # ~25 ms of the card spinning (torch.cuda._sleep)
+
+
+def _time_ms(torch, fn, iters: int, hold: bool = True) -> float:
     """Mean device time of fn() over `iters` calls after two warm-ups,
-    with CUDA events."""
+    with CUDA events.  With ``hold`` the card is held busy while the host
+    enqueues the calls, so a kernel shorter than its launch's host work is
+    timed, not the host; without it the gaps between launches count too."""
     fn()
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if hold:
+        torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+# The rANS kernels' chain bound: a lane's steps depend on each other through
+# its state, so a segment takes at least its longest lane's active steps
+# times the shortest dependent path of one step, at the card's top SM
+# clock.  The paths, read from csrc/rans_{decode,encode}.cu with Hopper's
+# latencies (an integer ALU op or multiply 4 cycles, a shared-memory load
+# 29): decode, the cum mask, bucket index and address (3 ops), the bucket
+# load, the frequency (2), the state multiply-add (1), the renorm compare
+# and select (2); encode, the renorm compare and select (2), the quotient's
+# __umulhi, subtract, shift, add and shift (5), the state multiply-add (1).
+ALU_CYCLES, LDS_CYCLES = 4, 29
+RANS_CHAIN_CYCLES = {"rans_decode": 8 * ALU_CYCLES + LDS_CYCLES,
+                     "rans_encode": 8 * ALU_CYCLES}
+
+
+def _max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip().splitlines()
+    return float(out[0]) * 1e6
+
+
+def _chain_bound(act, kernel: str) -> dict:
+    """The chain bound of one segment launch: ``act`` (T, B, L) its active
+    flags."""
+    steps = int(act.sum(0).max())
+    clock = _max_sm_clock_hz()
+    cycles = RANS_CHAIN_CYCLES[kernel]
+    return {"chain_bound_ms": steps * cycles / clock * 1e3,
+            "chain_steps": steps, "chain_cycles_per_step": cycles,
+            "sm_clock_mhz": clock / 1e6}
 
 
 def _bound(nbytes: float, flops: float, dtype: str) -> dict:
@@ -872,9 +921,10 @@ def _segment_bound(torch, call) -> dict:
     (8 B) and pointer (4 B), read and written, and its end (4 B); the
     stream words the lanes consume (2 B); and the CDF rows the active
     positions address, at their length, with their max value and offset.
-    The dense inverse tables and the row search's reads are the kernel's
-    own design, not the function's, so they are not charged.  Bound by
-    bytes: the work is a few integer operations per symbol."""
+    The kernel's own tables (the compact layout each block stages, the
+    buckets' copies of entries) are its design, not the function's, so
+    they are not charged.  Bound by bytes: the work is a few integer
+    operations per symbol.  Beside it the chain bound (``_chain_bound``)."""
     n_pos = call["idx"].numel()
     lanes = call["state"].numel()
     act = call["act"].bool()
@@ -888,7 +938,8 @@ def _segment_bound(torch, call) -> dict:
     return {"bound_ms": res["bound_ms"], "bound_by": "bytes",
             "bytes": nbytes, "table_bytes": table_bytes,
             "rows": int(rows.numel()), "active_symbols": active,
-            "shape": list(call["idx"].shape), "words_read": words}
+            "shape": list(call["idx"].shape), "words_read": words,
+            **_chain_bound(act, "rans_decode")}
 
 
 def _replay(torch, calls, fn, words=None):
@@ -950,7 +1001,7 @@ def lane_phase(torch, codec, img, alpha, blobs_v64, dec_v64, iters) -> dict:
           f"{sum(len(b) for b in blobs_v64)} bytes)")
 
     # the kernel against the plain version: the RGB z segment (row search)
-    # and its first y slice (inverse tables), on the recorded inputs
+    # and its first y slice (the Gaussian rows), on the recorded inputs
     rgb = calls[-11:]                   # the mask chain decodes first
     checks, errs = {}, {}
     for name, call in (("z", rgb[0]), ("y slice 0", rgb[1])):
@@ -964,8 +1015,12 @@ def lane_phase(torch, codec, img, alpha, blobs_v64, dec_v64, iters) -> dict:
         same = all(torch.equal(a, b) for a, b in zip(kern, plain)) and \
             torch.equal(kern[0], call["syms"])
         errs[name] = int((kern[0].long() - plain[0].long()).abs().max())
+        lay = call["tables"]["compact"]
         print(f"  rans_decode {name} ({tuple(call['idx'].shape)} steps x "
-              f"images x lanes, {'inverse tables' if call['inverse'] is not None else 'row search'}): "
+              f"images x lanes; rows {lay['rows'][0]}-{lay['rows'][1]} in "
+              f"shared memory, buckets of 2^{lay['min_shift']}-2^"
+              f"{lay['max_shift']} cums; plain: "
+              f"{'inverse tables' if call['inverse'] is not None else 'row search'}): "
               f"symbols, state, pointer equal to the plain decode_segment: "
               f"{'yes' if same else 'NO'} (symbols max_abs_err {errs[name]})")
         if not same:
@@ -1036,7 +1091,10 @@ def lane_phase(torch, codec, img, alpha, blobs_v64, dec_v64, iters) -> dict:
               f"{c['plain_ms']:.3f} ms, {_bound_text(c)} ({c['bytes'] / 1e6:.3f}"
               f" MB, of which {c['table_bytes'] / 1e6:.3f} MB the {c['rows']} "
               f"CDF rows addressed; {c['active_symbols']} symbols), "
-              f"{100.0 * c['bound_ms'] / c['ms']:.2f}% of the bound, "
+              f"{100.0 * c['bound_ms'] / c['ms']:.2f}% of the bound; chain "
+              f"bound {c['chain_bound_ms']:.4f} ms ({c['chain_steps']} steps x "
+              f"{c['chain_cycles_per_step']} cycles at {c['sm_clock_mhz']:.0f}"
+              f" MHz), {100.0 * c['chain_bound_ms'] / c['ms']:.1f}% of it; "
               f"library: none")
     chain_ms = _time_ms(torch, lambda: _replay(torch, rgb, rd.rans_decode),
                         iters)
@@ -1359,7 +1417,8 @@ def _encode_bound(torch, call) -> dict:
             "rows": rows, "escapes": escapes,
             "active_symbols": int(act.sum()),
             "shape": list(call["idx"].shape),
-            "dtypes": [str(call["idx"].dtype), str(call["sym"].dtype)]}
+            "dtypes": [str(call["idx"].dtype), str(call["sym"].dtype)],
+            **_chain_bound(act, "rans_encode")}
 
 
 def encode_phase(torch, live, img, alpha, iters) -> dict:
@@ -1477,7 +1536,11 @@ def encode_phase(torch, live, img, alpha, iters) -> dict:
               f"escapes, {res['words_emitted']} words): kernel "
               f"{res['ms']:.4f} ms, plain {res['plain_ms']:.3f} ms, "
               f"{_bound_text(res)} ({res['bytes'] / 1e6:.3f} MB), "
-              f"{100.0 * res['bound_ms'] / res['ms']:.2f}% of the bound, "
+              f"{100.0 * res['bound_ms'] / res['ms']:.2f}% of the bound; "
+              f"chain bound {res['chain_bound_ms']:.4f} ms "
+              f"({res['chain_steps']} steps x {res['chain_cycles_per_step']} "
+              f"cycles at {res['sm_clock_mhz']:.0f} MHz), "
+              f"{100.0 * res['chain_bound_ms'] / res['ms']:.1f}% of it; "
               f"library: none")
 
     # the host C++ coder on the same 16 RGB streams (its symbols as the
@@ -1510,12 +1573,18 @@ def encode_phase(torch, live, img, alpha, iters) -> dict:
     print(f"  (a) every RGB stream: the kernel's words equal the host C++ "
           f"encode_lanes ({batch} streams of {int(seg_ends[-1])} symbols; "
           f"host {host_ms:.3f} ms on one thread)")
-    chain_ms = _time_ms(torch, lambda: [re_.rans_encode(
-        c["tables"], c["state"].clone(), c["wptr"].clone(), c["out"].clone(),
-        c["idx"], c["sym"], c["act"]) for c in rgb], iters)
-    print(f"  the 11 RGB segments (each from a copy of its inputs): "
-          f"{chain_ms:.3f} ms on the card against {host_ms:.3f} ms for the "
-          f"host C++ encode_lanes of the same {batch} streams")
+    def chain():
+        # the 11 segments in their order, the lane state passed on, from
+        # one copy of the first one's (a word buffer of ~17 MB at batch 16)
+        c0 = rgb[0]
+        st, wp, ow = (c0[k].clone() for k in ("state", "wptr", "out"))
+        for c in rgb:
+            st, wp, ow = re_.rans_encode(c["tables"], st, wp, ow, c["idx"],
+                                         c["sym"], c["act"])
+    chain_ms = _time_ms(torch, chain, iters)
+    print(f"  the 11 RGB segments back to back: {chain_ms:.3f} ms on the "
+          f"card against {host_ms:.3f} ms for the host C++ encode_lanes of "
+          f"the same {batch} streams")
 
     rates = {}
     for route in ("1", "0", "0", "1"):
@@ -1779,7 +1848,8 @@ def _codec_err_parts(torch, tree: str, step, codec) -> list:
 
 def _codec_cli(torch, rgba: str, work: str, ckpt: dict) -> dict:
     """``cli.codec`` encode-dir / decode-dir, v64 and lanes32, against
-    ``encode_batch`` / ``decode_batch(output="uint8")``."""
+    ``encode_batch`` and the JAX CLI's pixels of ``decode_batch``'s float
+    decode (clipped, times 255, truncated)."""
     import glob
     import numpy as np
     from rgba_tpu_torch.cli import codec as cli
@@ -1810,7 +1880,8 @@ def _codec_cli(torch, rgba: str, work: str, ckpt: dict) -> dict:
             x = np.stack([png.load(p, "RGBA") for p in chunk]).astype(
                 np.float32) / 255.0
             blobs = c.encode_batch(x[..., :3], x[..., 3:], stream_format=fmt)
-            pixels = c.decode_batch(blobs, output="uint8")
+            pixels = (np.clip(c.decode_batch(blobs), 0, 1) * 255).astype(
+                np.uint8)
             for p, blob, px in zip(chunk, blobs, pixels):
                 stem = os.path.splitext(os.path.basename(p))[0]
                 with open(os.path.join(enc, stem + ".rgbc"), "rb") as f:
@@ -1820,14 +1891,15 @@ def _codec_cli(torch, rgba: str, work: str, ckpt: dict) -> dict:
                 if not np.array_equal(
                         png.load(os.path.join(dec, stem + ".png"), "RGBA"), px):
                     raise AssertionError(f"{fmt}: the CLI's {stem}.png is not "
-                                         f"decode_batch's uint8")
+                                         f"the truncated float decode")
         out[fmt] = {"encode_img_per_s": len(paths) / t_enc,
                     "decode_img_per_s": len(paths) / t_dec,
                     "launches_decode": launches}
         print(f"  codec CLI {fmt}: encode-dir {out[fmt]['encode_img_per_s']:.3f}"
               f" img/s, decode-dir {out[fmt]['decode_img_per_s']:.3f} img/s "
               f"({len(paths)} images, -b {CLI_BATCH}, weights loaded in each "
-              f"command); blobs = encode_batch's, PNGs = decode_batch's uint8")
+              f"command); blobs = encode_batch's, PNGs = the float decode "
+              f"truncated, as the JAX CLI writes them")
     c.rgb_io.close()
     c.mask_io.close()
     return out
@@ -2425,13 +2497,18 @@ def _mask_fp32_split(torch, dataset) -> dict:
             "launches": runs["on"]["launches"]}
 
 
-# runs in either checkout, through that checkout's own chip_smoke.py
+# runs in either checkout, through that checkout's own chip_smoke.py, its
+# cases timed by this checkout's _time_ms (argv[1] this file)
 AB_WORKER = """
-import json, sys, torch
+import importlib.util, json, sys, torch
 import chip_smoke as cs
 from rgba_tpu_torch.ops.kernels import build
+spec = importlib.util.spec_from_file_location("head_smoke", sys.argv[1])
+head = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(head)
+cs._time_ms = head._time_ms
 build.build_all(list(cs._kernels().values()))
-batch, iters = int(sys.argv[1]), int(sys.argv[2])
+batch, iters = int(sys.argv[2]), int(sys.argv[3])
 cases = []
 for fn in (cs.gdn_cases, cs.attention_cases, cs.gate_chain_cases,
            cs.dse_cases):
@@ -2439,27 +2516,199 @@ for fn in (cs.gdn_cases, cs.attention_cases, cs.gate_chain_cases,
 print("RESULT " + json.dumps(cases))
 """
 
+# runs in either checkout on the inputs ``rans_ab_inputs`` saved: that
+# checkout's rans_decode / rans_encode wrappers, each timed run from its own
+# copy of the lane state made before the clock starts, timed by this
+# checkout's _time_ms (argv[1] this file) with the card held and without;
+# a tree whose device_rans has ``segment_tables`` gets the layout of each
+# segment's row group, as its CodecIO passes it (an older tree reads the
+# dense inverse tables of the y rows)
+AB_RANS_WORKER = """
+import importlib.util, json, sys, torch
+from rgba_tpu_torch.entropy import device_rans as dr
+from rgba_tpu_torch.ops.kernels import build, rans_decode as rd
+from rgba_tpu_torch.ops.kernels import rans_encode as re_
+spec = importlib.util.spec_from_file_location("head_smoke", sys.argv[1])
+head = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(head)
+build.build_all([rd.KERNEL, re_.KERNEL])
+data = torch.load(sys.argv[2])
+iters = int(sys.argv[3])
+tables = {k: v.cuda() for k, v in data["tables"].items()}
+inverse = {k: v.cuda() for k, v in data["inverse"].items()}
+groups = {}
 
-def ab_phase(base: Path, batch: int, iters: int) -> dict:
-    import os
+def segment(seg):
+    rows = tuple(seg["rows"])
+    if rows not in groups:
+        groups[rows] = (dr.segment_tables(tables, rows)
+                        if hasattr(dr, "segment_tables") else tables)
+    return dict(seg, tables=groups[rows],
+                inverse=inverse if seg["y"] else None,
+                **{k: seg[k].cuda() for k in seg["inputs"]})
+
+out = []
+for c in data["cases"]:
+    segs = [segment(seg) for seg in c["segments"]]
+    n = iters if len(segs) > 1 else 4 * iters
+    fresh = [{k: c[k].cuda() for k in c["carries"]} for _ in range(2 * n + 5)]
+    if c["kernel"] == "rans_decode":
+        words, lane_end = c["words"].cuda(), c["lane_end"].cuda()
+        def run():
+            f = fresh.pop()
+            st, pt, syms = f["state"], f["ptr"], []
+            for s in segs:
+                y, st, pt = rd.rans_decode(s["tables"], words, st, pt,
+                                           s["idx"], s["act"], lane_end,
+                                           inverse=s["inverse"])
+                syms.append(y)
+            return syms + [st, pt]
+    else:
+        def run():
+            f = fresh.pop()
+            st, wp, ow = f["state"], f["wptr"], f["out"]
+            for s in segs:
+                st, wp, ow = re_.rans_encode(s["tables"], st, wp, ow,
+                                             s["idx"], s["sym"], s["act"])
+            return [st, wp, ow]
+    got = run()
+    torch.cuda.synchronize()
+    equal = len(got) == len(c["want"]) and all(
+        torch.equal(g.cpu(), w) for g, w in zip(got, c["want"]))
+    out.append({"kernel": c["kernel"], "dtype": "int", "shape": c["name"],
+                "ms": head._time_ms(torch, run, n),
+                "unheld_ms": head._time_ms(torch, run, n, hold=False),
+                "max_abs_err": 0.0 if equal else float("inf")})
+print("RESULT " + json.dumps(out))
+"""
+
+
+def rans_ab_inputs(torch, batch: int, path: Path) -> None:
+    """The RGB segments of a v3 decode (the live weights of the codec
+    phase, ~21 bpp) and of a device v3 encode (encoder gain ENCODE_GAIN,
+    every lane within its budget), batch ``batch``, 512x768, recorded
+    through this tree's codec (plain convolutions) and saved to ``path``
+    for ``AB_RANS_WORKER``: for each kernel the z segment and y slice 0
+    alone and the 11 segments back to back, each case with its segments'
+    inputs, the lane state before its first and the outputs it must give."""
+    import numpy as np
+    from rgba_tpu_torch.core.precision import DEFAULT_POLICY
+    from rgba_tpu_torch.data.synthetic import synthetic_rgba_batch
+    from rgba_tpu_torch.entropy import device_rans as dr
+    from rgba_tpu_torch.eval.codec_io import CodecIO
+    from rgba_tpu_torch.eval.container import RGBAFileCodec
+    from rgba_tpu_torch.models.pipeline import RGBAPipeline
+
+    data = {k: np.round(v * 255.0).astype(np.uint8) for k, v in
+            synthetic_rgba_batch(batch, 512, 768, seed=0).items()}
+    img, alpha = data["image"], data["alpha"]
+    cases, saved = [], {}
+    for kernel, gain in (("rans_decode", 10.0), ("rans_encode", ENCODE_GAIN)):
+        model = RGBAPipeline(DEFAULT_POLICY, seed=0)
+        _liven(torch, model, gain=gain)
+        codec = RGBAFileCodec(CodecIO(model.rgb_codec, "rgb"),
+                              CodecIO(model.mask_codec, "mask"))
+        m = codec.rgb_io._lane_tables()["merged"]
+        z_off, n_rows = m["z_row_offset"], m["cdfs"].shape[0]
+        saved = {"tables": {k: torch.from_numpy(m[k]) for k in
+                            ("cdfs", "max_values", "offsets")},
+                 "inverse": {k: torch.from_numpy(v) for k, v in
+                             dr.build_inverse(m["cdfs"][:z_off],
+                                              m["max_values"][:z_off] + 2)
+                             .items()}}
+
+        def seg(c, keys):
+            y = int(c["idx"].max()) < z_off
+            return {"rows": (0, z_off) if y else (z_off, n_rows), "y": y,
+                    "inputs": keys, **{k: c[k].cpu() for k in keys}}
+        if kernel == "rans_decode":
+            blobs = codec.encode_batch(img, alpha, stream_format="lanes32")
+            with _recorded_segments(torch) as calls:
+                codec.decode_batch(blobs)
+            rgb = calls[-11:]
+            if any(c["words"].data_ptr() != rgb[0]["words"].data_ptr() or
+                   not torch.equal(c["lane_end"], rgb[0]["lane_end"])
+                   for c in rgb):
+                raise AssertionError("rans_ab_inputs: the RGB segments do "
+                                     "not share one stream")
+            for name, part in (("z", rgb[:1]), ("y slice 0", rgb[1:2]),
+                               ("11 RGB segments", rgb)):
+                cases.append({
+                    "kernel": kernel, "name": name,
+                    "segments": [seg(c, ("idx", "act")) for c in part],
+                    "carries": ("state", "ptr"),
+                    **{k: part[0][k].cpu() for k in ("state", "ptr")},
+                    **{k: rgb[0][k].cpu() for k in ("words", "lane_end")},
+                    "want": [c["syms"].cpu() for c in part] +
+                            [part[-1]["state_out"].cpu(),
+                             part[-1]["ptr_out"].cpu()]})
+        else:
+            os.environ["RGBA_TPU_DEVICE_ENCODE"] = "1"
+            try:
+                with _recorded_encodes(torch) as calls:
+                    codec.encode_batch(img, alpha, stream_format="lanes32")
+            finally:
+                os.environ["RGBA_TPU_DEVICE_ENCODE"] = "0"
+            if codec.rgb_io.last_lane_encode["overflow"]:
+                raise AssertionError("rans_ab_inputs: the encode overflowed")
+            rgb = calls[-11:]              # y slices 9 .. 0, then z
+            for name, part in (("y slice 0", rgb[9:10]), ("z", rgb[10:]),
+                               ("11 RGB segments", rgb)):
+                cases.append({
+                    "kernel": kernel, "name": name,
+                    "segments": [seg(c, ("idx", "sym", "act")) for c in part],
+                    "carries": ("state", "wptr", "out"),
+                    **{k: part[0][k].cpu() for k in ("state", "wptr", "out")},
+                    "want": [part[-1][k].cpu() for k in
+                             ("state_out", "wptr_out", "out_out")]})
+        codec.rgb_io.close()
+        codec.mask_io.close()
+    torch.save({"cases": cases, **saved}, path)
+
+
+def ab_phase(torch, base: Path, batch: int, iters: int) -> dict:
+    """Each tree's kernels in a process of its own, in turns base, head,
+    head, base: the four conv kernels' own cases and the two rANS kernels
+    on the inputs ``rans_ab_inputs`` recorded here, all timed by this
+    tree's ``_time_ms``."""
+    import tempfile
     head = Path(__file__).resolve().parent
     turns = []
-    for name, tree in (("base", base), ("head", head), ("head", head),
-                       ("base", base)):
-        proc = subprocess.run(
-            [sys.executable, "-c", AB_WORKER, str(batch), str(iters)],
-            cwd=tree, env=dict(os.environ, PYTHONPATH=str(tree)),
-            capture_output=True, text=True, timeout=900)
-        res = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")]
-        if proc.returncode or not res:
-            raise RuntimeError(f"the kernels of {tree} failed:\n"
-                               f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-        cases = json.loads(res[-1][len("RESULT "):])
-        for c in cases:
-            print(f"  {name} {c['kernel']} {c['dtype']} {c['shape']}: ms "
-                  f"{c['ms']:.4f} (max_abs_err {c['max_abs_err']:.3g})")
-        turns.append({"tree": name, "cases": cases})
-    return {"base": str(base), "batch": batch, "iters": iters, "turns": turns}
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = Path(tmp) / "rans_inputs.pt"
+        t = time.perf_counter()
+        rans_ab_inputs(torch, batch, inputs)
+        print(f"  rANS inputs recorded in {time.perf_counter() - t:.1f} s")
+        timer = str(head / "chip_smoke.py")
+        workers = [(AB_WORKER, [timer, str(batch), str(iters)]),
+                   (AB_RANS_WORKER, [timer, str(inputs), str(iters)])]
+        for name, tree in (("base", base), ("head", head), ("head", head),
+                           ("base", base)):
+            cases = []
+            for code, args in workers:
+                proc = subprocess.run(
+                    [sys.executable, "-c", code, *args], cwd=tree,
+                    env=dict(os.environ, PYTHONPATH=str(tree)),
+                    capture_output=True, text=True, timeout=900)
+                res = [ln for ln in proc.stdout.splitlines()
+                       if ln.startswith("RESULT ")]
+                if proc.returncode or not res:
+                    raise RuntimeError(f"the kernels of {tree} failed:\n"
+                                       f"{proc.stdout[-3000:]}\n"
+                                       f"{proc.stderr[-3000:]}")
+                cases += json.loads(res[-1][len("RESULT "):])
+            for c in cases:
+                unheld = (f", card not held {c['unheld_ms']:.4f}"
+                          if "unheld_ms" in c else "")
+                print(f"  {name} {c['kernel']} {c['dtype']} {c['shape']}: ms "
+                      f"{c['ms']:.4f}{unheld} (max_abs_err "
+                      f"{c['max_abs_err']:.3g})")
+                if c["kernel"].startswith("rans") and c["max_abs_err"]:
+                    raise AssertionError(f"{name} {c['kernel']} {c['shape']}: "
+                                         f"not the recorded outputs")
+            turns.append({"tree": name, "cases": cases})
+    return {"base": str(base), "batch": batch, "iters": iters,
+            "turns": turns}
 
 
 def main(argv=None) -> int:
@@ -2467,8 +2716,8 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--base", type=Path, default=None,
-                    help="another checkout whose four kernels to time "
-                         "against this one's")
+                    help="another checkout whose kernels to time against "
+                         "this one's")
     args = ap.parse_args(argv)
 
     import torch
@@ -2490,8 +2739,9 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
     if args.base is not None:
-        print(f"the four kernels, {args.base} against this tree:")
-        report = ab_phase(args.base.resolve(), args.batch, args.iters)
+        print(f"the kernels, {args.base} against this tree:")
+        report = ab_phase(torch, args.base.resolve(), args.batch,
+                          args.iters)
         print(card)
         print(json.dumps(report))
         return 0
@@ -2603,10 +2853,11 @@ def main(argv=None) -> int:
                 "max_abs_err": lanes["max_abs_err"], "ms": y0["ms"],
                 "plain_ms": y0["plain_ms"],
                 "bound_ms": y0["bound_ms"], "bound_by": "bytes",
+                "chain_bound_ms": y0["chain_bound_ms"],
                 "library_ms": None,
                 "shape": "y slice 0, (steps, images, lanes) = %s"
                          % (tuple(y0["shape"]),),
-                "dtype": "uint8 indexes, int16 symbols", "z_segment": z,
+                "dtype": "int32 indexes, int16 words", "z_segment": z,
                 "rgb_chain_ms": lanes["rgb_chain_ms"],
                 "host_decode_lanes_ms": lanes["host_decode_lanes_ms"]}
 
@@ -2625,7 +2876,8 @@ def main(argv=None) -> int:
                 "launches_train": train["launches_train"]["rans_encode"],
                 "max_abs_err": enc["max_abs_err"], "ms": y0["ms"],
                 "plain_ms": y0["plain_ms"], "bound_ms": y0["bound_ms"],
-                "bound_by": "bytes", "library_ms": None,
+                "bound_by": "bytes", "chain_bound_ms": y0["chain_bound_ms"],
+                "library_ms": None,
                 "shape": "y slice 0, (steps, images, lanes) = %s"
                          % (tuple(y0["shape"]),),
                 "dtype": "uint8 indexes, int16 symbols", "z_segment": z,

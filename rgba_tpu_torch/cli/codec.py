@@ -20,9 +20,10 @@ package's ``iter_<N>.ckpt``; without them, seeded random weights.  The
 models run the JAX CLI's policy (fp32, no conv kernels); lane streams
 (``--stream-format lanes32``) decode on the card through the
 ``rans_decode`` kernel.  Any resolution: the container pads to the /64
-grid and crops on decode.  Decoded PNGs hold ``decode_batch(output=
-"uint8")``, the 8-bit values rounded (the JAX CLI truncates the float
-decode instead, which can put an exact k/255 one level low).
+grid and crops on decode.  Decoded PNGs hold what the JAX CLI writes,
+the float decode clipped to [0, 1], times 255 and truncated
+(``decode_batch(output="uint8_trunc")``, made on the card), not the
+rounded ``output="uint8"`` of the library API.
 """
 
 from __future__ import annotations
@@ -95,7 +96,7 @@ def _decode_one(codec, src, dst, max_slices=None):
     with open(src, "rb") as f:
         blob = f.read()
     blob, legacy_hw = _strip_legacy_trailer(blob, unpack_rgba(blob))
-    rgba = codec.decode(blob, output="uint8", max_slices=max_slices)[0]
+    rgba = codec.decode(blob, output="uint8_trunc", max_slices=max_slices)[0]
     if legacy_hw is not None:
         rgba = rgba[:legacy_hw[0], :legacy_hw[1]]
     png.write_png(dst, rgba)
@@ -196,9 +197,9 @@ def _decode_dir(codec, src_dir, dst_dir, batch, interleave=None):
             # repeats are dropped
             chunks, real = pad_batch(group, batch)
             feeds = ([c[0] for c in ch] for ch in chunks)
-            for ch, k, rgba in zip(chunks, real,
-                                   pipe.decode_stream(feeds, output="uint8",
-                                                      interleave=interleave)):
+            decoded = pipe.decode_stream(feeds, output="uint8_trunc",
+                                         interleave=interleave)
+            for ch, k, rgba in zip(chunks, real, decoded):
                 for (_, p), img in zip(ch[:k], rgba[:k]):
                     dst = os.path.join(
                         dst_dir,

@@ -107,6 +107,212 @@ def z_channel_indexes(zh: int, zw: int, channels: int) -> np.ndarray:
                            (zh, zw, channels)).reshape(-1)
 
 
+# ------------------------------------------------ the kernels' compact tables
+#
+# The CUDA kernels read their CDF rows from shared memory.  A layout covers
+# one row group (the rows one segment addresses: the Gaussian rows of the
+# y slices, or the z rows) and is one byte buffer, staged by each block:
+#   info     (rows, 4) int32: the row's first entry in ``starts``, its max
+#            value (the escape, len - 2), its offset, and its first bucket
+#            with its bucket shift in the top byte (first | shift << 24);
+#   starts   uint16: each row's len CDF entries end to end, the last
+#            (2^16) stored as 0; padded to 16 bytes;
+#   rcp      uint32, beside each entry of ``starts``: the exact reciprocal
+#            multiplier of the symbol's frequency (``reciprocal``); the
+#            encode's;
+#   buckets  2^(16 - shift) pairs of uint32 a row, the decode's: bucket b
+#            of a row holds the values at cum = b << shift (lo) and at the
+#            bucket's last cum (lo + n): (lo | n << 16, cdf[lo] |
+#            (cdf[lo + n + 1] - 1) << 16).  A lookup reads one bucket and,
+#            when n > 0, bisects cdf[lo + 1 .. lo + n] for the last entry
+#            <= cum.  Each row has its own shift: about two buckets a
+#            symbol, halved in the rows with the most buckets a symbol
+#            until the decode's sections fit, so every row's buckets hold
+#            about as few values.
+# The decode stages info, starts and buckets; the encode info, starts and
+# rcp.  Each must fit SMEM_BUDGET.
+
+SMEM_BUDGET = 226 * 1024      # bytes a block stages (of the H100's 227 KB)
+_SECTIONS = ("info", "starts", "rcp", "buckets")
+
+
+def _pad16(a: np.ndarray) -> np.ndarray:
+    """``a`` as bytes, zero-padded to a multiple of 16."""
+    raw = np.ascontiguousarray(a).view(np.uint8).reshape(-1)
+    return np.concatenate([raw, np.zeros(-raw.size % 16, np.uint8)])
+
+
+def reciprocal(freq):
+    """Exact division by ``freq`` in [1, 2^16) for every uint32 x
+    (Granlund and Montgomery's unsigned method, 1994: a 33-bit magic whose
+    low 32 bits are ``m``): with l = ceil(log2 freq),
+    m = floor(2^32 (2^l - freq) / freq) + 1, and
+    x // freq = (t + ((x - t) >> min(l, 1))) >> max(l - 1, 0),
+    t = (x m) >> 32.  Returns (m uint32, l uint32); numpy."""
+    f = np.asarray(freq, dtype=np.uint64)
+    if f.size and (f.min() < 1 or f.max() >= 1 << 16):
+        raise ValueError("reciprocal: freq must lie in [1, 2^16)")
+    l = np.zeros(f.shape, np.uint64)
+    for b in range(16):
+        l += (f > (np.uint64(1) << np.uint64(b))).astype(np.uint64)
+    m = ((np.uint64(1) << np.uint64(32)) * ((np.uint64(1) << l) - f)) // f + 1
+    return m.astype(np.uint32), l.astype(np.uint32)
+
+
+def divide(x, m, l):
+    """x // freq through ``reciprocal(freq)`` = (m, l), as the encode kernel
+    computes it on its state chain; numpy uint64."""
+    x = np.asarray(x, np.uint64)
+    m = np.asarray(m, np.uint64)
+    l = np.asarray(l, np.uint64)
+    t = (x * m) >> np.uint64(32)
+    sh1 = np.minimum(l, np.uint64(1))
+    sh2 = np.maximum(l, np.uint64(1)) - np.uint64(1)
+    return (t + ((x - t) >> sh1)) >> sh2
+
+
+def compact_layout(cdfs, max_values, offsets, rows=None,
+                   budget: int = SMEM_BUDGET) -> dict:
+    """The kernels' layout of rows [r0, r1) (``rows``, default all) of a
+    ``pack_tables`` / ``merge_tables`` table (numpy).  Each row's bucket
+    shift starts at about two buckets a symbol; while the decode's sections
+    exceed ``budget``, the row with the most buckets a symbol halves them.  Raises
+    ValueError if a row is not a lane coder row (0 first, 2^16 last,
+    strictly rising) or if a kernel's sections cannot fit.  Returns
+    {"info", "starts", "rcp", "buckets"} (numpy, as laid out; buckets (n, 2)
+    uint32), "rows", "shifts" (per row) and "blob" (uint8, the four sections
+    in that order, each padded to 16 bytes)."""
+    cdfs = np.asarray(cdfs, np.int64)
+    maxv = np.asarray(max_values, np.int64)
+    offs = np.asarray(offsets, np.int64)
+    r0, r1 = (0, cdfs.shape[0]) if rows is None else (int(rows[0]),
+                                                      int(rows[1]))
+    if not 0 <= r0 < r1 <= cdfs.shape[0]:
+        raise ValueError(f"compact_layout: rows {rows} out of range")
+    lens = maxv[r0:r1] + 2
+    base = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
+    row_cdfs = [cdfs[r, :n] for r, n in zip(range(r0, r1), lens)]
+    for r, row in zip(range(r0, r1), row_cdfs):
+        if row.size < 2 or row[0] != 0 or row[-1] != 1 << PRECISION or \
+                (np.diff(row) <= 0).any():
+            raise ValueError(f"compact_layout: row {r} is not a lane coder "
+                             f"CDF row (0 first, 2^16 last, rising)")
+    flat = np.concatenate(row_cdfs)
+    starts = (flat & _MASK16).astype(np.uint16)
+    freq = np.concatenate([np.diff(row) for row in row_cdfs])
+    # a reciprocal for every entry but each row's last (no symbol there)
+    sym_at = np.ones(flat.size, bool)
+    sym_at[base + lens - 1] = False
+    rcp = np.zeros(flat.size, np.uint32)
+    rcp[sym_at] = reciprocal(freq)[0]
+    info = np.zeros((r1 - r0, 4), np.int64)
+    info[:, 0], info[:, 1], info[:, 2] = base, maxv[r0:r1], offs[r0:r1]
+    head = _pad16(info.astype(np.int32)).size + _pad16(starts).size
+    if head + _pad16(rcp).size > budget:
+        raise ValueError(f"compact_layout: rows {r0}-{r1} need "
+                         f"{head + _pad16(rcp).size} bytes of shared memory "
+                         f"for the encode, more than {budget}")
+    # about two buckets a symbol: shift = 15 - ceil(log2(symbols))
+    nsym = np.maximum(lens - 1, 1)
+    shifts = np.clip(15 - np.ceil(np.log2(nsym)).astype(np.int64), 0,
+                     PRECISION)
+    while head + 8 * int((1 << (PRECISION - shifts)).sum()) > budget:
+        # halve the buckets of the row with the most buckets a symbol
+        ratio = (1 << (PRECISION - shifts)) / nsym
+        ratio[shifts == PRECISION] = -1.0
+        i = int(np.argmax(ratio))
+        if ratio[i] < 0:
+            raise ValueError(f"compact_layout: rows {r0}-{r1} need more than "
+                             f"{budget} bytes of shared memory for the decode")
+        shifts[i] += 1
+    counts = 1 << (PRECISION - shifts)
+    first_bucket = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    info[:, 3] = first_bucket | (shifts << 24)
+    info = info.astype(np.int32)
+    buckets = np.zeros((int(counts.sum()), 2), np.uint32)
+    for i, row in enumerate(row_cdfs):
+        sh = int(shifts[i])
+        first = np.arange(counts[i], dtype=np.int64) << sh
+        lo = np.clip(np.searchsorted(row, first, side="right") - 1, 0,
+                     row.size - 2)
+        hi = np.clip(np.searchsorted(row, first + (1 << sh) - 1,
+                                     side="right") - 1, 0, row.size - 2)
+        at = slice(first_bucket[i], first_bucket[i] + counts[i])
+        buckets[at, 0] = lo | ((hi - lo) << 16)
+        buckets[at, 1] = row[lo] | ((row[hi + 1] - 1) << 16)
+    out = {"info": info, "starts": starts, "rcp": rcp, "buckets": buckets,
+           "rows": (r0, r1), "shifts": shifts}
+    out["blob"] = np.concatenate([_pad16(out[k]) for k in _SECTIONS])
+    return out
+
+
+def section_bytes(layout: dict) -> dict:
+    """Each section's padded size in the blob, by name."""
+    return {k: _pad16(layout[k]).size for k in _SECTIONS}
+
+
+def compact_lookup(layout: dict, rows, cum):
+    """(start, freq, value) of each cum (< 2^16) in its row (absolute row
+    numbers, within the layout's), through the buckets and the bisection,
+    as the decode kernel looks them up; numpy int64."""
+    rows = np.asarray(rows, np.int64) - layout["rows"][0]
+    cum = np.asarray(cum, np.int64)
+    w = layout["info"][:, 3].astype(np.int64)[rows]
+    e = layout["buckets"].astype(np.int64)[(w & 0xFFFFFF) + (cum >> (w >> 24))]
+    a, n = e[..., 0] & _MASK16, e[..., 0] >> 16
+    s_a = e[..., 1] & _MASK16
+    s_b = (e[..., 1] >> 16) + 1
+    b = a + n + 1
+    base = layout["info"][:, 0].astype(np.int64)[rows]
+    starts = layout["starts"].astype(np.int64)
+    while True:
+        open_ = b - a > 1
+        if not open_.any():
+            break
+        m = (a + b) >> 1
+        s = starts[base + np.where(open_, m, a)]
+        up = open_ & (s <= cum)
+        down = open_ & (s > cum)
+        a, s_a = np.where(up, m, a), np.where(up, s, s_a)
+        b, s_b = np.where(down, m, b), np.where(down, s, s_b)
+    return s_a, s_b - s_a, a
+
+
+def compact_symbol(layout: dict, rows, value):
+    """(start, freq, m, l) of each value (in [0, max value]) of its row, as
+    the encode kernel reads them: start and the next entry from
+    ``starts`` (0 standing for 2^16), the reciprocal beside it; numpy."""
+    rows = np.asarray(rows, np.int64) - layout["rows"][0]
+    at = layout["info"][:, 0].astype(np.int64)[rows] + np.asarray(value,
+                                                                  np.int64)
+    starts = layout["starts"].astype(np.int64)
+    start = starts[at]
+    end = ((starts[at + 1] - 1) & _MASK16) + 1
+    m = layout["rcp"][at]
+    freq = end - start
+    l = reciprocal(freq)[1]
+    return start, freq, m, l
+
+
+def segment_tables(tables: dict, rows=None) -> dict:
+    """``tables`` (tensors, as the kernels take them) with the compact
+    layout of rows [r0, r1) on their device under "compact": what a
+    segment whose indexes address only those rows passes the kernels, so
+    each block stages only them.  Built from a host copy of the tables."""
+    layout = compact_layout(tables["cdfs"].cpu().numpy(),
+                            tables["max_values"].cpu().numpy(),
+                            tables["offsets"].cpu().numpy(), rows)
+    dev = tables["cdfs"].device
+    sizes = section_bytes(layout)
+    out = {k: tables[k] for k in ("cdfs", "max_values", "offsets")}
+    out["compact"] = {"blob": torch.from_numpy(layout["blob"]).to(dev),
+                      "rows": layout["rows"],
+                      "max_shift": int(layout["shifts"].max()),
+                      "min_shift": int(layout["shifts"].min()),
+                      **{k + "_bytes": v for k, v in sizes.items()}}
+    return out
+
+
 # ----------------------------------------------------------- stream packing
 
 def split_stream(words: np.ndarray, lane_nwords: np.ndarray) -> bytes:

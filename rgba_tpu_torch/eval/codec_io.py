@@ -89,9 +89,10 @@ _INVERSE_ON: dict = {}       # (table digest, device) -> tensors
 
 
 def _gauss_inverse(gc, device) -> dict:
-    """build_inverse of the Gaussian CDF rows on ``device``, cached per
-    process by the rows' content (the 24 MB inverse is the same for every
-    codec that uses one scale table)."""
+    """build_inverse of the Gaussian CDF rows on ``device`` (the CPU: the
+    plain decode's gathers), cached per process by the rows' content (the
+    25 MB inverse is the same for every codec that uses one scale
+    table)."""
     h = hashlib.sha256()
     for a in (gc.quantized_cdfs, gc.cdf_lengths):
         h.update(np.ascontiguousarray(a, np.int32).tobytes())
@@ -412,7 +413,10 @@ class CodecIO:
         """The lane coder's tables: the Gaussian rows, then the z rows at
         ``z_row_offset`` with their columns padded to a multiple of 64 (the
         JAX package's layout), as numpy ("merged") and as tensors on the
-        codec's device, with the Gaussian rows' inverse tables."""
+        codec's device with the kernels' compact layout of the rows the y
+        slices address ("y") and of the z rows ("z"); on the CPU also the
+        Gaussian rows' inverse tables, which the plain decode gathers from
+        (the kernels do not read them, so they are not put on the card)."""
         with self._cache_lock:
             if self._lane_state is None:
                 self._lane_state = self._build_lane_state()
@@ -426,11 +430,15 @@ class CodecIO:
         z = device_rans.pack_tables(t["quantized_cdfs"], t["cdf_lengths"],
                                     t["offsets"], pad_cols=-(-zc // 64) * 64)
         merged = device_rans.merge_tables(g, z)
+        tables = {k: torch.from_numpy(merged[k]).to(self.device)
+                  for k in ("cdfs", "max_values", "offsets")}
+        z_off, rows = merged["z_row_offset"], merged["cdfs"].shape[0]
         return {
             "merged": merged,
-            "tables": {k: torch.from_numpy(merged[k]).to(self.device)
-                       for k in ("cdfs", "max_values", "offsets")},
-            "inverse": _gauss_inverse(self.gc, self.device),
+            "y": device_rans.segment_tables(tables, (0, z_off)),
+            "z": device_rans.segment_tables(tables, (z_off, rows)),
+            "inverse": (_gauss_inverse(self.gc, self.device)
+                        if self.device.type == "cpu" else None),
         }
 
     def _lane_blob(self, sym_flat, idx_flat, seg_ends, lanes, shape,
@@ -491,7 +499,7 @@ class CodecIO:
         zh, zw = int(z_sym.shape[1]), int(z_sym.shape[2])
         z_n, s_n = int(z_sym[0].numel()), lh * lw * sw
         budget = max(64, ((z_n + n_slices * s_n) // lanes) // 2 + 16)
-        tables = self._lane_tables()["tables"]
+        st = self._lane_tables()
 
         def steps(t, n):
             return device_rans.to_steps(t.reshape(batch, n), lanes)
@@ -501,10 +509,11 @@ class CodecIO:
                                                        self.device)
             for i in reversed(range(n_slices)):
                 state, wptr, out = _re.rans_encode(
-                    tables, state, wptr, out, steps(y_idxs[i], s_n),
+                    st["y"], state, wptr, out, steps(y_idxs[i], s_n),
                     steps(y_syms[i], s_n), act)
             state, wptr, out = _re.rans_encode(
-                tables, state, wptr, out, self._z_indexes(zh, zw, batch, lanes),
+                st["z"], state, wptr, out,
+                self._z_indexes(zh, zw, batch, lanes),
                 steps(z_sym, z_n), self._all_active(z_n, batch, lanes))
             words, nwords, overflow = device_rans.finish_lanes(state, wptr, out)
             return words, nwords.cpu().numpy(), bool(overflow)
@@ -548,7 +557,7 @@ class CodecIO:
                                  max_slices: Optional[int] = None):
         """Decode lane-format streams on the card: z segment (row search)
         -> hyper decode -> per slice: stats, CDF-row indexes, the segment's
-        symbols (inverse tables), y = sym + mu + lrp -> mean-fill of slices
+        symbols, y = sym + mu + lrp -> mean-fill of slices
         >= max_slices.  One launch of the decode kernel per segment (1 + k);
         the lane state and pointer stay on the card between them.  Returns
         y_hat (B, M, H/8, W/8), a device tensor."""
@@ -577,7 +586,7 @@ class CodecIO:
             c_z = self.eb_tables["quantized_cdfs"].shape[0]
             z_n = zh * zw * c_z
             syms, state, ptr = _rd.rans_decode(
-                st["tables"], words, state, ptr,
+                st["z"], words, state, ptr,
                 self._z_indexes(zh, zw, b, lanes),
                 self._all_active(z_n, b, lanes), lane_end)
             z_sym = device_rans.from_steps(syms, z_n).reshape(
@@ -604,7 +613,7 @@ class CodecIO:
                         gate.expand(b, h, w, sw).reshape(b, n_i), lanes,
                         fill=False)
                 syms, state, ptr = _rd.rans_decode(
-                    st["tables"], words, state, ptr, idx, act, lane_end,
+                    st["y"], words, state, ptr, idx, act, lane_end,
                     inverse=st["inverse"])
                 sym = device_rans.from_steps(syms, n_i).reshape(
                     b, h, w, sw).permute(0, 3, 1, 2)

@@ -44,6 +44,9 @@ from ..ops.morphology import constraint_rgb
 from .codec_io import drive_chains
 
 _MAGIC = b"RGBA"
+# decode_batch's output modes: the float decode, its rounded 8 bits, and
+# the codec CLIs' truncated 8 bits
+OUTPUTS = ("float32", "uint8", "uint8_trunc")
 
 
 def pack_rgba(height: int, width: int, rgb: dict, mask: dict | None,
@@ -264,7 +267,11 @@ class RGBAFileCodec:
                      interleave: int | None = None) -> np.ndarray:
         """Decode B same-shaped blobs of one container version; returns
         (B, H, W, 4) RGBA, float32 in [0, 1] or, with output="uint8",
-        8-bit.  Versions 1 and 2 run the mask and RGB slice chains together
+        8-bit (the float decode times 255, rounded, as the JAX package's
+        ``decode_batch``), or, with output="uint8_trunc", the 8-bit pixels
+        the codec CLIs write (clipped to [0, 1], times 255, truncated; the
+        JAX CLI's PNGs), made on the card so the fetch stays 8-bit.
+        Versions 1 and 2 run the mask and RGB slice chains together
         (``drive_chains``), the RGB chain of a version-2 blob with the gate
         it ships; version 3 decodes both codecs' lane streams on the card
         (``decompress_device``).  max_slices=k decodes the first k of the
@@ -274,8 +281,8 @@ class RGBAFileCodec:
         2 into G sub-batch chains driven with the mask chain
         (``CodecIO.decompress_chains``; None picks 2 for batches of 4, 6
         and 8); the result is the same."""
-        if output not in ("float32", "uint8"):
-            raise ValueError(f"output must be 'float32' or 'uint8', got "
+        if output not in OUTPUTS:
+            raise ValueError(f"output must be one of {OUTPUTS}, got "
                              f"{output!r}")
         metas = [unpack_rgba(blob) for blob in blobs]
         h, w = metas[0]["height"], metas[0]["width"]
@@ -321,6 +328,8 @@ class RGBAFileCodec:
             rgba = torch.cat([rgb[:, :h, :w], recon[:, :h, :w]], dim=-1)
             if output == "uint8":
                 rgba = torch.round(rgba * 255.0).to(torch.uint8)
+            elif output == "uint8_trunc":
+                rgba = (rgba.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
             out = rgba.cpu().numpy()
         if crop is not None:
             ch, cw, y0, x0 = crop

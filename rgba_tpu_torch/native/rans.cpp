@@ -114,9 +114,13 @@ void append_symbol_ops(std::vector<Op>& ops, int32_t symbol, int32_t index,
   ops.push_back(sym);
 
   if (value == max_value) {
-    // count of 4-bit bypass chunks holding raw_val
+    // count of 4-bit bypass chunks holding raw_val: at most 8 for 32 bits
+    // (a shift by 32 would be undefined, and on x86 never reach 0)
     uint32_t n_bypass = 0;
-    while ((raw_val >> (n_bypass * kBypassPrecision)) != 0) ++n_bypass;
+    while (n_bypass < 32 / kBypassPrecision &&
+           (raw_val >> (n_bypass * kBypassPrecision)) != 0) {
+      ++n_bypass;
+    }
     uint32_t val = n_bypass;
     while (val >= kMaxBypassVal) {
       ops.push_back({0, 0, kMaxBypassVal, true});

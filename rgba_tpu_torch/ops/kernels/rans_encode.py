@@ -7,7 +7,9 @@ Port of ``rgba_tpu/entropy/device_rans.py::encode_segment`` (a reverse
 which updates the lane state, the write pointer and the word buffer in
 place, so they stay on the card from one segment to the next.  The flush
 and reversal (``entropy/device_rans.finish_lanes``) is tensor indexing on
-either device.
+either device.  The kernel reads its CDF rows and their reciprocals from
+shared memory, staged from the compact layout of the rows the segment
+addresses (``entropy/device_rans.segment_tables``).
 """
 
 from __future__ import annotations
@@ -18,12 +20,14 @@ import torch
 
 from ...entropy.device_rans import encode_segment as rans_encode_plain
 from .build import CudaKernel
+from .rans_decode import staged_layout
 
 KERNEL = CudaKernel("rans_encode.cu", "rgba_rans_encode", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
     ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p])
 
 # the types the kernel reads and widens itself (the codec's uint8 y rows,
 # int16 z rows and int16 symbols, or int32)
@@ -49,9 +53,12 @@ def rans_encode(tables: dict, state, wptr, out_words, indexes, symbols,
                 active):
     """Encode one segment; arguments and result as
     ``entropy.device_rans.encode_segment``: (state, wptr, out_words).  On
-    the card all three are updated in place and returned; the indexes
-    (uint8, int16 or int32) must address rows of the tables (the kernel
-    does not check them), the symbols are int16 or int32."""
+    the card all three are updated in place and returned; ``tables`` may
+    carry the compact layout of the rows the segment addresses
+    (``segment_tables``), else the layout of all rows is used
+    (``rans_decode.all_rows_layout``, built once); the indexes (uint8,
+    int16 or int32) must address rows of it (the kernel does not check
+    them), the symbols are int16 or int32."""
     if state.device.type == "cpu":
         return rans_encode_plain(tables, state, wptr, out_words, indexes,
                                  symbols, active)
@@ -69,23 +76,23 @@ def rans_encode(tables: dict, state, wptr, out_words, indexes, symbols,
     _want(indexes, "indexes", INDEX_DTYPES, (steps,) + lanes_shape)
     _want(symbols, "symbols", SYMBOL_DTYPES, (steps,) + lanes_shape)
     _want(active, "active", torch.bool, (steps,) + lanes_shape)
-    cdfs, maxv, offs = tables["cdfs"], tables["max_values"], tables["offsets"]
-    _want(cdfs, "cdfs", torch.int32)
-    if cdfs.dim() != 2:
-        raise ValueError("rans_encode: cdfs must be (rows, cols)")
-    rows = cdfs.shape[0]
-    _want(maxv, "max_values", torch.int32, (rows,))
-    _want(offs, "offsets", torch.int32, (rows,))
-    tensors = (wptr, out_words, indexes, symbols, active, cdfs, maxv, offs)
+    tensors = (wptr, out_words, indexes, symbols, active, tables["cdfs"])
     if any(t.device != state.device for t in tensors):
         raise ValueError("rans_encode: all inputs must be on the state's "
                          "device")
+    layout = staged_layout(tables, "rans_encode", _encode_bytes)
     lanes_total = state.numel()
     if steps and lanes_total:
+        r0, r1 = layout["rows"]
         KERNEL.launch(
             state.data_ptr(), wptr.data_ptr(), out_words.data_ptr(),
             out_words.shape[-1], indexes.data_ptr(), indexes.element_size(),
             symbols.data_ptr(), symbols.element_size(), active.data_ptr(),
-            cdfs.data_ptr(), cdfs.shape[1], maxv.data_ptr(), offs.data_ptr(), steps, lanes_total,
-            torch.cuda.current_stream(state.device).cuda_stream)
+            layout["blob"].data_ptr(), _encode_bytes(layout),
+            layout["info_bytes"], layout["starts_bytes"], r0, r1 - r0, steps,
+            lanes_total, torch.cuda.current_stream(state.device).cuda_stream)
     return state, wptr, out_words
+
+
+def _encode_bytes(layout: dict) -> int:
+    return layout["info_bytes"] + layout["starts_bytes"] + layout["rcp_bytes"]

@@ -3,8 +3,9 @@ tests/test_cli.py: the mask and RGB trainers take two steps from a config
 and write ``iter_2.ckpt``; ``--test -p`` with the JAX package's msgpack
 checkpoints gives the JAX evals' averages; the codec CLI round-trips a
 file, previews, keeps the legacy trailer, checks its flags, and its
-directory modes write ``RGBAFileCodec.encode_batch``'s bytes and
-``decode_batch(output="uint8")``'s pixels.
+directory modes write ``RGBAFileCodec.encode_batch``'s bytes; decoded PNGs
+hold the JAX CLI's pixels, the float decode clipped, times 255 and
+truncated (a value an ulp under k/255 writes k-1, where rounding gives k).
 
 Weights: the port's seeded weights made live (as in
 tests/test_torch_port_eval.py), written as the port's checkpoints for the
@@ -160,6 +161,12 @@ def _codec_args(weights):
     return ["-r", weights["rgb"], "-m", weights["mask"]]
 
 
+def _jax_cli_pixels(rgba):
+    """What the JAX CLI writes for a float decode
+    (rgba_tpu/cli/codec.py::_write_rgba): clipped, times 255, truncated."""
+    return (np.clip(rgba, 0, 1) * 255).astype(np.uint8)
+
+
 def test_codec_round_trip(tmp_path, weights, capsys):
     src = tmp_path / "in.png"
     _write_rgba(src, 96, 72, 5)          # not /64: padded, then cropped
@@ -171,9 +178,9 @@ def test_codec_round_trip(tmp_path, weights, capsys):
                device="cpu")
     px, mode = png.read_png(str(recon))
     assert mode == "RGBA" and px.shape == (96, 72, 4)
-    # the same as the codec's own uint8 decode
+    # the JAX CLI's pixels of the codec's float decode
     c = codec._load_codecs(weights["rgb"], weights["mask"], "cpu")
-    want = c.decode(blob.read_bytes(), output="uint8")[0]
+    want = _jax_cli_pixels(c.decode(blob.read_bytes())[0])
     np.testing.assert_array_equal(px, want)
     # and a preview from the same blob: the alpha is decoded in full
     prev = tmp_path / "prev.png"
@@ -234,7 +241,8 @@ def test_codec_legacy_trailer(tmp_path, weights):
 @pytest.mark.parametrize("fmt", ["v64", "lanes32"])
 def test_codec_dir_modes(tmp_path, weights, fmt):
     """Sizes grouped, batched with a repeated tail, pipelined: every blob is
-    encode_batch's and every PNG decode_batch's uint8."""
+    encode_batch's and every PNG the JAX CLI's pixels of decode_batch's
+    float decode."""
     src, enc, rec = tmp_path / "src", tmp_path / "enc", tmp_path / "rec"
     src.mkdir()
     sizes = [(64, 64), (64, 64), (64, 64), (96, 72)]
@@ -254,7 +262,7 @@ def test_codec_dir_modes(tmp_path, weights, fmt):
         x = np.stack(arrs).astype(np.float32) / 255.0
         blobs = c.encode_batch(x[..., :3], x[..., 3:], stream_format=fmt,
                                bucket=buckets[sizes[idx[0]]])
-        dec = c.decode_batch(blobs, output="uint8")
+        dec = _jax_cli_pixels(c.decode_batch(blobs))
         for k, i in enumerate(dict.fromkeys(idx)):
             assert (enc / f"im{i}.rgbc").read_bytes() == blobs[k], i
             np.testing.assert_array_equal(
@@ -269,6 +277,58 @@ def test_codec_dir_modes(tmp_path, weights, fmt):
             np.testing.assert_array_equal(
                 png.load(str(rec2 / f"im{i}.png"), "RGBA"),
                 png.load(str(rec / f"im{i}.png"), "RGBA"), str(i))
+
+
+@pytest.mark.parametrize("command", ["decode", "decode-dir"])
+def test_codec_decode_truncates_as_the_jax_cli(tmp_path, weights,
+                                               monkeypatch, command):
+    """The RGB synthesis is made to decode to values an ulp under k/255
+    (k = 1..255 where fp32 x 255 stays under k): the CLI writes k-1, as
+    the JAX CLI's ``_write_rgba`` does (PIL, read back), where the
+    rounded ``output="uint8"`` gives k."""
+    from rgba_tpu.cli.codec import _write_rgba as jax_write_rgba
+    from rgba_tpu_torch.eval.codec_io import CodecIO
+
+    ks = np.arange(1, 256)
+    under = np.nextafter((ks / 255.0).astype(np.float32), np.float32(0))
+    keep = under * np.float32(255) < ks
+    ks, under = ks[keep], under[keep]
+    assert ks.size > 100
+    real = CodecIO.decode_image
+
+    def crafted(self, y_hat, mask=None, device=False):
+        out = real(self, y_hat, mask=mask, device=True)
+        if self.kind == "rgb":
+            vals = np.resize(under, out.numel()).reshape(tuple(out.shape))
+            out = torch.from_numpy(vals).to(out.device)
+        return out if device else out.cpu().numpy()
+
+    src, enc = tmp_path / "src", tmp_path / "enc"
+    src.mkdir()
+    _write_rgba(src / "im.png", 64, 64, 31)
+    codec.main(["encode-dir", str(src), str(enc)] + _codec_args(weights),
+               device="cpu")
+    blob = (enc / "im.rgbc").read_bytes()
+    monkeypatch.setattr(CodecIO, "decode_image", crafted)
+    if command == "decode":
+        out = tmp_path / "im.png"
+        codec.main(["decode", str(enc / "im.rgbc"), str(out)]
+                   + _codec_args(weights), device="cpu")
+    else:
+        codec.main(["decode-dir", str(enc), str(tmp_path / "rec")]
+                   + _codec_args(weights), device="cpu")
+        out = tmp_path / "rec" / "im.png"
+    px = png.load(str(out), "RGBA")
+
+    c = codec._load_codecs(weights["rgb"], weights["mask"], "cpu")
+    flt = c.decode(blob)[0]
+    np.testing.assert_array_equal(flt[..., :3].reshape(-1)[:ks.size], under)
+    jax_png = tmp_path / "jax.png"
+    jax_write_rgba(str(jax_png), flt)
+    np.testing.assert_array_equal(px, png.load(str(jax_png), "RGBA"))
+    np.testing.assert_array_equal(px[..., :3].reshape(-1)[:ks.size], ks - 1)
+    rounded = c.decode(blob, output="uint8")[0]
+    np.testing.assert_array_equal(rounded[..., :3].reshape(-1)[:ks.size], ks)
 
 
 @pytest.mark.parametrize("kind", ["mask", "rgb"])
