@@ -10,7 +10,10 @@ failure:
 1. card and build: prints the card's name and power limit (nvidia-smi),
    builds every CUDA kernel of the port from ``rgba_tpu_torch/csrc`` (one
    nvcc per source, all started together) and, beside them, the host rANS
-   coder from ``rgba_tpu_torch/native/rans.cpp`` with g++;
+   coder from ``rgba_tpu_torch/native/rans.cpp`` with g++; then the card's
+   health canary (``utils/health.chip_health``: bf16 8192^3
+   ``torch.matmul`` TF/s by CUDA events, a host fetch's ms, the share of
+   the healthy rate);
 2. kernels: each kernel at the main paths' shapes (batch 16, 512x768), in
    fp32 and bf16, against its plain PyTorch version on the same inputs
    within the printed tolerance (attention also fed a zeroed and a
@@ -30,6 +33,19 @@ failure:
    launch counts of the default serving route (``SERVE_POLICY``: bf16 with
    the attention kernel only) on the same weights; then fp32 with the
    kernels on against fp32 with them off (TF32 off) on x_hat and bpp;
+   then ``SERVE_INT8_POLICY`` (dynamic W8A8 convolutions, ``ops/quant.py``)
+   on the same weights: shapes, finiteness, 4 attention launches; the
+   int32 accumulators of the first convolution of each geometry on the
+   path (5x5 s2, the 5x5 s2 deconvolution, 3x3, 1x1, the 1- and
+   3-channel inputs and outputs) equal to the float64 convolution of the
+   same int8 operands, and each convolution's ms against cuDNN's bf16
+   convolution of the same shape, with its bound (int8 at 1979 TOP/s);
+   x_hat within 0.08 relative L2 of the fp32 forward (the JAX package's
+   gate), and the same forward with the weight scale left out of the
+   dequantize, which must fail it; img/s of serve-int8, ``SERVE_POLICY``
+   and bf16 with all kernels by ``utils/benchmark.device_time``, in turns;
+   one profiled int8 forward, its device ms by stage (quantize, im2col,
+   ``torch._int_mm``, dequantize, the rest);
 4. codec: ``RGBAFileCodec`` over two ``CodecIO`` at batch 16, 512x768,
    fp32 with all four kernels on, uint8 RGBA in and out: launch counts of
    one encode + decode, byte-identical re-encode, blob 0 alone and the
@@ -125,7 +141,18 @@ failure:
    last bf16 step the stepped ``WindowAttention``
    modules must hold the kernel layout of their new weights and agree with
    their plain path (a stale layout would train silently wrong).  Then one
-   profiled RGB step, and its forward and backward apart.
+   profiled RGB step, and its forward and backward apart;
+7. data parallel: ``parallel.distributed.initialize()`` from torchrun's
+   variables at world size 1 over NCCL; 3 bf16 ``RGBTrainer`` steps
+   (batch 8, 256x256) under ``DistributedDataParallel`` against the same
+   steps without it (losses within 1e-6 relative; the plain run's gap to
+   its own second run printed); ``dryrun_multichip(1)`` (a rank and a
+   single process on the card, gradients within 1e-5 mean|g| + 1e-7);
+   ``RGBAFileCodec`` over two ``CodecIO(sharding=)`` on a two-replica mesh
+   of cuda:0 (fp32, kernels on, batch 16, 512x768): blobs byte-identical
+   to the unsharded codec's, the decode equal, twice the codec's kernel
+   launches, enc+dec img/s of both (one card shows correctness, not
+   scaling).
 
 The line before the last is one JSON object with every kernel's numbers
 (the four conv kernels' headline cases are bf16 forward shapes; the
@@ -158,6 +185,8 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
+import importlib.util
 import json
 import math
 import os
@@ -187,23 +216,28 @@ def _card_line() -> str:
 HOLD_CYCLES = 50_000_000   # ~25 ms of the card spinning (torch.cuda._sleep)
 
 
+@functools.lru_cache(maxsize=None)
+def _device_time():
+    """This checkout's ``device_time`` (``rgba_tpu_torch/utils/benchmark.py``,
+    which imports nothing of the package), loaded from its file: ``--base``
+    times another checkout's kernels with it, and that checkout's package
+    may have none."""
+    path = REPO / "rgba_tpu_torch" / "utils" / "benchmark.py"
+    spec = importlib.util.spec_from_file_location("_smoke_benchmark", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.device_time
+
+
 def _time_ms(torch, fn, iters: int, hold: bool = True) -> float:
-    """Mean device time of fn() over `iters` calls after two warm-ups,
-    with CUDA events.  With ``hold`` the card is held busy while the host
-    enqueues the calls, so a kernel shorter than its launch's host work is
-    timed, not the host; without it the gaps between launches count too."""
-    fn()
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    if hold:
-        torch.cuda._sleep(HOLD_CYCLES)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    """Mean device time of fn() over `iters` calls after two warm-ups, by
+    ``device_time`` (CUDA events, one synchronize at the end).  With
+    ``hold`` the card is held busy while the host enqueues the calls, so a
+    kernel shorter than its launch's host work is timed, not the host;
+    without it the gaps between launches count too."""
+    return 1e3 * _device_time()(fn, [()], iters=iters, warmup=2,
+                                device="cuda",
+                                hold_cycles=HOLD_CYCLES if hold else 0)
 
 
 # The rANS kernels' chain bound: a lane's steps depend on each other through
@@ -586,10 +620,12 @@ def _liven(torch, pipe, seed: int = 1, gain: float = 10.0) -> None:
         pipe.mask_codec.EncoderMask[7].weight.mul_(gain)
 
 
-def profile_run(torch, fn, what: str, top: int = 15) -> dict:
+def profile_run(torch, fn, what: str, top: int = 15, spans=()) -> dict:
     """One call of fn under torch.profiler: device time by kernel and the
     share of the call's wall time the device was busy.  The profiler's own
-    overhead lengthens the wall time, so the share is a lower bound."""
+    overhead lengthens the wall time, so the share is a lower bound.
+    ``spans``: names of ``record_function`` ranges whose device time (the
+    kernels launched inside them) is returned under "spans"."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -616,8 +652,14 @@ def profile_run(torch, fn, what: str, top: int = 15) -> dict:
     for name, count, ms in rows[:top]:
         print(f"    {ms:9.3f} ms {100.0 * ms / max(busy_ms, 1e-9):5.1f}% "
               f"x{count:<4d} {name[:90]}")
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "top": [{"name": n, "calls": c, "ms": m} for n, c, m in rows[:top]]}
+    out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "top": [{"name": n, "calls": c, "ms": m} for n, c, m in rows[:top]]}
+    if spans:
+        cpu = torch.autograd.DeviceType.CPU
+        out["spans"] = {e.key: e.device_time_total / 1e3
+                        for e in prof.key_averages()
+                        if e.key in spans and e.device_type == cpu}
+    return out
 
 
 KERNEL_NAMES = ("fused_window_attention", "fused_gdn", "fused_gate_chain",
@@ -2497,6 +2539,345 @@ def _mask_fp32_split(torch, dataset) -> dict:
             "launches": runs["on"]["launches"]}
 
 
+# ------------------------------------------------------------------ slice 12
+
+PEAK_INT8 = 1979e12                  # dense int8 tensor-core operations/s
+INT8_REL_TOL = 0.08    # x_hat against fp32: the JAX package's gate (tests/test_quant.py)
+PARALLEL_STEPS = 3
+PARALLEL_LOSS_RTOL = 1e-6
+
+
+def health_phase(torch) -> dict:
+    """The card's health canary (``utils/health.chip_health``): bf16
+    8192^3 ``torch.matmul`` TF/s and the ms of one host fetch."""
+    from rgba_tpu_torch.utils import health
+
+    card = _card_line()
+    out = health.chip_health()
+    print(f"  chip_health: {out['matmul_tflops']} TF/s (bf16 8192^3 "
+          f"torch.matmul, CUDA events), host fetch {out['sync_ms']} ms, "
+          f"healthy_frac {out['healthy_frac']} of HEALTHY_TFS "
+          f"{health.HEALTHY_TFS}, degraded {out['degraded']}; card {card}")
+    if not (math.isfinite(out["matmul_tflops"]) and out["matmul_tflops"] > 0):
+        raise AssertionError(f"chip_health gave no rate: {out}")
+    return dict(out, healthy_tfs=health.HEALTHY_TFS, card=card)
+
+
+def _int8_geometry(weight, stride: int, transposed: bool) -> str:
+    k = weight.shape[2]
+    cin, cout = ((weight.shape[0], weight.shape[1]) if transposed
+                 else (weight.shape[1], weight.shape[0]))
+    name = f"{'deconv' if transposed else 'conv'}{k}x{k}s{stride}"
+    if cin < 8:
+        name += f"_in{cin}"
+    if cout < 8:
+        name += f"_out{cout}"
+    return name
+
+
+@contextlib.contextmanager
+def _recorded_int8(torch):
+    """Keeps the arguments of the first int8 convolution of each geometry
+    (kernel size, stride, direction, a narrow input or output) that runs
+    while the block does."""
+    from rgba_tpu_torch.ops import conv
+
+    seen = {}
+    run = conv.policy_conv
+
+    def record(x, weight, bias, policy, stride=1, padding=0,
+               transposed=False, output_padding=0):
+        key = _int8_geometry(weight, stride, transposed)
+        if key not in seen:
+            seen[key] = dict(x=x.to(policy.compute_dtype).detach().clone(),
+                             weight=weight.detach().clone(),
+                             bias=bias.detach().clone(), stride=stride,
+                             padding=padding, transposed=transposed,
+                             output_padding=output_padding)
+        return run(x, weight, bias, policy, stride, padding, transposed,
+                   output_padding)
+    conv.policy_conv = record
+    try:
+        yield seen
+    finally:
+        conv.policy_conv = run
+
+
+def _int8_conv_case(torch, key: str, c: dict, iters: int) -> dict:
+    """One recorded int8 convolution: its int32 accumulators (the first two
+    images, their own scale) against the float64 convolution of the same
+    int8 operands, exact below 2^53; its time at the path's shape against
+    cuDNN's bf16 convolution of the same shape, and its bound."""
+    import torch.nn.functional as F
+    from rgba_tpu_torch.ops import quant
+
+    x, w, s, p, tr, op = (c[k] for k in ("x", "weight", "stride", "padding",
+                                          "transposed", "output_padding"))
+    xq, _ = quant.quantize_activation(x[:2])
+    wq, _ = quant.quantize_weight(w, tr)
+    acc = quant.int8_accumulate(xq, wq, s, p, tr, op)
+    xd, wd = xq.double(), wq.double()
+    exact = (F.conv_transpose2d(xd, wd, stride=s, padding=p,
+                                output_padding=op) if tr
+             else F.conv2d(xd, wd, stride=s, padding=p))
+    diff = float((acc.permute(0, 3, 1, 2).double() - exact).abs().max())
+    wb, bb = w.to(torch.bfloat16), c["bias"].to(torch.bfloat16)
+
+    def library():
+        if tr:
+            return F.conv_transpose2d(x, wb, bb, s, p, op)
+        return F.conv2d(x, wb, bb, s, p)
+    out = library()
+    ms = _time_ms(torch, lambda: quant.int8_conv(x, w, s, p, tr, op), iters)
+    lib_ms = _time_ms(torch, library, iters)
+    b, cin, h, wd_ = x.shape
+    cout = w.shape[1] if tr else w.shape[0]
+    k = w.shape[2]
+    macs = (b * h * wd_ * cin * cout * k * k if tr
+            else out.numel() * cin * k * k)
+    nbytes = 2 * x.numel() + 2 * out.numel() + 4 * w.numel()
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * macs / PEAK_INT8 * 1e3
+    res = {"shape": f"{tuple(x.shape)} -> {tuple(out.shape)}",
+           "acc_max_abs_diff": diff, "ms": ms, "bf16_cudnn_ms": lib_ms,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    print(f"  int8 {key} {res['shape']}: int32 accumulators vs float64 "
+          f"max |d| {diff:g}; {ms:.4f} ms vs bf16 cuDNN {lib_ms:.4f} ms, "
+          f"bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
+    if diff != 0.0:
+        raise AssertionError(f"int8 {key}: the int32 accumulators are not "
+                             f"the exact sums")
+    return res
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-12))
+
+
+def int8_phase(torch, batch: int, iters: int) -> dict:
+    """``SERVE_INT8_POLICY`` (bf16, dynamic W8A8 convolutions, the
+    attention kernel) on the forward phase's live weights, batch x 512x768:
+    shapes, finiteness, the attention kernel's launches, the exact int32
+    sums of one convolution of each geometry, x_hat against the fp32
+    forward (and a dequantize without the weight scale, which must fail
+    that gate), img/s against ``SERVE_POLICY`` and bf16 with all kernels
+    by ``device_time`` in turns, one profiled forward."""
+    from rgba_tpu_torch.core.precision import (BF16_POLICY, DEFAULT_POLICY,
+                                               SERVE_INT8_POLICY,
+                                               SERVE_POLICY)
+    from rgba_tpu_torch.data.synthetic import synthetic_rgba_batch
+    from rgba_tpu_torch.models.pipeline import RGBAPipeline
+    from rgba_tpu_torch.ops import quant
+
+    t0 = time.perf_counter()
+    fp32 = RGBAPipeline(DEFAULT_POLICY, seed=0)
+    _liven(torch, fp32)
+    state = fp32.state_dict()
+    pipes = {"serve-int8": RGBAPipeline(SERVE_INT8_POLICY, seed=0),
+             "serve": RGBAPipeline(SERVE_POLICY, seed=0),
+             "bf16 all kernels": RGBAPipeline(_all_kernels(BF16_POLICY),
+                                              seed=0)}
+    for p in pipes.values():
+        p.load_state_dict(state)
+    datas = [synthetic_rgba_batch(batch, 512, 768, seed=s) for s in range(2)]
+    ins = [(torch.from_numpy(d["masked_image"]).cuda(),
+            torch.from_numpy(d["alpha"]).cuda()) for d in datas]
+    print(f"  set-up {time.perf_counter() - t0:.1f} s")
+    int8 = pipes["serve-int8"]
+    int8(*ins[1])                                     # warm-up
+    torch.cuda.synchronize()
+    _reset_launches()
+    with _recorded_int8(torch) as convs:
+        out = int8(*ins[0])
+    torch.cuda.synchronize()
+    launches = _read_launches(SERVE_LAUNCHES, "one serve-int8 forward")
+    for key, shape in (("x_hat", (batch, 512, 768, 3)),
+                       ("recon_mask", (batch, 512, 768, 1))):
+        if tuple(out[key].shape) != shape:
+            raise AssertionError(f"{key} shape {tuple(out[key].shape)}")
+    for key, v in out.items():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"serve-int8 {key} is not finite")
+    print(f"  {len(convs)} geometries of int8 convolution in one forward: "
+          f"{', '.join(sorted(convs))}")
+    cases = {key: _int8_conv_case(torch, key, c, iters)
+             for key, c in sorted(convs.items())}
+    del convs
+
+    ref = fp32(*ins[0])
+    rel = _rel_l2(out["x_hat"], ref["x_hat"])
+    bpp = (float(out["bpp"]), float(ref["bpp"]))
+    print(f"  x_hat serve-int8 vs fp32: relative L2 {rel:.5f} (gate "
+          f"{INT8_REL_TOL}); bpp {bpp[0]:.5f} vs {bpp[1]:.5f}")
+    if not rel < INT8_REL_TOL:
+        raise AssertionError(f"serve-int8 x_hat {rel} off the fp32 forward")
+    # the gate must see a broken dequantize: the weight scale left out (a
+    # NaN fails the gate too); per-tensor weight scales are printed beside
+    quantize_weight = quant.quantize_weight
+
+    def variant(fn):
+        quant.quantize_weight = fn
+        try:
+            return _rel_l2(int8(*ins[0])["x_hat"], ref["x_hat"])
+        finally:
+            quant.quantize_weight = quantize_weight
+
+    def tensor_scale(w, tr=False):
+        s = torch.clamp_min(w.float().abs().amax() / 127.0, 1e-12)
+        wq = torch.round(w.float() / s).clamp_(-127, 127).to(torch.int8)
+        return wq, s.expand(w.shape[1] if tr else w.shape[0])
+
+    broken = variant(lambda w, tr=False: (quantize_weight(w, tr)[0], torch.ones(
+        w.shape[1] if tr else w.shape[0], device=w.device)))
+    seen = not broken < INT8_REL_TOL
+    per_tensor = variant(tensor_scale)
+    print(f"  the weight scale left out: relative L2 {broken:.5f} -> "
+          f"{'seen' if seen else 'FAIL (not seen)'}; per-tensor weight "
+          f"scales: relative L2 {per_tensor:.5f}")
+    if not seen:
+        raise AssertionError("the x_hat gate cannot see a broken dequantize")
+    del ref, fp32
+
+    dtime = _device_time()
+    img_s = {}
+    for rep in ("", " again"):
+        for name, p in pipes.items():
+            sec = dtime(p, ins, iters=iters, warmup=1, device="cuda")
+            img_s[name + rep] = batch / sec
+            print(f"  forward {name}{rep}: {batch / sec:.3f} img/s (batch "
+                  f"{batch}, 512x768, device_time over {iters} calls)")
+    spans = ("int8.quantize", "int8.im2col", "int8.int_mm",
+             "int8.dequantize")
+    profile = profile_run(torch, lambda: int8(*ins[0]), "serve-int8 forward",
+                          spans=spans)
+    parts = {k: profile["spans"].get(k, 0.0) for k in spans}
+    parts["rest"] = profile["device_busy_ms"] - sum(parts.values())
+    print("  serve-int8 forward device ms: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in parts.items()))
+    del pipes, int8
+    return {"launches": launches, "x_hat_rel_l2": rel,
+            "weight_scale_left_out_rel_l2": broken,
+            "per_tensor_weight_scale_rel_l2": per_tensor, "bpp": bpp[0],
+            "bpp_fp32": bpp[1], "convs": cases, "img_per_s": img_s,
+            "profile": profile, "device_ms": parts}
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def parallel_phase(torch, batch: int) -> dict:
+    """``initialize()`` at world size 1 over NCCL; PARALLEL_STEPS bf16
+    ``RGBTrainer`` steps under ``DistributedDataParallel`` against the same
+    steps without it (and the plain run again, its own gap);
+    ``dryrun_multichip(1)``; a sharded ``RGBAFileCodec`` round trip on a
+    two-replica mesh of cuda:0 against the unsharded codec."""
+    import numpy as np
+    import tempfile
+    import torch.distributed as dist
+    from rgba_tpu_torch.core.config import TrainConfig
+    from rgba_tpu_torch.core.precision import DEFAULT_POLICY, deterministic_scope
+    from rgba_tpu_torch.data.synthetic import synthetic_rgba_batch
+    from rgba_tpu_torch.eval.codec_io import CodecIO
+    from rgba_tpu_torch.eval.container import RGBAFileCodec
+    from rgba_tpu_torch.models.pipeline import RGBAPipeline
+    from rgba_tpu_torch.parallel.distributed import initialize, process_count
+    from rgba_tpu_torch.parallel.dryrun import dryrun_multichip
+    from rgba_tpu_torch.parallel.mesh import batch_sharding, make_mesh
+    from rgba_tpu_torch.train.loops import RGBTrainer
+
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()),
+                      RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    initialize()
+    if not (dist.is_initialized() and dist.get_backend() == "nccl"
+            and process_count() == 1):
+        raise AssertionError("initialize() made no NCCL group of one")
+    print(f"  initialize(): backend {dist.get_backend()}, world size "
+          f"{dist.get_world_size()}")
+    cfg = TrainConfig(train_lambda=1024, batch_size=TRAIN_BATCH, aux_lr=1e-3,
+                      compute_dtype="bfloat16")
+    steps = [{k: d[k] for k in ("masked_image", "alpha", "image")}
+             for d in (synthetic_rgba_batch(TRAIN_BATCH, TRAIN_SIZE,
+                                            TRAIN_SIZE, seed=20 + i)
+                       for i in range(PARALLEL_STEPS))]
+    losses = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, dp in (("plain", False), ("ddp", True),
+                         ("plain again", False)):
+            trainer = RGBTrainer(cfg, tmp, data_parallel=dp)
+            state = trainer.init_state()
+            with deterministic_scope():
+                losses[name] = [float(trainer.step(state, b)["rd_loss"])
+                                for b in steps]
+            del trainer, state
+    gaps = {k: max(abs(a - b) / abs(b) for a, b in
+                   zip(losses[k], losses["plain"]))
+            for k in ("ddp", "plain again")}
+    print(f"  {PARALLEL_STEPS} bf16 RGBTrainer steps (batch {TRAIN_BATCH}, "
+          f"{TRAIN_SIZE}x{TRAIN_SIZE}): plain {losses['plain']}, ddp "
+          f"{losses['ddp']}; largest relative gap ddp {gaps['ddp']:.3g} "
+          f"(gate {PARALLEL_LOSS_RTOL:g}), plain's own {gaps['plain again']:.3g}")
+    if not gaps["ddp"] <= PARALLEL_LOSS_RTOL:
+        raise AssertionError("the DDP steps differ from the plain steps")
+    t = time.perf_counter()
+    dry = dryrun_multichip(1)
+    print(f"  dryrun_multichip(1): loss rel {dry['loss_rel']:.3g}, worst "
+          f"parameter at {dry['grad_worst_ratio']:.3g} of its bound "
+          f"({dry['grad_worst_param']}; max |dg| at "
+          f"{dry['grad_worst_max_ratio']:.3g}), {time.perf_counter() - t:.1f} s")
+
+    h, w = 512, 768
+    on = RGBAPipeline(_all_kernels(DEFAULT_POLICY), seed=0)
+    _liven(torch, on)
+    sh = batch_sharding(make_mesh(devices=["cuda:0", "cuda:0"]))
+    codecs = {name: RGBAFileCodec(CodecIO(on.rgb_codec, "rgb", sharding=s),
+                                  CodecIO(on.mask_codec, "mask", sharding=s))
+              for name, s in (("unsharded", None), ("sharded", sh))}
+    d = {k: np.round(v * 255.0).astype(np.uint8) for k, v in
+         synthetic_rgba_batch(batch, h, w, seed=0).items()}
+    img, alpha = d["image"], d["alpha"]
+    out = {}
+    for name, c in codecs.items():
+        c.decode_batch(c.encode_batch(img, alpha), output="uint8")  # warm-up
+        torch.cuda.synchronize()
+        _reset_launches()
+        blobs = c.encode_batch(img, alpha)
+        dec = c.decode_batch(blobs, output="uint8")
+        out[name] = (blobs, dec, {n: k.launches
+                                  for n, k in _kernels().items()})
+    if out["sharded"][0] != out["unsharded"][0]:
+        raise AssertionError("the sharded codec's blobs differ")
+    if not np.array_equal(out["sharded"][1], out["unsharded"][1]):
+        raise AssertionError("the sharded codec's decode differs")
+    want = {n: 2 * v for n, v in CODEC_LAUNCHES.items()}
+    print(f"  sharded round trip (2 replicas on cuda:0, batch {batch}, "
+          f"512x768, fp32, kernels on): blobs byte-identical, decode equal; "
+          f"launches {out['sharded'][2]}")
+    if out["sharded"][2] != want:
+        raise AssertionError(f"sharded launches {out['sharded'][2]}, "
+                             f"expected {want}")
+    rates = {}
+    for name in ("unsharded", "sharded", "sharded again", "unsharded again"):
+        c = codecs[name.split()[0]]
+        t = time.perf_counter()
+        c.decode_batch(c.encode_batch(img, alpha), output="uint8")
+        rates[name] = batch / (time.perf_counter() - t)
+        print(f"  codec {name}: enc+dec {rates[name]:.3f} img/s (one card: "
+              f"correctness, not scaling)")
+    for c in codecs.values():
+        c.rgb_io.close()
+        c.mask_io.close()
+    dist.destroy_process_group()
+    return {"losses": losses, "loss_gaps": gaps, "dryrun": dry,
+            "sharded_launches": out["sharded"][2],
+            "sharded_img_per_s": rates}
+
+
 # runs in either checkout, through that checkout's own chip_smoke.py, its
 # cases timed by this checkout's _time_ms (argv[1] this file)
 AB_WORKER = """
@@ -2758,6 +3139,10 @@ def main(argv=None) -> int:
 
     phase_s = {"build": time.perf_counter() - t0}
     t = time.perf_counter()
+    print("card health:")
+    health = health_phase(torch)
+    phase_s["health"] = time.perf_counter() - t
+    t = time.perf_counter()
     print("kernels at the main paths' shapes:")
     res = {"fused_gdn": gdn_cases(torch, args.batch, args.iters),
            "fused_window_attention": attention_cases(torch, args.batch,
@@ -2769,6 +3154,10 @@ def main(argv=None) -> int:
     print("forward path:")
     path = path_phase(torch, args.batch, args.iters)
     phase_s["forward"] = time.perf_counter() - t
+    t = time.perf_counter()
+    print("serve-int8 forward (dynamic W8A8 convolutions):")
+    int8 = int8_phase(torch, args.batch, args.iters)
+    phase_s["int8"] = time.perf_counter() - t
     t = time.perf_counter()
     print("codec path:")
     codec = codec_phase(torch, args.batch, args.iters)
@@ -2789,6 +3178,10 @@ def main(argv=None) -> int:
     print("train path:")
     train = train_phase(torch)
     phase_s["train"] = time.perf_counter() - t
+    t = time.perf_counter()
+    print("data parallel (torch.distributed, one card):")
+    parallel = parallel_phase(torch, args.batch)
+    phase_s["parallel"] = time.perf_counter() - t
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in phase_s.items()))
 
@@ -2895,6 +3288,9 @@ def main(argv=None) -> int:
         "lanes": {k: v for k, v in lanes.items() if k != "segments"},
         "train": {k: v for k, v in train.items() if k != "launches_train"},
         "eval": evals,
+        "health": health,
+        "int8": int8,
+        "parallel": parallel,
         "phase_seconds": phase_s,
     }
     print(card)

@@ -4,6 +4,8 @@ the reference's trainmask.py).
 Train:  python -m rgba_tpu_torch.cli.train_mask --config cfg.json -n run1
 Eval:   python -m rgba_tpu_torch.cli.train_mask --config cfg.json -n run1 \\
             -p checkpoints/run1/iter_600000.ckpt --test --kodak ../Kodak/
+Data parallel, one process per card (``batch_size`` is the global batch):
+        torchrun --nproc_per_node=N -m rgba_tpu_torch.cli.train_mask ...
 
 ``-p`` reads the port's checkpoints, reference ``.pth.tar`` files and the
 JAX package's ``iter_<N>.ckpt``.
@@ -25,6 +27,7 @@ from ..data.png import write_png
 from ..metrics.ms_ssim import ms_ssim
 from ..models.mask_codec import MaskCodec
 from ..ops.morphology import constraint_mask
+from ..parallel.distributed import initialize, process_index
 from ..train.loops import MaskTrainer
 from .common import build_parser, load_params_if, make_tb_writer, setup_logging
 
@@ -103,6 +106,8 @@ def main(argv=None, device=None):
     logger.info("mask codec training (CUDA)")
 
     dev = resolve_device(device)
+    # one process per device under torchrun; a no-op in a single process
+    initialize(device=dev)
     # the JAX driver's model: the default (fp32) policy
     model = MaskCodec(policy=DEFAULT_POLICY, device=dev,
                       generator=torch.Generator().manual_seed(cfg.seed))
@@ -123,7 +128,8 @@ def main(argv=None, device=None):
     loader = BatchLoader(ds, batch_size=cfg.batch_size, shuffle=True,
                          num_workers=4, seed=cfg.seed)
     state = trainer.init_state(step=load_params_if(args.pretrain, model))
-    tb = make_tb_writer(save_path) if save_path else None
+    tb = make_tb_writer(save_path) if save_path and process_index() == 0 \
+        else None
 
     def eval_fn(step, st):
         evaluate_mask(model, args.kodak, logger, step, tb)

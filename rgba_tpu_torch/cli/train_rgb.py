@@ -4,6 +4,8 @@ the reference's trainRGB.py).
 Train:  python -m rgba_tpu_torch.cli.train_rgb --config cfgRGB.json -n run1 \\
             -pm checkpoints/mask/iter_600000.ckpt
 Eval:   ... -p checkpoints/run1/iter_1500000.ckpt --test --kodak ../Kodak/
+Data parallel, one process per card (``batch_size`` is the global batch):
+        torchrun --nproc_per_node=N -m rgba_tpu_torch.cli.train_rgb ...
 
 ``-p`` / ``-pm`` read the port's checkpoints, reference ``.pth.tar``
 files and the JAX package's ``iter_<N>.ckpt``.
@@ -23,6 +25,7 @@ from ..data.loader import BatchLoader
 from ..eval.kodak import evaluate_kodak
 from ..models.mask_codec import MaskCodec
 from ..models.rgb_codec import RGBCodec
+from ..parallel.distributed import initialize, process_index
 from ..train.loops import RGBTrainer
 from .common import build_parser, load_params_if, make_tb_writer, setup_logging
 
@@ -39,6 +42,8 @@ def main(argv=None, device=None):
     logger.info("RGB codec training (CUDA)")
 
     dev = resolve_device(device)
+    # one process per device under torchrun; a no-op in a single process
+    initialize(device=dev)
     # the JAX driver's models: the default (fp32) policy, seeded weights
     # until a checkpoint replaces them
     model = RGBCodec(policy=DEFAULT_POLICY, device=dev,
@@ -69,7 +74,8 @@ def main(argv=None, device=None):
     loader = BatchLoader(ds, batch_size=cfg.batch_size, shuffle=True,
                          num_workers=4, seed=cfg.seed)
     state = trainer.init_state(step=load_params_if(args.pretrain, model))
-    tb = make_tb_writer(save_path) if save_path else None
+    tb = make_tb_writer(save_path) if save_path and process_index() == 0 \
+        else None
 
     def eval_fn(step, st):
         evaluate_kodak(model, mask_model, args.kodak,

@@ -41,8 +41,11 @@ class TrainConfig:
     curriculum_step: int = 500_000      # full-image / all-ones-mask phase
     fill_mix_ratio: float = 0.25
     compute_dtype: str = "bfloat16"     # bf16 activations
-    num_devices: int = 0                # read from the JSON for compatibility;
-                                        # the trainers here drive one GPU
+    num_devices: int = 0                # 0, or the torch.distributed group's
+                                        # size (one process per device; the
+                                        # JAX trainer's gcd(batch, n) data
+                                        # axis within one process has no
+                                        # counterpart: train/loops.py raises)
     snapshot_freq: int = 5000           # rotating checkpoint cadence
     # RGB-codec distortion term: "mse" (reference default) or "msssim"
     # (1 - masked MS-SSIM over the alpha-visible region)

@@ -10,8 +10,11 @@ Routing flags name the hand-written CUDA kernels of ``ops/kernels``:
 They serve and train: under autograd a routed op runs its kernel in the
 forward and takes its gradients from the plain formulation
 (``ops/kernels/remat.py``).  Training keeps fp32 parameters and explicit
-casts (``cast_in``): no autocast, no gradient scaling.  The JAX flag ``int8_conv`` has no port yet, so the
-policy has no such field.  ``packed_dse`` is a TPU lane layout of the same
+casts (``cast_in``): no autocast, no gradient scaling.  ``int8_conv``
+(serving only, as in the JAX package) runs every ``Conv``,
+``ConvTranspose`` and plain gate-chain and DSE convolution as the dynamic
+W8A8 convolution of ``ops/quant.py``; it has no gradient, and no training
+or parity policy sets it.  ``packed_dse`` is a TPU lane layout of the same
 math and computes the plain DSE here; as in the JAX package it wins over
 ``fused_dse`` when the batch divides by 4, so a policy that wants the DSE
 kernel sets ``packed_dse=False``.  Parameters are always fp32 and the
@@ -37,6 +40,9 @@ class Policy:
     fused_gate_chain: bool = False
     fused_dse: bool = False
     packed_dse: bool = False
+    # serving only: dynamic W8A8 convolutions (ops/quant.py); round has no
+    # gradient, so never set in training
+    int8_conv: bool = False
 
     @property
     def exact(self) -> bool:
@@ -139,6 +145,8 @@ BF16_POLICY = Policy(compute_dtype=torch.bfloat16)
 # serving: bf16 + the fused window-attention kernel
 SERVE_POLICY = Policy(compute_dtype=torch.bfloat16, fused_win_attn=True,
                       packed_dse=True)
+# int8 serving: SERVE_POLICY with dynamic W8A8 convolutions
+SERVE_INT8_POLICY = dataclasses.replace(SERVE_POLICY, int8_conv=True)
 
 
 def policy_from_str(name: str) -> Policy:
@@ -148,6 +156,8 @@ def policy_from_str(name: str) -> Policy:
         return DEFAULT_POLICY
     if name in ("serve", "serving"):
         return SERVE_POLICY
+    if name in ("serve-int8", "int8"):
+        return SERVE_INT8_POLICY
     raise ValueError(f"unknown compute dtype: {name}")
 
 

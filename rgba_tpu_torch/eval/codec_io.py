@@ -54,14 +54,29 @@ Serving options, as in the JAX package:
 
 Worker threads (``eval/pipeline.PipelinedCodec``) enqueue on the caller's
 CUDA stream (``caller_stream``), and the codec's lazily built caches fill
-under a lock.  Not ported: batch sharding, and the JAX package's split fetch
-of the encode (its second half fetched under the first half's host coding:
-on the H100 the whole fetch is too short for it to pay, ``PERF.md``).
+under a lock.
+
+Batch-sharded serving (``sharding=batch_sharding(mesh)``, ``parallel/
+mesh.py``): each device of the mesh holds a replica of the model (the
+codec's own model on its own device, copies elsewhere; ``set_params``
+updates them all).  ``compress_batch`` and the v64 decode cut the batch
+into the mesh's equal shards, run each shard's device steps on its device
+from a thread of its own, on the caller's stream of that device, and
+gather the results in batch order; the host rANS is unchanged.  Images are
+independent and the codec's steps do not depend on the batch (``_scope``),
+so the streams are bit-identical to unsharded ones.  As in the JAX
+package, the decode chain is not interleaved under sharding and the lane
+(v3) decode refuses it.  A batch the mesh does not divide raises.
+
+Not ported: the JAX package's split fetch of the encode (its second half
+fetched under the first half's host coding: on the H100 the whole fetch is
+too short for it to pay, ``PERF.md``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import hashlib
 import os
 import threading
@@ -167,7 +182,8 @@ class CodecIO:
 
     LANES_DEFAULT = 128
 
-    def __init__(self, model, kind: str = "rgb", rate_gate: bool = False):
+    def __init__(self, model, kind: str = "rgb", rate_gate: bool = False,
+                 sharding=None):
         if kind not in ("rgb", "mask"):
             raise ValueError(f"kind must be 'rgb' or 'mask', got {kind!r}")
         self.model = model.eval()
@@ -185,9 +201,48 @@ class CodecIO:
         self.last_lane_encode = None    # the device lane encode's last budget
         self._build_tables()
         self._pool = ThreadPoolExecutor(max_workers=_MAX_CODING_THREADS)
+        self.sharding = sharding
+        self._replicas = None
+        if sharding is not None:
+            if not sharding.batch_sharded:
+                raise ValueError("CodecIO(sharding=) takes a batch sharding "
+                                 "(parallel.mesh.batch_sharding)")
+            self._replicas = [
+                CodecIO(self.model if i == 0 and d == self.device
+                        else copy.deepcopy(self.model).to(d), kind, rate_gate)
+                for i, d in enumerate(sharding.mesh.devices)]
+            self._shard_pool = ThreadPoolExecutor(
+                max_workers=sharding.mesh.size)
 
     def close(self):
         self._pool.shutdown()
+        if self._replicas is not None:
+            self._shard_pool.shutdown()
+            for r in self._replicas:
+                r.close()
+
+    def _shard_futures(self, n: int, fn) -> List:
+        """fn(replica, batch slice) for each shard of a batch of n, each on a
+        thread of its own, on the caller's stream of the replica's device:
+        the futures, in batch order."""
+        streams = [caller_stream(r.device) for r in self._replicas]
+
+        def run(i, sl):
+            with streams[i]():
+                return fn(self._replicas[i], sl)
+        return [self._shard_pool.submit(run, i, sl)
+                for i, sl in enumerate(self.sharding.slices(n))]
+
+    def _shards(self, n: int, fn) -> List:
+        return [f.result() for f in self._shard_futures(n, fn)]
+
+    def _gather(self, parts, device: bool):
+        """Shards' outputs in batch order: on the codec's device, or host
+        arrays."""
+        if not device:
+            return np.concatenate(parts)
+        with torch.inference_mode():
+            return torch.cat([p.to(self.device) for p in parts])
 
     def _build_tables(self):
         """The tables made from the weights: the z bottleneck's CDF tables
@@ -206,6 +261,10 @@ class CodecIO:
         if state_dict is not None:
             self.model.load_state_dict(state_dict, strict=True)
         self._build_tables()
+        for r in self._replicas or ():
+            if r.model is not self.model:
+                r.model.load_state_dict(self.model.state_dict(), strict=True)
+            r._build_tables()
 
     @contextlib.contextmanager
     def _scope(self):
@@ -329,6 +388,14 @@ class CodecIO:
         if stream_format not in STREAM_FORMATS:
             raise ValueError(f"stream_format must be one of {STREAM_FORMATS}, "
                              f"got {stream_format!r}")
+        if self._replicas is not None:
+            lead = image if self.kind == "rgb" else mask
+            parts = self._shards(len(lead), lambda r, sl: r.compress_batch(
+                image=None if image is None else image[sl],
+                mask=None if mask is None else mask[sl],
+                rate_gate=rate_gate, deadzone=deadzone,
+                stream_format=stream_format, lanes=lanes))
+            return [c for part in parts for c in part]
         rg = self.rate_gate if rate_gate is None else (
             bool(rate_gate) and self.kind == "rgb")
         dz = float(deadzone)
@@ -561,6 +628,11 @@ class CodecIO:
         >= max_slices.  One launch of the decode kernel per segment (1 + k);
         the lane state and pointer stay on the card between them.  Returns
         y_hat (B, M, H/8, W/8), a device tensor."""
+        if self._replicas is not None:
+            raise NotImplementedError(
+                "the lane-format (v3) decode is not wired for batch-sharded "
+                "serving, as in the JAX package: decode v64 streams on a "
+                "sharded codec")
         zh, zw = compressed[0]["shape"]
         lanes = compressed[0].get("lanes")
         for i, c in enumerate(compressed):
@@ -661,7 +733,13 @@ class CodecIO:
         returns the device-resident y_hat (B, M, H/8, W/8) as its
         StopIteration value.  gate_host: (B, lh, lw, 1) bool, the encoder's
         rate gate of each stream.  max_slices: decode the first k slices
-        and mean-fill the rest.  tail_parallel: see the module docstring."""
+        and mean-fill the rest.  tail_parallel: see the module docstring.
+        On a sharded codec the chain starts each shard's chain on its
+        replica (driven to its end on a thread), yields once and gathers
+        the shards' y_hat."""
+        if self._replicas is not None:
+            return (yield from self._sharded_chain(compressed, gate_host,
+                                                   max_slices, tail_parallel))
         batch = len(compressed)
         zh, zw = compressed[0]["shape"]
         if any(tuple(c["shape"]) != (zh, zw) for c in compressed):
@@ -747,6 +825,18 @@ class CodecIO:
             for dec in decoders:
                 dec.close()
 
+    def _sharded_chain(self, compressed, gate_host, max_slices,
+                       tail_parallel):
+        compressed = list(compressed)
+
+        def chain(r, sl):
+            return drive_chains([r.decompress_chain(
+                compressed[sl], None if gate_host is None else gate_host[sl],
+                max_slices, tail_parallel)])[0]
+        futures = self._shard_futures(len(compressed), chain)
+        yield
+        return self._gather([f.result() for f in futures], device=True)
+
     def _gate_of(self, compressed: Sequence[dict], mask, rate_gate: bool):
         """The rate gate of each stream, (B, lh, lw, 1) bool, or None.  A
         stream's gate is the one it carries; every stream must carry one
@@ -773,6 +863,11 @@ class CodecIO:
         """Synthesis transform of a decoded latent (gated by the mask
         pyramid of ``mask`` for the RGB codec), clipped to [0, 1]; NHWC,
         a device tensor with device=True, else a host array."""
+        if self._replicas is not None:
+            return self._gather(self._shards(len(y_hat), lambda r, sl: (
+                r.decode_image(y_hat[sl].to(r.device),
+                               None if mask is None else mask[sl], device))),
+                device)
         with self._scope():
             if self.kind == "rgb":
                 md = mask_pyramid(self._nchw(mask))
@@ -794,9 +889,12 @@ class CodecIO:
         step.  interleave=None picks 2 for batches of 4, 6 and 8 and 1
         otherwise, as the JAX package does (equal sub-batches of at least
         2).  The results equal interleave=1 exactly: the codec's
-        convolutions run one image at a time (``_scope``)."""
+        convolutions run one image at a time (``_scope``).  A sharded codec
+        takes 1, as the JAX package does (the mesh splits the batch)."""
         batch = len(compressed)
-        if interleave is None:
+        if self._replicas is not None:
+            interleave = 1
+        elif interleave is None:
             interleave = 2 if batch in (4, 6, 8) else 1
         groups = [slice(0, batch)]
         if interleave > 1 and batch >= 2:

@@ -6,6 +6,11 @@ without a copy.  Parameters are fp32 and are cast to the policy's compute
 dtype at call time, as the JAX modules do.  Weights are stored in torch
 layout: Conv (O, I, kh, kw), ConvTranspose (I, O, kh, kw).
 
+Under ``policy.int8_conv`` both convolutions run as the dynamic W8A8
+convolution of ``ops/quant.py`` (``policy_conv``) on the whole batch: its
+activation scale is the batch's, as in the JAX package, so that branch
+never goes one image at a time.
+
 The TPU lowerings ``_strided_conv5x5_s2_s2d`` and ``_subpixel_deconv5x5_s2``
 are schedule variants of the same math and are not ported.
 """
@@ -18,6 +23,7 @@ import torch.nn.functional as F
 
 from ..core import init
 from ..core.precision import Policy, batch_invariant
+from .quant import policy_conv
 
 
 def per_image(fn, x):
@@ -34,6 +40,8 @@ def conv2d(x, weight, bias, policy: Policy, stride: int = 1, padding: int = 0):
     """``Conv`` on explicit fp32 parameters in torch layout, cast to the
     policy's compute dtype: what the pure plain paths of the kernel sites
     are written in."""
+    if policy.int8_conv:
+        return policy_conv(x, weight, bias, policy, stride, padding)
     dt = policy.compute_dtype
     w, b = weight.to(dt), bias.to(dt)
     return per_image(lambda t: F.conv2d(t.to(dt), w, b, stride, padding), x)
@@ -80,6 +88,10 @@ class ConvTranspose(nn.Module):
         self.bias = init.zeros((cout,), device)
 
     def forward(self, x):
+        if self.policy.int8_conv:
+            return policy_conv(x, self.weight, self.bias, self.policy,
+                               self.stride, self.padding, transposed=True,
+                               output_padding=self.output_padding)
         dt = self.policy.compute_dtype
         w, b = self.weight.to(dt), self.bias.to(dt)
         return per_image(lambda t: F.conv_transpose2d(

@@ -11,6 +11,23 @@ One process drives one GPU: a batch moves to the device with one
 non-blocking copy per array, and the step runs eagerly.  With a kernel flag
 of the policy on, the forward of that op is the CUDA kernel and its
 gradients come from the plain formulation (``ops/kernels/remat.py``).
+
+Data parallel (the JAX trainer's ``data`` mesh): with a
+``torch.distributed`` group of more than one process
+(``parallel/distributed.initialize``, for example under ``torchrun``), the
+model is wrapped in ``DistributedDataParallel`` and each rank steps on its
+``local_batch_slice`` of the global batch that every rank's loader yields.
+The gradients are all-reduced (mean) before the clamp and the two Adams,
+as the JAX step's psum comes before its clamp; the entropy bottleneck's
+quantiles, which only the aux loss reaches (a function of the parameters
+alone, the same on every rank), are left out of the all-reduce.  Each rank
+draws the noise of the whole global batch from the shared seed and keeps
+its slice, so a step does not depend on the number of ranks (the JAX
+package's noise on a global array does not depend on its sharding).  The
+losses are means over images (the masked MSE, 1 - MS-SSIM) or sums over
+the batch's pixels divided by their count (bpp), so the mean over equal
+shards is the global batch's; the metrics a step returns are averaged
+over the ranks.  Only rank 0 writes snapshots, image dumps and logs.
 """
 
 from __future__ import annotations
@@ -23,6 +40,8 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
 from ..core.config import TrainConfig
 from ..core.precision import policy_from_str, precision_scope, resolve_device
@@ -31,9 +50,12 @@ from ..metrics.ms_ssim import masked_ms_ssim
 from ..models.mask_codec import MaskCodec
 from ..models.rgb_codec import RGBCodec
 from ..ops.mask_pyramid import mask_pyramid
+from ..parallel.distributed import (local_batch_slice, process_count,
+                                    process_index)
 from .checkpoint import save_checkpoint, save_rotating
 from .meters import AverageMeter
-from .state import CodecTrainState, make_train_state, make_train_step
+from .state import (CodecTrainState, is_quantiles, make_train_state,
+                    make_train_step)
 
 logger = logging.getLogger("rgba_tpu_torch")
 
@@ -76,15 +98,39 @@ def _rgb_loss_fn(cfg: TrainConfig):
 
 class Trainer:
     """Shared machinery for both codecs.  ``device`` defaults to ``cuda``
-    and raises without CUDA unless the caller passes ``"cpu"``."""
+    and raises without CUDA unless the caller passes ``"cpu"``.
+    ``data_parallel`` (None: when a process group of more than one process
+    exists) wraps the model in ``DistributedDataParallel``; True also runs
+    a group of one that way."""
 
     # the batch arrays (NHWC numpy) that a step reads
     batch_keys = ("masked_image", "alpha", "image")
 
     def __init__(self, model_cls, cfg: TrainConfig, loss_fn, save_path: str,
                  model=None, device=None, snapshot_keep_after: int = 1_495_000,
-                 image_dump_dir: str = ""):
+                 image_dump_dir: str = "",
+                 data_parallel: Optional[bool] = None):
         self.device = resolve_device(device)
+        world = process_count()
+        if cfg.num_devices > 0 and cfg.num_devices != world:
+            raise ValueError(
+                f"num_devices={cfg.num_devices} with {world} process(es): "
+                f"here one process drives one device, so num_devices must "
+                f"equal the process group's size (or be 0).  The JAX trainer "
+                f"instead builds a data axis of gcd(batch_size, num_devices) "
+                f"devices inside one process, which has no counterpart here")
+        if cfg.batch_size % world:
+            raise ValueError(f"batch_size {cfg.batch_size} does not divide "
+                             f"over {world} processes")
+        self.data_parallel = world > 1 if data_parallel is None \
+            else bool(data_parallel)
+        if self.data_parallel and not dist.is_initialized():
+            raise RuntimeError("data_parallel needs a process group "
+                               "(parallel.distributed.initialize)")
+        if self.data_parallel and self.device.type == "cuda" \
+                and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.is_main = process_index() == 0
         self.cfg = cfg
         self.save_path = save_path
         self.snapshot_keep_after = snapshot_keep_after
@@ -95,7 +141,18 @@ class Trainer:
             model = model_cls(policy=policy_from_str(cfg.compute_dtype),
                               device=self.device,
                               generator=torch.Generator().manual_seed(cfg.seed))
+        if model.policy.int8_conv:
+            raise ValueError("int8_conv is a serving policy: round has no "
+                             "gradient")
         self.model = model
+        self.forward_module = model
+        if self.data_parallel:
+            DistributedDataParallel._set_params_and_buffers_to_ignore_for_model(
+                model, [n for n, _ in model.named_parameters()
+                        if is_quantiles(n)])
+            self.forward_module = DistributedDataParallel(
+                model, device_ids=None if self.device.type == "cpu"
+                else [self.device.index], broadcast_buffers=False)
         self.loss_fn = loss_fn
         self._step_fn = make_train_step(cfg, loss_fn, lambda m: m.aux_loss())
         # all of the training noise, in draw order
@@ -117,10 +174,38 @@ class Trainer:
                 out[k] = t.to(self.device, non_blocking=True).permute(0, 3, 1, 2)
         return out
 
-    def step(self, state: CodecTrainState, batch: dict) -> dict:
-        """One optimizer step on a host batch; returns the metrics."""
+    def noise_source(self):
+        """Where the step's training noise comes from: the trainer's
+        generator, or in data parallel a draw of the global batch's noise
+        from it, of which this rank keeps its slice."""
+        if not self.data_parallel:
+            return self.noise
+        n, r = process_count(), process_index()
+
+        def draw(shape):
+            b = shape[0]
+            full = torch.rand((b * n, *shape[1:]), generator=self.noise,
+                              device=self.device) - 0.5
+            return full[b * r:b * (r + 1)]
+        return draw
+
+    def step(self, state: CodecTrainState, batch: dict,
+             grads: Optional[dict] = None) -> dict:
+        """One optimizer step on a host batch (in data parallel, the global
+        batch: this rank takes its slice); returns the metrics, averaged
+        over the ranks.  ``grads``: see ``make_train_step``."""
+        if self.data_parallel:
+            batch = {k: v[local_batch_slice(len(v))] for k, v in batch.items()
+                     if k in self.batch_keys}
         with precision_scope(self.model.policy):
-            return self._step_fn(state, self.device_batch(batch), self.noise)
+            m = self._step_fn(state, self.device_batch(batch),
+                              self.noise_source(), self.forward_module, grads)
+        if self.data_parallel:
+            keys = sorted(m)
+            t = torch.stack([m[k].float() for k in keys])
+            dist.all_reduce(t)
+            m = dict(zip(keys, t / process_count()))
+        return m
 
     def train(self, loader, state: CodecTrainState, tb_writer=None,
               eval_fn: Callable[[int, CodecTrainState], None] = None,
@@ -153,7 +238,7 @@ class Trainer:
                     meters["mse"].update(mse)
                     meters["psnr"].update(
                         10 * math.log10(1.0 / mse) if mse > 0 else 100.0)
-                if step % cfg.print_freq == 0:
+                if step % cfg.print_freq == 0 and self.is_main:
                     lr = cfg.lr_at(step)
                     if tb_writer is not None:
                         tb_writer.add_scalar("lr", lr, step)
@@ -173,13 +258,13 @@ class Trainer:
                             f"Bpp_z {meters['bpp_z'].val:.5f} ({meters['bpp_z'].avg:.5f})",
                             f"MSE {meters['mse'].val:.5f} ({meters['mse'].avg:.5f})",
                         ]))
-                if step % cfg.snapshot_freq == 0:
+                if step % cfg.snapshot_freq == 0 and self.is_main:
                     save_rotating(self.model.state_dict(), self.save_path,
                                   step, cfg.snapshot_freq,
                                   self.snapshot_keep_after)
                     if self.image_dump_dir:
                         self._dump_images(batch, step)
-                if step % cfg.save_model_freq == 0:
+                if step % cfg.save_model_freq == 0 and self.is_main:
                     save_checkpoint(self.model.state_dict(), self.save_path,
                                     step)
                     if eval_fn is not None:
@@ -187,7 +272,9 @@ class Trainer:
                 if step >= tot:
                     break
             epoch += 1
-        save_checkpoint(self.model.state_dict(), self.save_path, state.step)
+        if self.is_main:
+            save_checkpoint(self.model.state_dict(), self.save_path,
+                            state.step)
         return state
 
     def _dump_images(self, batch: dict, step: int) -> None:
@@ -218,11 +305,13 @@ class MaskTrainer(Trainer):
     batch_keys = ("alpha",)
 
     def __init__(self, cfg: TrainConfig, save_path: str, model=None,
-                 device=None, image_dump_dir: str = ""):
+                 device=None, image_dump_dir: str = "",
+                 data_parallel: Optional[bool] = None):
         super().__init__(MaskCodec, cfg, _mask_loss_fn(cfg), save_path,
                          model=model, device=device,
                          snapshot_keep_after=595_000,
-                         image_dump_dir=image_dump_dir)
+                         image_dump_dir=image_dump_dir,
+                         data_parallel=data_parallel)
 
     def _render_recon(self, batch):
         m = self.device_batch({"alpha": batch["alpha"][:1]})["alpha"]
@@ -235,11 +324,13 @@ class RGBTrainer(Trainer):
     batch_keys = ("masked_image", "alpha")
 
     def __init__(self, cfg: TrainConfig, save_path: str, model=None,
-                 device=None, image_dump_dir: str = ""):
+                 device=None, image_dump_dir: str = "",
+                 data_parallel: Optional[bool] = None):
         super().__init__(RGBCodec, cfg, _rgb_loss_fn(cfg), save_path,
                          model=model, device=device,
                          snapshot_keep_after=1_495_000,
-                         image_dump_dir=image_dump_dir)
+                         image_dump_dir=image_dump_dir,
+                         data_parallel=data_parallel)
 
     def _render_recon(self, batch):
         d = self.device_batch({k: batch[k][:1]

@@ -65,20 +65,30 @@ def make_train_step(cfg: TrainConfig, loss_fn,
     loss_fn(module, batch, generator) -> (rd_loss, metrics dict)
     aux_loss_fn(module) -> scalar (the bottleneck's quantile loss) or None
 
-    step_fn(state, batch, generator) updates ``state`` in place and returns
-    the metrics (tensors on the module's device, with ``rd_loss`` and, when
-    the aux optimizer runs, ``aux_loss``).
+    step_fn(state, batch, generator, forward=None, grads=None) updates
+    ``state`` in place and returns the metrics (tensors on the module's
+    device, with ``rd_loss`` and, when the aux optimizer runs,
+    ``aux_loss``).  ``forward`` is what the loss calls in place of
+    ``state.module`` (its ``DistributedDataParallel`` wrapper, which
+    all-reduces the gradients during the backward, before the clamp, as the
+    JAX step's psum comes before it).  A dict passed as ``grads`` receives
+    a copy of each parameter's gradient as the clamp finds it.
     """
     run_aux = aux_loss_fn is not None and cfg.aux_lr > 0
     schedule = lr_schedule_fn(cfg)
 
-    def step_fn(state: CodecTrainState, batch, generator):
+    def step_fn(state: CodecTrainState, batch, generator, forward=None,
+                grads: Optional[dict] = None):
         main = [p for g in state.opt.param_groups for p in g["params"]]
         for g in state.opt.param_groups:
             g["lr"] = schedule(state.step)
         state.module.zero_grad(set_to_none=True)
-        rd, metrics = loss_fn(state.module, batch, generator)
+        rd, metrics = loss_fn(forward or state.module, batch, generator)
         rd.backward()
+        if grads is not None:
+            grads.update({n: p.grad.detach().clone()
+                          for n, p in state.module.named_parameters()
+                          if p.grad is not None})
         torch.nn.utils.clip_grad_value_(main, cfg.grad_clip)
         state.opt.step()
         metrics = {k: v.detach() for k, v in metrics.items()}

@@ -86,20 +86,25 @@ def _gen(seed=0):
 def test_policy_mirrors_jax():
     assert T_DEFAULT.exact and J_DEFAULT.gelu_kind == "gelu_erf"
     assert not tprec.BF16_POLICY.exact
-    for name in ("fp32", "bf16", "serve"):
+    for name in ("fp32", "bf16", "serve", "serve-int8"):
         tp, jp = tprec.policy_from_str(name), j_policy_from_str(name)
         assert tp.fused_win_attn == jp.fused_win_attn
         assert tp.fused_gdn == jp.fused_gdn
         assert tp.fused_gate_chain == jp.fused_gate_chain
         assert tp.fused_dse == jp.fused_dse
         assert tp.packed_dse == jp.packed_dse
+        assert tp.int8_conv == jp.int8_conv
         assert tp.gelu_kind == jp.gelu_kind
         assert str(tp.compute_dtype).split(".")[-1] == jnp.dtype(jp.compute_dtype).name
     with pytest.raises(ValueError):
         tprec.policy_from_str("nope")
-    # a kernel without a port has no routing flag to set
+    # every routing flag of the JAX policy has its port (the dtypes and the
+    # TPU precision pin are the policy's compute_dtype and precision_scope)
+    jax_flags = {f.name for f in dataclasses.fields(JPolicy)} - {
+        "param_dtype", "compute_dtype", "entropy_dtype", "precision"}
+    assert jax_flags <= {f.name for f in dataclasses.fields(tprec.Policy)}
     with pytest.raises(TypeError):
-        tprec.Policy(int8_conv=True)
+        tprec.Policy(no_such_flag=True)
 
 
 @pytest.mark.parametrize("policy", ["fp32", "bf16"])
