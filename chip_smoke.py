@@ -68,7 +68,7 @@ failure:
    (version 2): byte-identical re-encode, blob 0 alone, real bpp beside
    version 1's.  Previews at max_slices 0, 5 and 10 (10 equal to the full
    decode, 5 the same for v3 as for v64).  The throughput options:
-   ``PipelinedCodec`` round trips (depth 2) of 4 batches from seeds 10-13
+   ``PipelinedCodec`` round trips (depth 2) of 2 batches from seeds 10-11
    against the serial loop (depth 1), v64 and v3, byte-identical blobs,
    equal decodes and the same launches per batch, images/s of each;
    ``decode_batch`` of 8 blobs with interleave 1 and 2 (equal, images/s);
@@ -146,13 +146,31 @@ failure:
    variables at world size 1 over NCCL; 3 bf16 ``RGBTrainer`` steps
    (batch 8, 256x256) under ``DistributedDataParallel`` against the same
    steps without it (losses within 1e-6 relative; the plain run's gap to
-   its own second run printed); ``dryrun_multichip(1)`` (a rank and a
-   single process on the card, gradients within 1e-5 mean|g| + 1e-7);
+   its own second run printed) (the dry run's ranks against a single
+   process run in phase 8, banded);
    ``RGBAFileCodec`` over two ``CodecIO(sharding=)`` on a two-replica mesh
    of cuda:0 (fp32, kernels on, batch 16, 512x768): blobs byte-identical
    to the unsharded codec's, the decode equal, twice the codec's kernel
    launches, enc+dec img/s of both (one card shows correctness, not
    scaling).
+8. height sharding (``parallel/spatial.py``), two ranks on cuda:0: the
+   probes of the transports (NCCL refuses two ranks on one device; gloo's
+   send and recv of CUDA tensors, which the exchange therefore stages
+   through the host); each conv kernel against its plain version at the
+   shapes a band and its halo give it (the first band of S=2 and an
+   interior band of S=4: gate chains on 67 / 35 and 38 / 22 rows, the DSE
+   on 262 and 140, the attention on a band's windows with the band's and
+   the last band's region ids, GDN on a band's pixels), bf16 and fp32;
+   ``RGBAPipeline`` with all four kernels on bands of 256 rows (S=2, batch
+   8 per rank, 512x768, the forward's live weights) on two gloo ranks
+   against the unbanded pipeline: bf16 x_hat within the bf16 gate, fp32
+   within the bulk gate and bpp 1e-4, 4 / 12 / 8 / 2 launches per rank;
+   per-rank peak memory against the unbanded run, bytes and host seconds
+   of the exchanges per forward, img/s of the space group (one card shows
+   correctness, not scaling), one profiled banded forward; then one fp32
+   ``RGBTrainer`` step with the kernels on over the two ranks (batch 4,
+   256x256) against one process (``dryrun_multichip``'s bounds, 4 / 6 /
+   4 / 1 launches per rank).
 
 The line before the last is one JSON object with every kernel's numbers
 (the four conv kernels' headline cases are bf16 forward shapes; the
@@ -161,6 +179,10 @@ The line before the last is one JSON object with every kernel's numbers
 the last line is {"ok": true, "device": {...}}.  Without CUDA, or without
 the rest of the repository beside it, the script exits non-zero and prints
 no result.
+
+    python3 chip_smoke.py --only space [--iters 3]
+
+builds the kernels and runs phase 8 alone (its result, not the ok line).
 
     python3 chip_smoke.py --base DIR [--iters 20]
 
@@ -1286,6 +1308,9 @@ def gated_phase(torch, codec, img, alpha) -> dict:
     return res
 
 
+STREAM_BATCHES = 2   # batches of the pipelined round trips
+
+
 def throughput_phase(torch, codec, img, blobs_v64) -> dict:
     """The codec's throughput options on the live codec: PipelinedCodec
     (depth 2) round trips against the serial loop (depth 1), v64 and v3;
@@ -1299,12 +1324,12 @@ def throughput_phase(torch, codec, img, blobs_v64) -> dict:
     batch, h, w = img.shape[:3]
     t = time.perf_counter()
     batches = []
-    for s in range(4):
+    for s in range(STREAM_BATCHES):
         d = synthetic_rgba_batch(batch, h, w, seed=10 + s)
         batches.append((np.round(d["image"] * 255.0).astype(np.uint8),
                         np.round(d["alpha"] * 255.0).astype(np.uint8)))
-    print(f"  4 batches of {batch} (seeds 10-13) made in "
-          f"{time.perf_counter() - t:.1f} s")
+    print(f"  {STREAM_BATCHES} batches of {batch} (seeds 10-"
+          f"{9 + STREAM_BATCHES}) made in {time.perf_counter() - t:.1f} s")
     per_batch = {"v64": CODEC_LAUNCHES, "lanes32": LANE_LAUNCHES}
     res = {}
     for fmt in ("v64", "lanes32"):
@@ -1318,15 +1343,16 @@ def throughput_phase(torch, codec, img, blobs_v64) -> dict:
             wall = time.perf_counter() - t
             pipe.close()
             launches = {n: k.launches for n, k in _kernels().items()}
-            want = {n: 4 * v for n, v in per_batch[fmt].items()}
+            n = STREAM_BATCHES
+            want = {k: n * v for k, v in per_batch[fmt].items()}
             if launches != want:
                 raise AssertionError(f"{fmt} depth {depth}: launches "
-                                     f"{launches}, want 4 x {per_batch[fmt]}")
-            runs[depth] = {"out": out, "img_per_s": 4 * batch / wall,
+                                     f"{launches}, want {n} x {per_batch[fmt]}")
+            runs[depth] = {"out": out, "img_per_s": n * batch / wall,
                            "wall_s": wall}
             print(f"  roundtrip_stream {fmt} depth {depth}: "
-                  f"{runs[depth]['img_per_s']:.3f} img/s (4 x {batch}, "
-                  f"{h}x{w}, fp32, uint8 out; {wall:.3f} s); launches 4 x "
+                  f"{runs[depth]['img_per_s']:.3f} img/s ({n} x {batch}, "
+                  f"{h}x{w}, fp32, uint8 out; {wall:.3f} s); launches {n} x "
                   f"the serial round trip's")
         for (b1, r1), (b2, r2) in zip(runs[1]["out"], runs[2]["out"]):
             if b1 != b2 or not np.array_equal(r1, r2):
@@ -2764,18 +2790,11 @@ def int8_phase(torch, batch: int, iters: int) -> dict:
             "profile": profile, "device_ms": parts}
 
 
-def _free_port() -> int:
-    import socket
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def parallel_phase(torch, batch: int) -> dict:
     """``initialize()`` at world size 1 over NCCL; PARALLEL_STEPS bf16
     ``RGBTrainer`` steps under ``DistributedDataParallel`` against the same
-    steps without it (and the plain run again, its own gap);
-    ``dryrun_multichip(1)``; a sharded ``RGBAFileCodec`` round trip on a
+    steps without it (and the plain run again, its own gap); a sharded
+    ``RGBAFileCodec`` round trip on a
     two-replica mesh of cuda:0 against the unsharded codec."""
     import numpy as np
     import tempfile
@@ -2787,11 +2806,11 @@ def parallel_phase(torch, batch: int) -> dict:
     from rgba_tpu_torch.eval.container import RGBAFileCodec
     from rgba_tpu_torch.models.pipeline import RGBAPipeline
     from rgba_tpu_torch.parallel.distributed import initialize, process_count
-    from rgba_tpu_torch.parallel.dryrun import dryrun_multichip
+    from rgba_tpu_torch.parallel.launch import free_port
     from rgba_tpu_torch.parallel.mesh import batch_sharding, make_mesh
     from rgba_tpu_torch.train.loops import RGBTrainer
 
-    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()),
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(free_port()),
                       RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
     initialize()
     if not (dist.is_initialized() and dist.get_backend() == "nccl"
@@ -2824,12 +2843,6 @@ def parallel_phase(torch, batch: int) -> dict:
           f"(gate {PARALLEL_LOSS_RTOL:g}), plain's own {gaps['plain again']:.3g}")
     if not gaps["ddp"] <= PARALLEL_LOSS_RTOL:
         raise AssertionError("the DDP steps differ from the plain steps")
-    t = time.perf_counter()
-    dry = dryrun_multichip(1)
-    print(f"  dryrun_multichip(1): loss rel {dry['loss_rel']:.3g}, worst "
-          f"parameter at {dry['grad_worst_ratio']:.3g} of its bound "
-          f"({dry['grad_worst_param']}; max |dg| at "
-          f"{dry['grad_worst_max_ratio']:.3g}), {time.perf_counter() - t:.1f} s")
 
     h, w = 512, 768
     on = RGBAPipeline(_all_kernels(DEFAULT_POLICY), seed=0)
@@ -2873,9 +2886,380 @@ def parallel_phase(torch, batch: int) -> dict:
         c.rgb_io.close()
         c.mask_io.close()
     dist.destroy_process_group()
-    return {"losses": losses, "loss_gaps": gaps, "dryrun": dry,
+    return {"losses": losses, "loss_gaps": gaps,
             "sharded_launches": out["sharded"][2],
             "sharded_img_per_s": rates}
+
+
+# ------------------------------------------------------------ space phase
+
+SPACE = 2                  # bands of the phase's height sharding
+SPACE_BATCH = 8            # images per process (both ranks hold all 8)
+SPACE_HW = (512, 768)
+SPACE_TRAIN = (4, 256)     # batch, size of the banded training step
+# the kernels' shapes on a band and its halo: (rows of the band at the
+# kernel's scale, rows its op adds on each side) for the first band of
+# S=2 and an interior band of S=4 at 512x768
+SPACE_BAND_ROWS = {"first of 2": (0, 2), "interior of 4": (1, 4)}
+
+
+def _probe_all_reduce(mesh):
+    """A probe rank: one all-reduce of a CUDA tensor over its group."""
+    import torch
+    import torch.distributed as dist
+    t = torch.ones(4, device="cuda")
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+    return float(t.sum())
+
+
+def _probe_p2p(mesh):
+    """A probe rank: rank 0 sends a CUDA tensor to rank 1, which receives
+    it into a CUDA tensor, over the group's backend as it is (no staging)."""
+    import torch
+    import torch.distributed as dist
+    t = torch.arange(1024, dtype=torch.float32, device="cuda")
+    if dist.get_rank() == 0:
+        dist.send(t, 1)
+        return True
+    got = torch.zeros_like(t)
+    dist.recv(got, 0)
+    torch.cuda.synchronize()
+    return bool(torch.equal(got, t))
+
+
+def _probes(torch) -> dict:
+    """Both probes, run at once, two ranks each on cuda:0: what each
+    returned, or how it failed."""
+    from rgba_tpu_torch.parallel.launch import Ranks
+    with Ranks("chip_smoke:_probe_all_reduce", 2, device="cuda",
+               backend="nccl") as nccl, \
+            Ranks("chip_smoke:_probe_p2p", 2, device="cuda",
+                  backend="gloo") as gloo:
+        out = {}
+        for what, r in (("nccl two ranks on cuda:0", nccl),
+                        ("gloo send/recv of CUDA tensors", gloo)):
+            try:
+                out[what] = f"ran: {r.join(timeout=90)}"
+            except (RuntimeError, TimeoutError) as e:
+                lines = [ln for ln in str(e).splitlines() if "rror" in ln
+                         or "Duplicate" in ln]
+                out[what] = "refused: " + (lines[-1].strip()[:300] if lines
+                                           else str(e).splitlines()[0])
+    return out
+
+
+def band_kernel_cases(torch, batch: int) -> dict:
+    """Each conv kernel against its plain version at the shapes a band and
+    its halo give it (SPACE_BAND_ROWS), bf16 and fp32: the gate chain on
+    the band + 3 rows of each neighbour at H/4 (C=192) and H/8 (C=80), the
+    DSE on the band + 6 at full resolution (cio 3 and 1), the attention
+    on the band's windows with the band's region ids (the last band's
+    carry the wrap) and alive gates, GDN on the band's pixels at H/2."""
+    from rgba_tpu_torch.core.precision import Policy, precision_scope
+    from rgba_tpu_torch.data.synthetic import synthetic_rgba_batch
+    from rgba_tpu_torch.ops import attention as att
+    from rgba_tpu_torch.ops import window
+    from rgba_tpu_torch.ops.enhance import DSE
+    from rgba_tpu_torch.ops.kernels import dse as kd
+    from rgba_tpu_torch.ops.kernels import gate_chain as kg
+    from rgba_tpu_torch.ops.kernels import gdn as kgdn
+    from rgba_tpu_torch.ops.kernels import win_attn as ka
+    from rgba_tpu_torch.ops.mask_pyramid import mask_pyramid
+
+    dev = torch.device("cuda")
+    h, w = SPACE_HW
+    alpha = torch.from_numpy(synthetic_rgba_batch(batch, h, w, seed=0)
+                             ["alpha"]).to(dev).permute(0, 3, 1, 2)
+    pyr = mask_pyramid(alpha)
+    out = {name: [] for name in CONV_KERNELS}
+    for band, (index, space) in SPACE_BAND_ROWS.items():
+        first = index == 0
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            policy = Policy(compute_dtype=dt)
+            gen = torch.Generator().manual_seed(21)
+            kw = dict(policy=policy, device=dev, generator=gen)
+            with torch.inference_mode(), precision_scope(policy):
+                for scale, c in ((4, 192), (8, 80)):
+                    rows = h // scale // space
+                    ext = rows + (1 if first else 2) * att.CHAIN_HALO
+                    for flavour in ("wingate", "simplified"):
+                        m = (att.WinGateAttention(c, 8, 8, 0, **kw)
+                             if flavour == "wingate"
+                             else att.SimplifiedAttention(c, **kw))
+                        _bias_noise(torch, m, 22)
+                        act, post = ((policy.gelu_kind, True)
+                                     if flavour == "wingate" else ("relu", False))
+                        x = torch.randn(batch, ext, w // scale, c,
+                                        generator=gen).to(dev, dt)
+                        g = (torch.randn(batch, ext, w // scale, c,
+                                         generator=gen).to(dev, dt)
+                             if flavour == "wingate" else None)
+                        args = (x, g, *m.gate_chain_weights(), act, post)
+                        what = (f"fused_gate_chain {flavour} {band} band "
+                                f"B={batch} {ext}x{w // scale} C={c} {dtype}")
+                        res = _check(torch, kg.fused_gate_chain(
+                            *args, m.kernel_layout(dt)),
+                            kg.gate_chain_plain(*args), dtype, what)
+                        out["fused_gate_chain"].append(dict(
+                            res, shape=f"{flavour},{band},{ext}x{w // scale},"
+                            f"C={c}", dtype=dtype))
+                        del m, x, g, args
+                rows = h // space
+                ext = rows + (1 if first else 2) * 6
+                for cio, leaky in ((3, False), (1, True)):
+                    m = DSE(cio, leaky=leaky, **kw)
+                    _bias_noise(torch, m, 23)
+                    x = torch.rand(batch, ext, w, cio, generator=gen).to(dev, dt)
+                    args = (x, *m.kernel_weights())
+                    what = (f"fused_dse {band} band B={batch} {ext}x{w} "
+                            f"cio={cio} {dtype}")
+                    res = _check(torch, kd.fused_dse(
+                        *args, leaky=leaky, prepared=m.kernel_layout(dt)),
+                        kd.dse_plain(*args, leaky=leaky), dtype, what)
+                    out["fused_dse"].append(dict(
+                        res, shape=f"cio={cio},{band},{ext}x{w}", dtype=dtype))
+                    del m, x, args
+                # the attention: this band's windows, region ids and gates
+                for level, ws, ss, c in ((1, 8, 4, 192), (2, 4, 2, 80)):
+                    lv = pyr[level]
+                    lh, lw = lv.shape[-2:]
+                    rows = lh // space
+                    for which, idx in (("", index), (" last", space - 1)):
+                        a = torch.roll(lv.permute(0, 2, 3, 1), (-ss, -ss),
+                                       (1, 2))[:, idx * rows:(idx + 1) * rows]
+                        alive = window.window_alive(
+                            window.window_partition(a, ws))[:, None]
+                        region = torch.from_numpy(window.swin_region_ids(
+                            rows, lw, ws, ss, idx * rows, lh)).to(dev).repeat(
+                                batch, 1)
+                        nw, n, nh = alive.shape[0], ws * ws, 8
+                        args = [torch.randn(nw, n, c, generator=gen).to(dev, dt),
+                                region, alive,
+                                (torch.randn(c, 3 * c, generator=gen)
+                                 / c ** 0.5).to(dev, dt),
+                                (0.1 * torch.randn(3 * c, generator=gen)).to(dev),
+                                (torch.randn(c, c, generator=gen)
+                                 / c ** 0.5).to(dev, dt),
+                                (0.1 * torch.randn(c, generator=gen)).to(dev),
+                                torch.randn(nh, n, n, generator=gen).to(dev)]
+                        tag = f"{band}{which}"
+                        what = (f"fused_window_attention {tag} band nW={nw} "
+                                f"N={n} C={c} {dtype}")
+                        res = _check(torch, ka.fused_window_attention(
+                            *args, num_heads=nh, prepared=ka.kernel_weights(
+                                *args[3:7], nh, dt)),
+                            ka.window_attention_plain(*args, num_heads=nh),
+                            dtype, what)
+                        out["fused_window_attention"].append(dict(
+                            res, shape=f"{tag},nW={nw},N={n},C={c}",
+                            dtype=dtype))
+                m = batch * (h // 2 // space) * (w // 2)
+                x = torch.randn(m, 192, generator=gen).to(dev, dt)
+                gt = (0.1 * torch.eye(192) + 1e-3 * torch.rand(
+                    192, 192, generator=gen)).to(dev)
+                beta = (1.0 + 0.1 * torch.rand(192, generator=gen)).to(dev)
+                res = _check(torch, kgdn.fused_gdn(
+                    x, gt, beta, False, kgdn.kernel_weights(gt, dt)),
+                    kgdn.gdn_plain(x, gt, beta, False), dtype,
+                    f"fused_gdn {band} band M={m} C=192 {dtype}")
+                out["fused_gdn"].append(dict(res, shape=f"{band},M={m}",
+                                             dtype=dtype))
+                del x
+    return out
+
+
+def space_rank(mesh, state_path: str, batch: int, iters: int) -> dict:
+    """One rank of the phase's banded forwards (``launch.Ranks`` calls it,
+    two on cuda:0 over gloo): ``RGBAPipeline`` with all four kernels, bf16
+    and fp32, on this rank's band of the phase's images; launches, peak
+    memory, bytes and host seconds of the exchanges per forward, img/s of
+    the space group, one profiled bf16 forward."""
+    import torch
+    from rgba_tpu_torch.core.precision import BF16_POLICY, DEFAULT_POLICY
+    from rgba_tpu_torch.data.synthetic import synthetic_rgba_batch
+    from rgba_tpu_torch.models.pipeline import RGBAPipeline
+    from rgba_tpu_torch.parallel import spatial
+
+    state = torch.load(state_path, map_location="cpu")
+    d = synthetic_rgba_batch(batch, *SPACE_HW, seed=0)
+    rows = mesh.band_slice(SPACE_HW[0])
+    x = torch.from_numpy(d["masked_image"][:, rows]).cuda()
+    a = torch.from_numpy(d["alpha"][:, rows]).cuda()
+    out = {}
+    for name, policy in (("bf16", BF16_POLICY), ("fp32", DEFAULT_POLICY)):
+        pipe = RGBAPipeline(_all_kernels(policy), seed=0)
+        pipe.load_state_dict(state)
+        with spatial.space_scope(mesh):
+            pipe(x, a)                                  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            _reset_launches()
+            spatial.traffic.reset()
+            t = time.perf_counter()
+            r = pipe(x, a)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            res = {"x_hat": r["x_hat"].float().cpu(),
+                   "recon_mask": r["recon_mask"].cpu(),
+                   **{k: float(r[k]) for k in ("bpp", "bpp_rgb", "bpp_mask",
+                                               "mse_loss")},
+                   "launches": {n: k.launches for n, k in _kernels().items()},
+                   "peak_bytes": torch.cuda.max_memory_allocated(),
+                   "resident_bytes": resident,
+                   "traffic": spatial.traffic.as_dict(), "wall_s": wall}
+            res["exchange_share"] = res["traffic"]["seconds"] / wall
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(iters):
+                pipe(x, a)
+            torch.cuda.synchronize()
+            res["img_per_s"] = batch * iters / (time.perf_counter() - t)
+            if name == "bf16":
+                spatial.traffic.reset()
+                res["profile"] = profile_run(torch, lambda: pipe(x, a),
+                                             "banded forward", top=8)
+                res["profile"]["exchange_s"] = spatial.traffic.seconds
+        out[name] = res
+        del pipe
+        torch.cuda.empty_cache()
+    return out
+
+
+def space_phase(torch, iters: int) -> dict:
+    """Height sharding (``parallel/spatial.py``) on one card: the
+    transports' probes, the kernels at band shapes, the banded pipeline on
+    two ranks of cuda:0 over gloo against the unbanded one, and a banded
+    fp32 training step against one process."""
+    import tempfile
+    from rgba_tpu_torch.core.precision import BF16_POLICY, DEFAULT_POLICY
+    from rgba_tpu_torch.data.synthetic import synthetic_rgba_batch
+    from rgba_tpu_torch.models.pipeline import RGBAPipeline
+    from rgba_tpu_torch.parallel.dryrun import dryrun_multichip
+    from rgba_tpu_torch.parallel.launch import Ranks
+
+    probes = _probes(torch)
+    for k, v in probes.items():
+        print(f"  probe, {k}: {v}")
+    print(f"  transport: {SPACE} ranks on cuda:0 over gloo; halo and shift "
+          f"rows staged through the host (gloo's send/recv address host "
+          f"memory), gathers and sums on CUDA tensors by gloo")
+    print(f"  kernels at band + halo shapes (batch {SPACE_BATCH}, "
+          f"{SPACE_HW[0]}x{SPACE_HW[1]}):")
+    band_cases = band_kernel_cases(torch, SPACE_BATCH)
+
+    d = synthetic_rgba_batch(SPACE_BATCH, *SPACE_HW, seed=0)
+    x = torch.from_numpy(d["masked_image"]).cuda()
+    a = torch.from_numpy(d["alpha"]).cuda()
+    whole = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        state_path = os.path.join(tmp, "state.pt")
+        for name, policy in (("bf16", BF16_POLICY), ("fp32", DEFAULT_POLICY)):
+            pipe = RGBAPipeline(_all_kernels(policy), seed=0)
+            if name == "bf16":
+                _liven(torch, pipe)
+                torch.save(pipe.state_dict(), state_path)
+            else:
+                pipe.load_state_dict(torch.load(state_path))
+            pipe(x, a)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            r = pipe(x, a)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            t = time.perf_counter()
+            for _ in range(iters):
+                pipe(x, a)
+            torch.cuda.synchronize()
+            whole[name] = {"x_hat": r["x_hat"].float(), "bpp": float(r["bpp"]),
+                           "peak_bytes": peak, "resident_bytes": resident,
+                           "img_per_s": SPACE_BATCH * iters
+                           / (time.perf_counter() - t)}
+            del pipe, r
+        del x, a
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        with Ranks("chip_smoke:space_rank", SPACE, space=SPACE,
+                   device="cuda", backend="gloo",
+                   args=(state_path, SPACE_BATCH, iters)) as ranks:
+            bands = ranks.join(timeout=600)
+        print(f"  {SPACE} banded ranks: {time.perf_counter() - t:.1f} s "
+              f"with their start")
+    out = {"probes": probes, "band_cases": band_cases}
+    for name in ("bf16", "fp32"):
+        ref = whole[name]
+        got = torch.cat([b[name]["x_hat"] for b in bands], dim=1).cuda()
+        bpp = [b[name]["bpp"] for b in bands]
+        bpp_rel = max(abs(v - ref["bpp"]) / abs(ref["bpp"]) for v in bpp)
+        print(f"  {name} banded (S={SPACE}) vs unbanded, batch "
+              f"{SPACE_BATCH}, {SPACE_HW[0]}x{SPACE_HW[1]}, all four kernels:")
+        if name == "bf16":
+            ok, max_abs, _, tol = _within(torch, got, ref["x_hat"], "bfloat16")
+            print(f"    x_hat max_abs {max_abs:.3g} (tol {tol}); bpp "
+                  f"{bpp} vs {ref['bpp']:.7f} (rel {bpp_rel:.3g})")
+            gate = {"max_abs": max_abs, "ok": ok}
+        else:
+            gate = _bulk_agreement(got, ref["x_hat"], "    fp32 banded vs unbanded")
+            print(f"    bpp {bpp} vs {ref['bpp']:.7f} (rel {bpp_rel:.3g}, "
+                  f"gate 1e-4)")
+            gate["ok"] = gate["ok"] and bpp_rel <= 1e-4
+        per_rank = []
+        for s, b in enumerate(bands):
+            r = b[name]
+            launches = {k: v for k, v in r["launches"].items()}
+            tr = r["traffic"]
+            print(f"    rank {s}: launches {launches}; peak "
+                  f"{r['peak_bytes'] / 2**30:.3f} GiB, of it above the "
+                  f"resident weights and inputs "
+                  f"{(r['peak_bytes'] - r['resident_bytes']) / 2**30:.3f} "
+                  f"(unbanded {ref['peak_bytes'] / 2**30:.3f}, "
+                  f"{(ref['peak_bytes'] - ref['resident_bytes']) / 2**30:.3f});"
+                  f" halo and shift bytes "
+                  f"sent {tr['p2p_bytes']}, gather and sum bytes "
+                  f"{tr['collective_bytes']}; exchanges "
+                  f"{1e3 * tr['seconds']:.3f} ms of a {1e3 * r['wall_s']:.3f} "
+                  f"ms forward ({100 * r['exchange_share']:.1f}%)")
+            if launches != FORWARD_LAUNCHES:
+                raise AssertionError(f"{name} banded forward, rank {s}: "
+                                     f"launches {launches}, expected "
+                                     f"{FORWARD_LAUNCHES}")
+            per_rank.append({k: r[k] for k in (
+                "launches", "peak_bytes", "resident_bytes", "traffic", "wall_s",
+                "exchange_share", "img_per_s", "bpp", "bpp_rgb", "bpp_mask",
+                "mse_loss")})
+        print(f"    img/s banded {bands[0][name]['img_per_s']:.3f} (the space "
+              f"group) vs unbanded {ref['img_per_s']:.3f} (one card: "
+              f"correctness, not scaling)")
+        if not gate["ok"]:
+            raise AssertionError(f"{name} banded pipeline differs from the "
+                                 f"unbanded one")
+        out[name] = {"gate": gate, "bpp_rel": bpp_rel, "ranks": per_rank,
+                     "unbanded": {k: ref[k] for k in (
+                         "bpp", "peak_bytes", "resident_bytes", "img_per_s")}}
+    prof = bands[0]["bf16"]["profile"]
+    out["profile"] = prof
+    print(f"  profiled banded bf16 forward, rank 0: exchanges "
+          f"{1e3 * prof['exchange_s']:.3f} ms of {prof['wall_ms']:.3f} ms "
+          f"wall ({100 * 1e3 * prof['exchange_s'] / prof['wall_ms']:.1f}%)")
+    t = time.perf_counter()
+    b, size = SPACE_TRAIN
+    dry = dryrun_multichip(SPACE, device="cuda", space=SPACE, backend="gloo",
+                           kernels=True, batch=b, size=size)
+    print(f"  banded fp32 RGBTrainer step, kernels on (S={SPACE}, batch {b}, "
+          f"{size}x{size}) vs one process: loss rel {dry['loss_rel']:.3g}, "
+          f"worst parameter at {dry['grad_worst_ratio']:.3g} of its bound "
+          f"({dry['grad_worst_param']}; max |dg| at "
+          f"{dry['grad_worst_max_ratio']:.3g}); launches per rank "
+          f"{dry['launches']}, {time.perf_counter() - t:.1f} s")
+    want = {k: RGB_STEP_LAUNCHES[k] for k in CONV_KERNELS}
+    if dry["launches"] != want:
+        raise AssertionError(f"banded step launches {dry['launches']}, "
+                             f"expected {want}")
+    out["train"] = dry
+    return out
 
 
 # runs in either checkout, through that checkout's own chip_smoke.py, its
@@ -3099,6 +3483,9 @@ def main(argv=None) -> int:
     ap.add_argument("--base", type=Path, default=None,
                     help="another checkout whose kernels to time against "
                          "this one's")
+    ap.add_argument("--only", choices=("space",), default=None,
+                    help="build, then run this phase alone (a quick check; "
+                         "prints its result, not the ok line)")
     args = ap.parse_args(argv)
 
     import torch
@@ -3138,6 +3525,14 @@ def main(argv=None) -> int:
                 print(f"  {source}: {line.strip()}")
 
     phase_s = {"build": time.perf_counter() - t0}
+    if args.only == "space":
+        print("height sharding (two ranks on cuda:0):")
+        space = space_phase(torch, args.iters)
+        print(f"phase seconds: build {phase_s['build']:.1f}, space "
+              f"{time.perf_counter() - t0 - phase_s['build']:.1f}")
+        print(card)
+        print(json.dumps({"space": space}))
+        return 0
     t = time.perf_counter()
     print("card health:")
     health = health_phase(torch)
@@ -3182,6 +3577,10 @@ def main(argv=None) -> int:
     print("data parallel (torch.distributed, one card):")
     parallel = parallel_phase(torch, args.batch)
     phase_s["parallel"] = time.perf_counter() - t
+    t = time.perf_counter()
+    print("height sharding (two ranks on cuda:0 over gloo):")
+    space = space_phase(torch, args.iters)
+    phase_s["space"] = time.perf_counter() - t
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in phase_s.items()))
 
@@ -3223,6 +3622,10 @@ def main(argv=None) -> int:
                 ["evaluate_kodak"][name],
                 "launches_export": evals["export"]["all_kernels"]["launches"]
                 [name],
+                # per rank: a banded bf16 forward and a banded fp32 step
+                "launches_space": space["bf16"]["ranks"][0]["launches"][name],
+                "launches_space_train": space["train"]["launches"][name],
+                "band_cases": space["band_cases"][name],
                 "max_abs_err": h["max_abs_err"], "ms": h["ms"],
                 "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
                 "bound_by": h["bound_by"], "library_ms": h["library_ms"],
@@ -3291,6 +3694,7 @@ def main(argv=None) -> int:
         "health": health,
         "int8": int8,
         "parallel": parallel,
+        "space": {k: v for k, v in space.items() if k != "band_cases"},
         "phase_seconds": phase_s,
     }
     print(card)

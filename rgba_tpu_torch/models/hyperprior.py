@@ -10,8 +10,14 @@
 
 The codecs subclass ``ChannelARPrior``, so these modules sit at the top
 of the codec's state dict (``h_a.0.weight``, ``cc_mean_transforms.0.0.weight``,
-``entropy_bottleneck._matrix0``) as in the reference.  The JAX module's
-``data_sharding`` pins a multi-chip mesh and has no single-GPU meaning.
+``entropy_bottleneck._matrix0``) as in the reference.
+
+Height sharding: the JAX module's ``data_sharding`` pins the whole head to
+batch-only sharding, because z (y/8) collapses below any band.  Here, inside
+``parallel.spatial.space_scope``, ``entropy_forward`` gathers y over the
+``space`` axis, runs the hyper path and the channel-AR slices on the whole
+latent on every rank of the space group (the training noise, drawn for the
+whole y, is the same on each), and hands back y_hat's band rows.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from ..core.precision import Policy
 from ..entropy.bottleneck import EntropyBottleneck
 from ..entropy.gaussian import GaussianConditional
 from ..ops.conv import Conv, GELU, SubpelConv
+from ..parallel import spatial
 from ..ops.math import ste_round
 
 HYPER_CH = (320, 288, 256, 224, 192)
@@ -134,7 +141,21 @@ class ChannelARPrior(nn.Module):
         serving and eval knob: None in training.
         training: the likelihoods are those of the noise-relaxed latents;
         ``generator`` supplies all the noise, z first, then slice by slice.
+        Under height sharding y and gate are bands: y_hat comes back as the
+        band's rows, the rest for the whole latent (see the module
+        docstring).
         """
+        mesh = spatial.current()
+        if mesh is None:
+            return self._entropy(y, gate, training, generator)
+        y = spatial.gather_rows(y.float())
+        gate = None if gate is None else spatial.gather_rows(gate)
+        with spatial.suspended():
+            out = self._entropy(y, gate, training, generator)
+        out["y_hat"] = spatial.scatter_rows(out["y_hat"], mesh=mesh)
+        return out
+
+    def _entropy(self, y, gate, training, generator):
         y = y.float()
         b, m, h, w = y.shape
         z = self.hyper_encode(y)

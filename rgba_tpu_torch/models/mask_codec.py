@@ -5,6 +5,8 @@ EncoderMask: 3 x (conv5x5 s2 + GDN) with SimplifiedAttention after stage
 IGDN and a LeakyReLU DSE tail.  Entropy: hyperprior + 5-slice channel-AR
 head.  Sequential indices are the reference's state-dict keys
 (``EncoderMask.0.weight`` ... ``DecoderMask.9.enh1.conv1.weight``).
+Under height sharding (``parallel/spatial.py``) the mask and x_hat are
+bands, and bpp and the MSE are the whole image's on every rank.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from ..ops.attention import SimplifiedAttention
 from ..ops.conv import Conv, ConvTranspose
 from ..ops.enhance import DSE
 from ..ops.gdn import GDN
+from ..parallel import spatial
 from .hyperprior import ChannelARPrior
 
 MASK_N = 192
@@ -52,6 +55,8 @@ class MaskCodec(ChannelARPrior):
         bpp_y, bpp_z, y_hat).  training: noise-relaxed likelihoods, the
         noise drawn from ``generator`` (``ChannelARPrior.entropy_forward``)."""
         b, _, h, w = mask.shape
+        spatial.check_band(h)
+        h = spatial.global_height(h)
         y = self.encode_latent(mask)
         ent = self.entropy_forward(y, training=training, generator=generator)
         x_hat = self.decode_latent(ent["y_hat"])
@@ -59,7 +64,7 @@ class MaskCodec(ChannelARPrior):
         bpp_z = bpp_of(ent["z_likelihoods"], b, h, w)
         return {
             "x_hat": x_hat,
-            "mse_loss": torch.mean(torch.square(x_hat - mask.float())),
+            "mse_loss": spatial.mean(torch.square(x_hat - mask.float())),
             "bpp": bpp_y + bpp_z,
             "bpp_y": bpp_y,
             "bpp_z": bpp_z,

@@ -8,6 +8,11 @@
 
 Public tensors are NHWC, as in the JAX package; inside, NCHW tensors are
 kept in channels_last memory, so the kernels read NHWC rows without a copy.
+
+Height sharding: inside ``parallel.spatial.space_scope(mesh)`` every rank
+of a space group passes its band of the same images (``mesh.band_slice``)
+and gets back its band of x_hat and recon_mask, and the whole images'
+rates and losses.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from torch import nn
 from ..core.precision import DEFAULT_POLICY, Policy, precision_scope, resolve_device
 from ..ops.mask_pyramid import mask_pyramid
 from ..ops.morphology import constraint_rgb
+from ..parallel import spatial
 from .mask_codec import MaskCodec
 from .rgb_codec import RGBCodec
 
@@ -44,8 +50,10 @@ class RGBAPipeline(nn.Module):
 
     def forward(self, masked_input, mask):
         """masked_input: (B, H, W, 3); mask: (B, H, W, 1) alpha in [0, 1];
-        H and W multiples of 64.  Returns NHWC x_hat / recon_mask and the
-        scalar rates and losses."""
+        H and W multiples of 64 (bands of H under height sharding, see the
+        module docstring).  Returns NHWC x_hat / recon_mask and the scalar
+        rates and losses."""
+        spatial.check_band(masked_input.shape[1])
         with torch.inference_mode(), precision_scope(self.policy):
             x = torch.as_tensor(masked_input, dtype=torch.float32,
                                 device=self.device).permute(0, 3, 1, 2)
@@ -56,7 +64,7 @@ class RGBAPipeline(nn.Module):
             recon = torch.round(torch.clamp(m["x_hat"], 0.0, 1.0) * 255.0) / 255.0
             recon = constraint_rgb(recon)
             r = self.rgb_codec(x, a, recon, me_pyr)
-            opaque = torch.all(a == 1.0)
+            opaque = spatial.space_sum((a != 1.0).sum()) == 0
             bpp = r["bpp"] + torch.where(opaque, torch.zeros_like(m["bpp"]),
                                          m["bpp"])
             return {

@@ -6,6 +6,11 @@ Analysis: conv5x5s2+GDN x2 -> WinGate(win 8, shift 4) at H/4 gated by me2
 me3.  Synthesis mirrors it with IGDN/deconvs, gates md3/md2, DSE tail.
 Entropy: hyperprior + 10-slice channel-AR head.  The decoded alpha is
 re-rounded to 8 bits inside forward, as in the reference.
+
+Under height sharding (``parallel/spatial.py``) x, the masks and x_hat are
+bands; bpp divides by the whole image's pixels and the masked MSE sums
+over every band, so the returned scalars are the whole image's on every
+rank.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from ..ops.conv import Conv, ConvTranspose
 from ..ops.enhance import DSE
 from ..ops.gdn import GDN
 from ..ops.mask_pyramid import mask_pyramid
+from ..parallel import spatial
 from .hyperprior import ChannelARPrior
 
 RGB_N = 192
@@ -28,10 +34,12 @@ RGB_M = 80
 
 def reconstruct_error(x, x_hat, input_mask):
     """Masked MSE per visible value, averaged over the batch.
-    x, x_hat: (B, 3, H, W); input_mask: (B, 1, H, W)."""
+    x, x_hat: (B, 3, H, W); input_mask: (B, 1, H, W) (bands of them under
+    height sharding: the sums then run over every band)."""
     m3 = (input_mask > 0.0).float().expand_as(x)
-    per_sample = torch.square((x - x_hat) * m3).sum(dim=(1, 2, 3))
-    count = torch.clamp_min(m3.sum(dim=(1, 2, 3)), 1.0)
+    per_sample = spatial.space_sum(
+        torch.square((x - x_hat) * m3).sum(dim=(1, 2, 3)))
+    count = torch.clamp_min(spatial.space_sum(m3.sum(dim=(1, 2, 3))), 1.0)
     return torch.mean(per_sample / count)
 
 
@@ -100,6 +108,8 @@ class RGBCodec(ChannelARPrior):
         y_hat).  training: noise-relaxed likelihoods, the noise drawn from
         ``generator``; the rate gate is off in training."""
         b, _, h, w = x.shape
+        spatial.check_band(h)
+        h = spatial.global_height(h)
         reconmask = torch.round(reconmask * 255.0) / 255.0
         md_pyr = mask_pyramid(reconmask)
         y = self.encode_latent(x, me_pyr[1], me_pyr[2])

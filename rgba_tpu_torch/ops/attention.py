@@ -14,6 +14,13 @@ site runs its kernel in the forward and takes its gradients from the
 module's own plain path, a pure function of the weights
 (``ops/kernels/remat.py``), as the JAX modules do.
 
+Under height sharding (``parallel/spatial.py``) the cyclic shift over H
+is a ring shift across the bands (the shift over W stays a roll), each
+band's windows take their region ids from the whole image's rows of the
+band, and a gate runs on its band with 3 rows of each neighbour (one per
+3x3 convolution of a chain; none past the image's edges, where each layer
+pads itself), whose result's band rows are kept.
+
 Module and parameter names follow the reference's state-dict keys
 (``attn.attn.qkv``, ``conv_a.0.conv.0``, ``trunk_ResBlock1.conv1`` ...).
 """
@@ -26,6 +33,7 @@ import torch.nn.functional as F
 
 from ..core import init
 from ..core.precision import Policy
+from ..parallel import spatial
 from .conv import Conv, GELU, conv2d
 from .kernels import gate_chain as gck
 from .kernels.gate_chain import (GateChainWeights, activation,
@@ -179,21 +187,28 @@ class MaskedWinBlock(nn.Module):
         self.attn = WindowAttention(dim, window_size, num_heads,
                                     policy=policy, device=device,
                                     generator=generator)
-        self._masks = {}   # (h, w, b, device) -> region ids / bias tensors
+        # (kind, h, w, b, device, band offset, image height) -> region ids
+        # or bias tensors
+        self._masks = {}
 
-    def _static(self, kind: str, h: int, w: int, b: int, device):
-        """Region ids or the additive bias of the shifted windows, kept per
-        shape (not while the forward is traced: a traced tensor must not
-        outlive its trace)."""
-        key = (kind, h, w, b, device)
+    def _static(self, kind: str, h: int, w: int, b: int, device,
+                offset: int = 0, global_h: int = 0):
+        """Region ids or the additive bias of the shifted windows of a band
+        of ``h`` rows at row ``offset`` of an image of ``global_h`` rows
+        (the whole image by default), kept per shape and band (not while
+        the forward is traced: a traced tensor must not outlive its
+        trace)."""
+        key = (kind, h, w, b, device, offset, global_h)
         if key in self._masks:
             return self._masks[key]
         ws, ss = self.window_size, self.shift_size
         if kind == "region":
-            t = torch.from_numpy(swin_region_ids(h, w, ws, ss))
+            t = torch.from_numpy(swin_region_ids(h, w, ws, ss, offset,
+                                                 global_h))
             t = t.to(device).repeat(b, 1)
         else:
-            t = torch.from_numpy(swin_attention_bias(h, w, ws, ss))
+            t = torch.from_numpy(swin_attention_bias(h, w, ws, ss, offset,
+                                                     global_h))
             t = t.to(device)
         if not torch.compiler.is_compiling():
             self._masks[key] = t
@@ -204,30 +219,34 @@ class MaskedWinBlock(nn.Module):
         for the unmasked Swin twin."""
         b, c, h, w = x.shape
         ws, ss = self.window_size, self.shift_size
+        if h % ws:
+            raise ValueError(f"a band of {h} rows does not hold whole "
+                             f"windows of {ws}")
+        band = (b, x.device, spatial.band_offset(h), spatial.global_height(h))
         shortcut = x
         xh = x.permute(0, 2, 3, 1)
         ah = None if alpha is None else alpha.permute(0, 2, 3, 1)
         if ss > 0:
-            xh = torch.roll(xh, shifts=(-ss, -ss), dims=(1, 2))
+            xh = torch.roll(spatial.roll(xh, -ss, 1), -ss, 2)
             if ah is not None:
-                ah = torch.roll(ah, shifts=(-ss, -ss), dims=(1, 2))
+                ah = torch.roll(spatial.roll(ah, -ss, 1), -ss, 2)
         tokens = window_partition(xh, ws).reshape(-1, ws * ws, c)
         alive = None if ah is None else window_alive(window_partition(ah, ws))
 
         if self.policy.fused_win_attn:
-            region = self._static("region", h, w, b, x.device)
+            region = self._static("region", h, w, *band)
             gate = (alive if alive is not None else
                     torch.ones(tokens.shape[0], device=x.device))
             attn = self.attn(tokens, fused=(region, gate[:, None]))
         else:
-            bias = (self._static("bias", h, w, b, x.device) if ss > 0
+            bias = (self._static("bias", h, w, *band) if ss > 0
                     else None)
             attn = self.attn(tokens, bias)
             if alive is not None:
                 attn = attn * alive[:, None, None].to(attn.dtype)
         out = window_reverse(attn.reshape(-1, ws, ws, c), ws, h, w)
         if ss > 0:
-            out = torch.roll(out, shifts=(ss, ss), dims=(1, 2))
+            out = torch.roll(spatial.roll(out, ss, 1), ss, 2)
         return shortcut + out.permute(0, 3, 1, 2)
 
 
@@ -275,6 +294,9 @@ def gate_kernel_weights(p):
     return chain(p[:18]), chain(p[18:36]), io1x1(p[36]), p[37]
 
 
+CHAIN_HALO = 3    # one row for each 3x3 convolution of a gate's chain
+
+
 class _Gate(nn.Module):
     """What the two gate modules share: the plain gate and the kernel route
     over ``gate_parameters()``, with the module's ``act`` and ``post_act``."""
@@ -291,6 +313,16 @@ class _Gate(nn.Module):
         params = self.gate_parameters()
         return cached_layout(self, params, dtype, lambda: gck.kernel_weights(
             *gate_kernel_weights(params), dtype))
+
+    def banded(self, x, g=None):
+        """The gate, through the kernel or the plain chain as the policy
+        routes it, on x's band (the whole image outside a height-sharding
+        scope) with ``CHAIN_HALO`` rows of each neighbour band."""
+        run = self.gate_kernel if self.policy.fused_gate_chain else self.gate
+        h = x.shape[-2]
+        xe, top = spatial.extend(x, CHAIN_HALO)
+        ge = None if g is None else spatial.extend(g, CHAIN_HALO)[0]
+        return spatial.crop(run(xe, ge), top, h)
 
     def gate(self, x, g=None):
         """The plain gate around g (the attention output, or x itself)."""
@@ -363,10 +395,7 @@ class WinGateAttention(_Gate):
         return [*self.conv_a.parameters(), *self.conv_b.parameters()]
 
     def forward(self, x, alpha=None):
-        b = self.attn(x, alpha)
-        if self.policy.fused_gate_chain:
-            return self.gate_kernel(x, b)
-        return self.gate(x, b)
+        return self.banded(x, self.attn(x, alpha))
 
 
 class ResBlock(nn.Module):
@@ -406,6 +435,4 @@ class SimplifiedAttention(_Gate):
         return list(self.parameters())
 
     def forward(self, x):
-        if self.policy.fused_gate_chain:
-            return self.gate_kernel(x)
-        return self.gate(x)
+        return self.banded(x)

@@ -11,6 +11,16 @@ convolution of ``ops/quant.py`` (``policy_conv``) on the whole batch: its
 activation scale is the batch's, as in the JAX package, so that branch
 never goes one image at a time.
 
+Inside ``parallel.spatial.space_scope`` both modules run on a band of
+rows: the input gets the rows of its neighbours' bands that the kernel
+reaches (zero rows at the image's top and bottom, the convolution's own
+padding), the convolution pads only the width, and the band's output rows
+come out (``_band_rows``).  ``conv2d`` itself stays a pure function of its
+operands: the plain paths of the kernel sites, which run on bands that
+their callers extend, and the autograd recomputations of those paths call
+it.  The int8 branch refuses a scope: its activation scale would be the
+band's, not the batch's.
+
 The TPU lowerings ``_strided_conv5x5_s2_s2d`` and ``_subpixel_deconv5x5_s2``
 are schedule variants of the same math and are not ported.
 """
@@ -23,6 +33,7 @@ import torch.nn.functional as F
 
 from ..core import init
 from ..core.precision import Policy, batch_invariant
+from ..parallel import spatial
 from .quant import policy_conv
 
 
@@ -36,15 +47,32 @@ def per_image(fn, x):
     return fn(x)
 
 
-def conv2d(x, weight, bias, policy: Policy, stride: int = 1, padding: int = 0):
+def conv2d(x, weight, bias, policy: Policy, stride: int = 1, padding=0):
     """``Conv`` on explicit fp32 parameters in torch layout, cast to the
     policy's compute dtype: what the pure plain paths of the kernel sites
     are written in."""
     if policy.int8_conv:
+        _no_int8_bands()
         return policy_conv(x, weight, bias, policy, stride, padding)
     dt = policy.compute_dtype
     w, b = weight.to(dt), bias.to(dt)
     return per_image(lambda t: F.conv2d(t.to(dt), w, b, stride, padding), x)
+
+
+def _band_rows(k: int, s: int, p: int, transposed: bool):
+    """(rows above, rows below) that a band's input needs from its
+    neighbours.  A convolution's output row j reads input rows s*j - p ...
+    s*j - p + k - 1; a transposed one's output row r reads the inputs i
+    with r = s*i - p + t, t < k.  Band starts and heights divide by s."""
+    if transposed:
+        return (k - 1 - p) // s, (s - 1 + p) // s
+    return p, k - p - s
+
+
+def _no_int8_bands():
+    if spatial.current() is not None:
+        raise ValueError("int8_conv under height sharding: the activation "
+                         "scale would be each band's, not the batch's")
 
 
 class Conv(nn.Module):
@@ -63,8 +91,13 @@ class Conv(nn.Module):
         self.bias = init.zeros((cout,), device)
 
     def forward(self, x):
-        return conv2d(x, self.weight, self.bias, self.policy, self.stride,
-                      self.padding)
+        k = self.weight.shape[-1]
+        above, below = _band_rows(k, self.stride, self.padding, False)
+        if spatial.current() is None or not (above or below):
+            return conv2d(x, self.weight, self.bias, self.policy, self.stride,
+                          self.padding)
+        return conv2d(spatial.halo(x, above, below), self.weight, self.bias,
+                      self.policy, self.stride, (0, self.padding))
 
 
 class ConvTranspose(nn.Module):
@@ -88,14 +121,26 @@ class ConvTranspose(nn.Module):
         self.bias = init.zeros((cout,), device)
 
     def forward(self, x):
+        k, s, p = self.weight.shape[-1], self.stride, self.padding
+        above, below = _band_rows(k, s, p, True)
         if self.policy.int8_conv:
-            return policy_conv(x, self.weight, self.bias, self.policy,
-                               self.stride, self.padding, transposed=True,
+            _no_int8_bands()
+            return policy_conv(x, self.weight, self.bias, self.policy, s, p,
+                               transposed=True,
                                output_padding=self.output_padding)
+        banded = spatial.current() is not None and (above or below)
         dt = self.policy.compute_dtype
         w, b = self.weight.to(dt), self.bias.to(dt)
-        return per_image(lambda t: F.conv_transpose2d(
-            t.to(dt), w, b, self.stride, self.padding, self.output_padding), x)
+        if not banded:
+            return per_image(lambda t: F.conv_transpose2d(
+                t.to(dt), w, b, s, p, self.output_padding), x)
+        # the extended band's output row r is the image's row
+        # s * (offset - above) + r: keep the band's s * h rows
+        h = x.shape[-2]
+        y = per_image(lambda t: F.conv_transpose2d(
+            t.to(dt), w, b, s, p, (0, self.output_padding)),
+            spatial.halo(x, above, below))
+        return y.narrow(-2, s * above, s * h)
 
 
 class SubpelConv(nn.Sequential):

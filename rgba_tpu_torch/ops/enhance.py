@@ -8,6 +8,11 @@ the same math) computes the plain chain, and as in the JAX package it wins
 over ``fused_dse`` when the batch divides by 4.  Under autograd the kernel
 runs in the forward and the gradients come from the plain chain,
 a pure function of the parameters (``ops/kernels/remat.py``).
+
+Under height sharding (``parallel/spatial.py``) every route runs on the
+band with ``DSE_HALO`` rows of each neighbour (one per 3x3 convolution;
+none past the image's edges, where each layer pads itself), and the band's
+rows of the result are kept.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from ..core.precision import Policy
+from ..parallel import spatial
 from .conv import Conv, conv2d
 from .attention import cached_layout
 from .kernels import dse as dsek
@@ -25,6 +31,7 @@ from .kernels.nhwc import hwio3x3, io1x1
 from .kernels.remat import fused_primal_plain_grad
 
 PACK_GROUPS = 4
+DSE_HALO = 6      # the six 3x3 convolutions of the three blocks
 
 
 class EnhancementBlock(nn.Module):
@@ -64,9 +71,11 @@ class DSE(nn.Module):
 
     def forward(self, x):
         p = self.policy
+        h = x.shape[-2]
+        xe, top = spatial.extend(x, DSE_HALO)
         if p.fused_dse and not (p.packed_dse and x.shape[0] % PACK_GROUPS == 0):
-            return self._kernel(x)
-        return self.chain(x)
+            return spatial.crop(self._kernel(xe), top, h)
+        return spatial.crop(self.chain(xe), top, h)
 
     def chain(self, x):
         """The plain conv chain."""

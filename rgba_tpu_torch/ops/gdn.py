@@ -7,6 +7,10 @@ beta and gamma are stored through a sqrt reparameterization with pedestal
 in PyTorch.  With ``policy.fused_gdn`` the normalization runs in the CUDA
 kernel ``ops/kernels/gdn.py`` on NHWC rows; under autograd its gradients
 come from the plain path below (``ops/kernels/remat.py``).
+
+The normalization is pointwise over pixels (its 1x1 mixes channels only),
+so under height sharding (``parallel/spatial.py``) it runs on a band as it
+is, kernel and plain path alike, with no halo.
 """
 
 from __future__ import annotations

@@ -3,7 +3,10 @@
 
 The 8-neighbour sum is eight shifted fp32 adds over a zero-padded copy, not
 a convolution: cuDNN may run a convolution in TF32 or reorder it, and the
-``== 8`` / ``== 0`` tests below must stay exact.
+``== 8`` / ``== 0`` tests below must stay exact.  Under height sharding
+(``parallel/spatial.py``) the band takes one row of each neighbour band
+(zero rows at the image's top and bottom, as the padding), so the same
+adds run on the same values and the tests stay exact at band edges.
 """
 
 from __future__ import annotations
@@ -11,11 +14,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..parallel import spatial
+
 
 def _neighbor_sum(mask):
     """(B, 1, H, W) -> sum of the 8 neighbours, zero outside the image."""
     h, w = mask.shape[-2:]
-    p = F.pad(mask.float(), (1, 1, 1, 1))
+    p = F.pad(spatial.halo(mask.float(), 1, 1), (1, 1, 0, 0))
     total = torch.zeros_like(p[..., 1:h + 1, 1:w + 1])
     for dy in range(3):
         for dx in range(3):

@@ -36,8 +36,14 @@ def window_alive(alpha_windows):
     return (s != 0).to(alpha_windows.dtype)
 
 
-def _region_image(h: int, w: int, ws: int, ss: int, dtype):
-    img = np.zeros((h, w), dtype=dtype)
+def _region_image(h: int, w: int, ws: int, ss: int, dtype, offset: int = 0,
+                  global_h: int = 0):
+    """Region labels of the shifted image's windows.  A band of ``h`` rows
+    at row ``offset`` of an image of ``global_h`` rows (height sharding)
+    takes its rows of the whole image's labels: only the last band holds
+    the vertical wrap's."""
+    gh = global_h or h
+    img = np.zeros((gh, w), dtype=dtype)
     if ss > 0:
         slices = (slice(0, -ws), slice(-ws, -ss), slice(-ss, None))
         cnt = 0
@@ -45,26 +51,32 @@ def _region_image(h: int, w: int, ws: int, ss: int, dtype):
             for wsl in slices:
                 img[hs, wsl] = cnt
                 cnt += 1
+    img = img[offset:offset + h]
     nh, nw = h // ws, w // ws
     return img.reshape(nh, ws, nw, ws).transpose(0, 2, 1, 3).reshape(
         -1, ws * ws)
 
 
 @functools.lru_cache(maxsize=64)
-def swin_attention_bias(h: int, w: int, window_size: int, shift_size: int):
+def swin_attention_bias(h: int, w: int, window_size: int, shift_size: int,
+                        offset: int = 0, global_h: int = 0):
     """Additive (nW, N, N) SW-MSA bias: -100 where two tokens' regions
-    differ, else 0 (the reference's fill value, not -inf)."""
-    m = _region_image(h, w, window_size, shift_size, np.float32)
+    differ, else 0 (the reference's fill value, not -inf).  ``offset`` and
+    ``global_h``: a band of the image (``_region_image``)."""
+    m = _region_image(h, w, window_size, shift_size, np.float32, offset,
+                      global_h)
     diff = m[:, None, :] - m[:, :, None]
     return np.where(diff != 0, -100.0, 0.0).astype(np.float32)
 
 
 @functools.lru_cache(maxsize=64)
-def swin_region_ids(h: int, w: int, window_size: int, shift_size: int):
+def swin_region_ids(h: int, w: int, window_size: int, shift_size: int,
+                    offset: int = 0, global_h: int = 0):
     """(nW, N) int32 region labels per window (all zero when unshifted);
-    the fused kernel adds -100 wherever two labels differ."""
-    return np.ascontiguousarray(
-        _region_image(h, w, window_size, shift_size, np.int32))
+    the fused kernel adds -100 wherever two labels differ.  ``offset`` and
+    ``global_h``: a band of the image (``_region_image``)."""
+    return np.ascontiguousarray(_region_image(
+        h, w, window_size, shift_size, np.int32, offset, global_h))
 
 
 @functools.lru_cache(maxsize=16)

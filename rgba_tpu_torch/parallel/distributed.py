@@ -29,7 +29,8 @@ from .mesh import Mesh, make_mesh
 
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
-               process_id: Optional[int] = None, device=None) -> None:
+               process_id: Optional[int] = None, device=None,
+               backend: Optional[str] = None) -> None:
     """``torch.distributed.init_process_group`` for this process: rank
     ``process_id`` of ``num_processes``, the group's store at
     ``coordinator_address`` ("host:port"), or with no arguments torchrun's
@@ -58,7 +59,9 @@ def initialize(coordinator_address: Optional[str] = None,
     if dev.type == "cuda":
         local = int(env.get("LOCAL_RANK", process_id % torch.cuda.device_count()))
         torch.cuda.set_device(local)
-    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+    if backend is None:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend,
                             init_method=f"tcp://{coordinator_address}",
                             world_size=int(num_processes),
                             rank=int(process_id))
@@ -90,14 +93,22 @@ def global_mesh() -> Mesh:
     return make_mesh(devices=devs)
 
 
-def local_batch_slice(global_batch: int) -> slice:
+def data_axis(mesh=None) -> tuple:
+    """(size, index) of the axis that cuts the batch: a ``ProcessMesh``'s
+    ``data`` axis, or without one every process of the group."""
+    if mesh is not None:
+        return mesh.data, mesh.data_index
+    return process_count(), process_index()
+
+
+def local_batch_slice(global_batch: int, mesh=None) -> slice:
     """The slice of a global batch this process steps on:
-    slice(per * rank, per * (rank + 1)), per = global_batch / processes.
-    A batch the processes do not divide raises."""
-    n = process_count()
+    slice(per * i, per * (i + 1)), per = global_batch / n, for the data
+    axis's size n and index i (``data_axis``).  A batch the axis does not
+    divide raises."""
+    n, i = data_axis(mesh)
     if global_batch % n:
         raise ValueError(f"a global batch of {global_batch} does not divide "
                          f"over {n} processes")
     per = global_batch // n
-    start = per * process_index()
-    return slice(start, start + per)
+    return slice(per * i, per * (i + 1))

@@ -11,6 +11,12 @@ training across processes uses ``torch.distributed`` instead
 
 A mesh may name one device more than once: two replicas on one card run
 the sharded path where a single card is all there is.
+
+``ProcessMesh`` is the JAX dry run's 2-D (``space``, ``data``) mesh over the
+processes of a ``torch.distributed`` group: rank r sits at space index
+r // D and data index r % D (D = world / S), as ``devs.reshape(2, n // 2)``
+places devices there.  The ``space`` axis cuts image height into bands
+(``parallel/spatial.py``), the ``data`` axis the batch.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import dataclasses
 from typing import Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,3 +101,56 @@ def shard_batch(mesh: Mesh, batch: dict) -> dict:
     mesh device]}.  Raises when the batch does not divide the axis."""
     sh = batch_sharding(mesh)
     return {k: sh.put(v) for k, v in batch.items()}
+
+
+@dataclasses.dataclass(frozen=True)
+class ProcessMesh:
+    """This rank's place on a (``space``, ``data``) mesh of processes and
+    the groups of its two axes."""
+    space: int                  # S: bands of the image
+    data: int                   # D: shards of the batch
+    space_index: int
+    data_index: int
+    space_group: object         # the ranks of this data index, band order
+    data_group: object          # the ranks of this space index
+    space_ranks: Tuple[int, ...]
+    data_ranks: Tuple[int, ...]
+    space_backend: str
+
+    def data_slice(self, batch: int) -> slice:
+        """This rank's shard of a global batch of ``batch``."""
+        if batch % self.data:
+            raise ValueError(f"a batch of {batch} does not divide the data "
+                             f"axis of {self.data}")
+        per = batch // self.data
+        return slice(per * self.data_index, per * (self.data_index + 1))
+
+    def band_slice(self, height: int) -> slice:
+        """This rank's band of an image of ``height`` rows."""
+        if height % self.space:
+            raise ValueError(f"a height of {height} does not divide into "
+                             f"{self.space} bands")
+        per = height // self.space
+        return slice(per * self.space_index, per * (self.space_index + 1))
+
+
+def make_process_mesh(space: int = 1) -> ProcessMesh:
+    """The (``space``, ``data``) mesh over the process group: S = ``space``
+    bands, D = world / S.  Every rank of the group calls it (the axes'
+    groups are made collectively, in one order)."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_process_mesh needs a process group "
+                           "(parallel.distributed.initialize)")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if space < 1 or world % space:
+        raise ValueError(f"a space axis of {space} does not divide "
+                         f"{world} processes")
+    data = world // space
+    columns = [tuple(s * data + d for s in range(space)) for d in range(data)]
+    rows = [tuple(s * data + d for d in range(data)) for s in range(space)]
+    space_groups = [dist.new_group(list(r)) for r in columns]
+    data_groups = [dist.new_group(list(r)) for r in rows]
+    s, d = divmod(rank, data)
+    return ProcessMesh(space, data, s, d, space_groups[d], data_groups[s],
+                       columns[d], rows[s],
+                       dist.get_backend(space_groups[d]))

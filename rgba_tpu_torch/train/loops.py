@@ -28,6 +28,17 @@ losses are means over images (the masked MSE, 1 - MS-SSIM) or sums over
 the batch's pixels divided by their count (bpp), so the mean over equal
 shards is the global batch's; the metrics a step returns are averaged
 over the ranks.  Only rank 0 writes snapshots, image dumps and logs.
+
+Height sharding (the JAX trainer's ``mesh=`` with a ``space`` axis): with
+``mesh=make_process_mesh(space=S)`` each rank steps on its data shard's
+band of rows inside ``parallel.spatial.space_scope``.  The step's losses
+are the whole shard's on every rank of a space group; a rank's backward of
+that replicated loss gives S times its share of the gradient
+(``parallel/spatial.py``), and DDP's mean over all S x D ranks leaves the
+mean over the ``data`` axis: the single process's gradient.  The noise is
+drawn for the data axis's global batch at the whole latent's height (the
+entropy head runs on the whole latent).  The MS-SSIM distortion does not
+split into bands and raises there.
 """
 
 from __future__ import annotations
@@ -50,8 +61,9 @@ from ..metrics.ms_ssim import masked_ms_ssim
 from ..models.mask_codec import MaskCodec
 from ..models.rgb_codec import RGBCodec
 from ..ops.mask_pyramid import mask_pyramid
-from ..parallel.distributed import (local_batch_slice, process_count,
-                                    process_index)
+from ..parallel import spatial
+from ..parallel.distributed import (data_axis, local_batch_slice,
+                                    process_count, process_index)
 from .checkpoint import save_checkpoint, save_rotating
 from .meters import AverageMeter
 from .state import (CodecTrainState, is_quantiles, make_train_state,
@@ -82,6 +94,9 @@ def _rgb_loss_fn(cfg: TrainConfig):
         out = model(batch["masked_image"], mask, mask, mask_pyramid(mask),
                     training=True, generator=generator)
         if cfg.distortion == "msssim":
+            if spatial.current() is not None:
+                raise ValueError("the MS-SSIM distortion does not split "
+                                 "into bands of rows")
             # 1 - masked MS-SSIM over the alpha-visible region (it reduces
             # to the plain MS-SSIM for all-ones masks); the metric is NHWC
             def nhwc(t):
@@ -101,7 +116,9 @@ class Trainer:
     and raises without CUDA unless the caller passes ``"cpu"``.
     ``data_parallel`` (None: when a process group of more than one process
     exists) wraps the model in ``DistributedDataParallel``; True also runs
-    a group of one that way."""
+    a group of one that way.  ``mesh``: a ``ProcessMesh`` whose ``data``
+    axis cuts the batch and whose ``space`` axis cuts image height (see the
+    module docstring); without one, every process is on the data axis."""
 
     # the batch arrays (NHWC numpy) that a step reads
     batch_keys = ("masked_image", "alpha", "image")
@@ -109,8 +126,9 @@ class Trainer:
     def __init__(self, model_cls, cfg: TrainConfig, loss_fn, save_path: str,
                  model=None, device=None, snapshot_keep_after: int = 1_495_000,
                  image_dump_dir: str = "",
-                 data_parallel: Optional[bool] = None):
+                 data_parallel: Optional[bool] = None, mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh
         world = process_count()
         if cfg.num_devices > 0 and cfg.num_devices != world:
             raise ValueError(
@@ -119,9 +137,10 @@ class Trainer:
                 f"equal the process group's size (or be 0).  The JAX trainer "
                 f"instead builds a data axis of gcd(batch_size, num_devices) "
                 f"devices inside one process, which has no counterpart here")
-        if cfg.batch_size % world:
+        n_data = data_axis(mesh)[0]
+        if cfg.batch_size % n_data:
             raise ValueError(f"batch_size {cfg.batch_size} does not divide "
-                             f"over {world} processes")
+                             f"over {n_data} processes")
         self.data_parallel = world > 1 if data_parallel is None \
             else bool(data_parallel)
         if self.data_parallel and not dist.is_initialized():
@@ -176,11 +195,11 @@ class Trainer:
 
     def noise_source(self):
         """Where the step's training noise comes from: the trainer's
-        generator, or in data parallel a draw of the global batch's noise
-        from it, of which this rank keeps its slice."""
+        generator, or in data parallel a draw of the data axis's global
+        batch's noise from it, of which this rank keeps its slice."""
         if not self.data_parallel:
             return self.noise
-        n, r = process_count(), process_index()
+        n, r = data_axis(self.mesh)
 
         def draw(shape):
             b = shape[0]
@@ -192,12 +211,17 @@ class Trainer:
     def step(self, state: CodecTrainState, batch: dict,
              grads: Optional[dict] = None) -> dict:
         """One optimizer step on a host batch (in data parallel, the global
-        batch: this rank takes its slice); returns the metrics, averaged
-        over the ranks.  ``grads``: see ``make_train_step``."""
+        batch: this rank takes its slice, and its band under height
+        sharding); returns the metrics, averaged over the ranks.
+        ``grads``: see ``make_train_step``."""
         if self.data_parallel:
-            batch = {k: v[local_batch_slice(len(v))] for k, v in batch.items()
-                     if k in self.batch_keys}
-        with precision_scope(self.model.policy):
+            batch = {k: v[local_batch_slice(len(v), self.mesh)]
+                     for k, v in batch.items() if k in self.batch_keys}
+        if self.mesh is not None and self.mesh.space > 1:
+            batch = {k: v[:, self.mesh.band_slice(v.shape[1])]
+                     for k, v in batch.items() if k in self.batch_keys}
+        with precision_scope(self.model.policy), \
+                spatial.space_scope(self.mesh):
             m = self._step_fn(state, self.device_batch(batch),
                               self.noise_source(), self.forward_module, grads)
         if self.data_parallel:
@@ -306,12 +330,12 @@ class MaskTrainer(Trainer):
 
     def __init__(self, cfg: TrainConfig, save_path: str, model=None,
                  device=None, image_dump_dir: str = "",
-                 data_parallel: Optional[bool] = None):
+                 data_parallel: Optional[bool] = None, mesh=None):
         super().__init__(MaskCodec, cfg, _mask_loss_fn(cfg), save_path,
                          model=model, device=device,
                          snapshot_keep_after=595_000,
                          image_dump_dir=image_dump_dir,
-                         data_parallel=data_parallel)
+                         data_parallel=data_parallel, mesh=mesh)
 
     def _render_recon(self, batch):
         m = self.device_batch({"alpha": batch["alpha"][:1]})["alpha"]
@@ -325,12 +349,12 @@ class RGBTrainer(Trainer):
 
     def __init__(self, cfg: TrainConfig, save_path: str, model=None,
                  device=None, image_dump_dir: str = "",
-                 data_parallel: Optional[bool] = None):
+                 data_parallel: Optional[bool] = None, mesh=None):
         super().__init__(RGBCodec, cfg, _rgb_loss_fn(cfg), save_path,
                          model=model, device=device,
                          snapshot_keep_after=1_495_000,
                          image_dump_dir=image_dump_dir,
-                         data_parallel=data_parallel)
+                         data_parallel=data_parallel, mesh=mesh)
 
     def _render_recon(self, batch):
         d = self.device_batch({k: batch[k][:1]
