@@ -95,12 +95,15 @@ failure:
    4 / 12 / 8 / 2, of one image's encode + decode, 4 / 15 / 10 / 3, and of
    the whole eval, which adds the RGB forward that codec_err reads; the
    averages on against off: bpp 1e-4 relative, PSNR and psnr_real 0.01 dB,
-   MS-SSIM 1e-4; codec_err <= 1e-5 on each route, or, where a value
-   within fp32 noise of a rounding boundary rounded apart in the eval
-   step's forward and the codec, each image's decoded RGB within 1e-5 of
-   the forward on the container's inputs (or its bulk) and its decoded
-   alpha against the eval step's (mean |d| <= 1e-3, at most 5% of the
-   pixels off by more than 1e-3: a desynced stream moves most); the time per
+   MS-SSIM 1e-4; codec_err by ``eval.kodak.hold_codec_err``: below 6e-3
+   on average, and <= 1e-5 on each route or, where a value within fp32
+   noise of a rounding boundary rounded apart in the eval step's forward
+   and the codec, each image's decoded RGB within one 8-bit level of the
+   forward on the container's inputs and within 1e-5 of it but for a bulk
+   (mean |d| <= 1e-4, at most 0.1% of the values off by more than 1e-3),
+   and its decoded alpha against the eval step's (mean |d| <= 1e-3, at
+   most 5% of the pixels off by more than 1e-3: a desynced stream moves
+   most); the time per
    image of the eval step and of the codec); ``cli.codec`` encode-dir / decode-dir
    of 16 RGBA PNGs at ``-b 8``, v64 and lanes32 (every blob equal to
    ``encode_batch``'s, every PNG to the JAX CLI's pixels of
@@ -171,6 +174,20 @@ failure:
    ``RGBTrainer`` step with the kernels on over the two ranks (batch 4,
    256x256) against one process (``dryrun_multichip``'s bounds, 4 / 6 /
    4 / 1 launches per rank).
+9. the trained-weight workflow (``rgba_tpu_torch/tools/_common.py``):
+   ``MaskTrainer`` and ``RGBTrainer`` (bf16, all four kernels on, lambda
+   1024) take 100 steps each at batch 8, 256x256, on 32 synthetic images
+   held on the card (launches 0 / 6 / 4 / 1 and 4 / 6 / 4 / 1 per step;
+   the mean loss of the last 10 steps below that of the first 10); the
+   crash-resume check of each (checkpoint, one step on a fixed batch with
+   a seeded noise generator, a fresh trainer loading the checkpoint takes
+   the same step: losses within 1e-4 relative); then the trained pair in
+   the fp32 codec: ``evaluate_kodak(real_codec=True)`` over 2 synthetic
+   512x768 images (bpp, real_bpp, psnr, psnr_real, codec_err; 0.5 x bpp <
+   real_bpp < 1.5 x bpp + 0.1, ``tools/full_workflow_proof.check_point``;
+   codec_err by the eval phase's rules; 2 x
+   (4 / 12 / 8 / 2 + 4 / 15 / 10 / 3 + 4 / 6 / 4 / 1) launches) and a
+   byte-identical re-encode of both images.
 
 The line before the last is one JSON object with every kernel's numbers
 (the four conv kernels' headline cases are bf16 forward shapes; the
@@ -181,8 +198,10 @@ the rest of the repository beside it, the script exits non-zero and prints
 no result.
 
     python3 chip_smoke.py --only space [--iters 3]
+    python3 chip_smoke.py --only workflow
 
-builds the kernels and runs phase 8 alone (its result, not the ok line).
+builds the kernels and runs phase 8 or phase 9 alone (its result, not the
+ok line).
 
     python3 chip_smoke.py --base DIR [--iters 20]
 
@@ -206,7 +225,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import dataclasses
 import functools
 import importlib.util
 import json
@@ -708,8 +726,6 @@ LANE_ENCODE_SEGMENTS = 17
 ENCODE_GAIN = 3.0   # encode_phase (a): the encoders' gain (_liven's is 10)
 # one training forward + backward (the backward launches no kernel)
 MAX_FLIPS = 2      # latents the two fp32 routes may round apart (train phase)
-RGB_STEP_LAUNCHES = _launch_counts(4, 6, 4, 1)
-MASK_STEP_LAUNCHES = _launch_counts(0, 6, 4, 1)
 TRAIN_BATCH, TRAIN_SIZE, TRAIN_STEPS = 8, 256, 20
 
 
@@ -722,9 +738,19 @@ def _kernels():
 
 
 def _all_kernels(policy):
-    return dataclasses.replace(policy, fused_win_attn=True, fused_gdn=True,
-                               fused_gate_chain=True, fused_dse=True,
-                               packed_dse=False)
+    """``policy`` with the four conv kernels on (``packed_dse`` off so the
+    DSE kernel runs), as the trained-weight tools run it."""
+    from rgba_tpu_torch.tools._common import all_kernels
+    return all_kernels(policy)
+
+
+def _step_launches(kind: str) -> dict:
+    """One training step's launches (the backward launches none), the
+    tools' tables (``rgba_tpu_torch/tools/_common.py``), no rANS."""
+    from rgba_tpu_torch.tools import _common as wf
+    return dict(_launch_counts(0, 0, 0, 0),
+                **(wf.RGB_STEP_LAUNCHES if kind == "rgb"
+                   else wf.MASK_STEP_LAUNCHES))
 
 
 def _reset_launches():
@@ -1711,11 +1737,6 @@ def encode_phase(torch, live, img, alpha, iters) -> dict:
 CODEC_FORWARD_LAUNCHES = _launch_counts(4, 6, 4, 1)
 EVAL_HW, EVAL_IMAGES, CLI_BATCH, EXPORT_BATCH = (512, 768), 8, 4, 16
 EVAL_GATES = {"bpp": 1e-4, "psnr": 0.01, "msssim": 1e-4, "psnr_real": 0.01}
-CODEC_ERR_MAX = 1e-5
-# codec_err above CODEC_ERR_MAX (_codec_err_parts): the decoded alpha
-# against the eval step's, a quarter of an 8-bit level on average and at
-# most 5% of the pixels off
-ALPHA_MEAN_MAX, ALPHA_SHARE_MAX = 1e-3, 0.05
 
 # loads exported artifacts in a process that imports nothing of the
 # package but its kernel operators, runs each, and runs it again with one
@@ -1839,9 +1860,7 @@ def _kodak_eval(torch, tree: str, ckpt: dict) -> dict:
               f"{avg['codec_err']:.3g}")
         if not all(np.isfinite(v) for v in avg.values()):
             raise AssertionError(f"kernels {route}: an average is not finite")
-        per_image = None
-        if avg["codec_err"] > CODEC_ERR_MAX:
-            per_image = _codec_err_parts(torch, tree, step, codec)
+        per_image = _hold_codec_err(codec, tree, avg["codec_err"])
         out[route] = {"avg": avg, "wall_s": wall, "launches": per,
                       "codec_err_parts": per_image}
         codec.rgb_io.close()
@@ -1862,55 +1881,23 @@ def _kodak_eval(torch, tree: str, ckpt: dict) -> dict:
     return out
 
 
-def _codec_err_parts(torch, tree: str, step, codec) -> list:
-    """codec_err above 1e-5: a value within fp32 noise of a rounding
-    boundary (a latent's half integer, or an 8-bit level of the decoded
-    alpha) rounded apart in two computations of the same values (the eval
-    step's forward and the codec's encode and decode, laid out and summed
-    apart).  Each image's parts are then held: the decoded RGB against the
-    forward on the container's own inputs within 1e-5, or its bulk
-    (``_bulk_agreement``), and the decoded alpha against the eval step's:
-    mean |d| <= ALPHA_MEAN_MAX and at most ALPHA_SHARE_MAX of the pixels
-    off by more than 1e-3.  A latent rounded apart changes its symbol, and
-    the channel-AR chain moves the slices after it a little: a patch of
-    the alpha by a few levels (on the CPU, 1.3% of a 192x256 image by up
-    to 5 levels); a desynced stream moves most of the image."""
-    import numpy as np
-    from rgba_tpu_torch.data.datasets import KodakDataset
-    from rgba_tpu_torch.eval.kodak import _codec_forward
-
-    print("  codec_err above 1e-5: a value at a rounding boundary rounded "
-          "apart in the eval step's forward and the codec; holding each "
-          "image's parts:")
-    ds = KodakDataset(tree)
-    parts = []
-    for i in range(len(ds)):
-        item = ds.get(i)
-        ref = step(item["masked_image"][None], item["alpha"][None])
-        rgba = codec.decode(codec.encode(item["image"][None],
-                                         item["alpha"][None]))
-        rm = rgba[..., 3:]
-        x_fwd = _codec_forward(codec.rgb_io,
-                               np.where(rm > 0, item["image"][None], rm), rm)
-        got = torch.from_numpy(rgba)
-        rgb_err = float(np.abs(rgba[..., :3] - x_fwd).max())
-        rgb = (rgb_err <= CODEC_ERR_MAX or _bulk_agreement(
-            got[..., :3], torch.from_numpy(x_fwd),
-            f"image {i} decoded RGB vs forward")["ok"])
-        d = (got[..., 3:] - ref["recon_mask"].cpu()).abs()
-        alpha = {"max_abs": float(d.max()), "mean_abs": float(d.mean()),
-                 "share_above_1e-3": float((d > 1e-3).float().mean())}
-        alpha["ok"] = (alpha["mean_abs"] <= ALPHA_MEAN_MAX
-                       and alpha["share_above_1e-3"] <= ALPHA_SHARE_MAX)
-        print(f"    image {i}: RGB max_abs {rgb_err:.3g}; alpha max_abs "
+def _hold_codec_err(codec, tree: str, codec_err: float):
+    """``eval.kodak.hold_codec_err``, each image's parts printed: codec_err
+    above 1e-5 is a value at a rounding boundary rounded apart in the eval
+    step's forward and the codec (laid out and summed apart)."""
+    from rgba_tpu_torch.eval import kodak
+    parts = kodak.hold_codec_err(codec, tree, codec_err)
+    print(f"  codec_err {codec_err:.3g} (tol {kodak.CODEC_ERR_AVG_MAX:g} on "
+          f"average, {kodak.CODEC_ERR_MAX:g} or each image's parts)")
+    for p in parts or ():
+        rgb, alpha = p["rgb"], p["alpha"]
+        print(f"    image {p['image']}: RGB max_abs {rgb['max_abs']:.3g} "
+              f"(tol {kodak.RGB_LEVEL:.3g}) mean_abs {rgb['mean_abs']:.3g} "
+              f"share>1e-3 {rgb['share_above_1e-3']:.3g}; alpha max_abs "
               f"{alpha['max_abs']:.3g} mean_abs {alpha['mean_abs']:.3g} "
-              f"(tol {ALPHA_MEAN_MAX:g}) share>1e-3 "
-              f"{alpha['share_above_1e-3']:.3g} (tol {ALPHA_SHARE_MAX:g}) -> "
-              f"{'ok' if rgb and alpha['ok'] else 'FAIL'}")
-        if not (rgb and alpha["ok"]):
-            raise AssertionError(f"image {i}: the decode disagrees with the "
-                                 f"forward beyond a rounded tie")
-        parts.append({"rgb_max_abs": rgb_err, "alpha": alpha})
+              f"(tol {kodak.ALPHA_MEAN_MAX:g}) share>1e-3 "
+              f"{alpha['share_above_1e-3']:.3g} "
+              f"(tol {kodak.ALPHA_SHARE_MAX:g}) -> ok")
     return parts
 
 
@@ -2447,16 +2434,15 @@ def train_phase(torch) -> dict:
 
     steps = TRAIN_STEPS
     out = {"batch": TRAIN_BATCH, "size": TRAIN_SIZE, "steps": steps,
-           "gradients": {"rgb": _train_gradients(torch, "rgb",
-                                                 RGB_STEP_LAUNCHES),
-                         "mask": _train_gradients(torch, "mask",
-                                                  MASK_STEP_LAUNCHES)}}
+           "gradients": {kind: _train_gradients(torch, kind,
+                                                _step_launches(kind))
+                         for kind in ("rgb", "mask")}}
     dataset = _SynthDataset(4 * TRAIN_BATCH, TRAIN_SIZE)
     runs = {}
     with tempfile.TemporaryDirectory() as tmp:
         # the main path: both trainers with the kernels on
-        for kind, per_step in (("rgb", RGB_STEP_LAUNCHES),
-                               ("mask", MASK_STEP_LAUNCHES)):
+        for kind in ("rgb", "mask"):
+            per_step = _step_launches(kind)
             trainer = _make_trainer(torch, kind, True, tmp)
             layouts = _attention_layouts(torch, trainer.model)
             state, runs[f"{kind}_on"] = _train_run(
@@ -2550,7 +2536,7 @@ def _mask_fp32_split(torch, dataset) -> dict:
                 torch, trainer, dataset, f"mask trainer fp32, kernels {which}",
                 compute_steps=0)
             del trainer
-    want = {n: TRAIN_STEPS * c for n, c in MASK_STEP_LAUNCHES.items()}
+    want = {n: TRAIN_STEPS * c for n, c in _step_launches("mask").items()}
     if runs["on"]["launches"] != want or any(runs["off"]["launches"].values()):
         raise AssertionError(f"mask fp32 launches: on {runs['on']['launches']},"
                              f" off {runs['off']['launches']}")
@@ -3254,11 +3240,102 @@ def space_phase(torch, iters: int) -> dict:
           f"({dry['grad_worst_param']}; max |dg| at "
           f"{dry['grad_worst_max_ratio']:.3g}); launches per rank "
           f"{dry['launches']}, {time.perf_counter() - t:.1f} s")
-    want = {k: RGB_STEP_LAUNCHES[k] for k in CONV_KERNELS}
+    want = {k: _step_launches("rgb")[k] for k in CONV_KERNELS}
     if dry["launches"] != want:
         raise AssertionError(f"banded step launches {dry['launches']}, "
                              f"expected {want}")
     out["train"] = dry
+    return out
+
+
+WORKFLOW_STEPS = 100         # bf16 steps of each trainer (phase 9)
+WORKFLOW_IMAGES = 2          # of the real-codec eval, at EVAL_HW
+
+
+def workflow_phase(torch) -> dict:
+    """The trained-weight workflow (``rgba_tpu_torch/tools``): both
+    trainers trained WORKFLOW_STEPS steps with the four kernels on, the
+    crash-resume check of each, then the trained pair through the real
+    codec: ``evaluate_kodak(real_codec=True)`` over 2 synthetic 512x768
+    images and a byte-identical re-encode."""
+    import tempfile
+    import numpy as np
+    from rgba_tpu_torch.data.datasets import KodakDataset
+    from rgba_tpu_torch.tools import _common as wf
+    from rgba_tpu_torch.tools.full_workflow_proof import check_point
+
+    steps, out = WORKFLOW_STEPS, {"steps": WORKFLOW_STEPS,
+                                  "batch": TRAIN_BATCH, "size": TRAIN_SIZE}
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        data = wf.synth_data(4 * TRAIN_BATCH, TRAIN_SIZE, "cuda")
+        ck, launches = {}, {}
+        for kind, name in (("mask", "mask"), ("rgb", "rgb_1024")):
+            _reset_launches()
+            run = wf.train_one(name, kind, 1024, steps, work, data=data,
+                               batch_size=TRAIN_BATCH, log_every=50)
+            launches[kind] = _read_launches(
+                {n: steps * c for n, c in _step_launches(kind).items()},
+                f"{steps} {kind} steps")
+            rd = [p["rd_loss"] for p in run["curve"]]
+            head, tail = sum(rd[:10]) / 10, sum(rd[-10:]) / 10
+            print(f"  {kind}: rd {rd[0]:.3f} -> {rd[-1]:.3f} (first 10 "
+                  f"{head:.3f}, last 10 {tail:.3f}), "
+                  f"{run['steps_per_s']:.3f} steps/s at batch {TRAIN_BATCH}")
+            if not all(math.isfinite(v) for v in rd) or not tail < head:
+                raise AssertionError(f"{kind}: the loss did not descend")
+            batch = {k: data[k][:TRAIN_BATCH]
+                     for k in run["trainer"].batch_keys}
+            parity = wf.resume_parity(kind, run, batch)
+            print(f"  {kind} crash-resume: rel {parity['rel']:.3g} "
+                  f"(tol {wf.RESUME_RTOL:g})")
+            if not parity["rel"] <= wf.RESUME_RTOL:
+                raise AssertionError(f"{kind}: the resumed step's loss "
+                                     f"differs by {parity['rel']}")
+            out[kind] = {"first_rd": rd[0], "last_rd": rd[-1],
+                         "first_10": head, "last_10": tail,
+                         "steps_per_s": run["steps_per_s"],
+                         "resume": parity}
+            ck[kind] = wf.latest_checkpoint(run["ckdir"])
+            del run
+        del data
+        tree = wf.kodak_tree(work, WORKFLOW_IMAGES, EVAL_HW)
+        codec = wf.make_codec("cuda")
+        try:
+            _reset_launches()
+            point = wf.eval_point(codec, tree, ck["rgb"], ck["mask"])
+            launches["eval"] = _read_launches(
+                dict(_launch_counts(0, 0, 0, 0), **{
+                    n: WORKFLOW_IMAGES * c
+                    for n, c in wf.EVAL_IMAGE_LAUNCHES.items()}),
+                f"evaluate_kodak of {WORKFLOW_IMAGES} images")
+            print("  trained pair, real codec: " + ", ".join(
+                f"{k} {point[k]:.6g}" for k in ("bpp", "real_bpp", "psnr",
+                                                "psnr_real", "msssim",
+                                                "codec_err")))
+            parts = check_point(codec, tree, point)
+            print(f"  real bpp within (0.5 x bpp, 1.5 x bpp + 0.1); "
+                  f"codec_err {point['codec_err']:.3g} held"
+                  + (f", {len(parts)} images' parts within a rounded tie"
+                     if parts else ""))
+            ds = KodakDataset(tree)
+            items = [ds.get(i) for i in range(len(ds))]
+            img = np.stack([it["image"] for it in items])
+            alpha = np.stack([it["alpha"] for it in items])
+            blobs = codec.encode_batch(img, alpha)
+            if codec.encode_batch(img, alpha) != blobs:
+                raise AssertionError("trained pair: a re-encode differs")
+            print(f"  re-encode of {len(blobs)} blobs byte-identical, "
+                  f"{sum(map(len, blobs))} bytes")
+        finally:
+            codec.rgb_io.close()
+            codec.mask_io.close()
+    out.update(point=point, codec_err_parts=parts, launches=launches,
+               seconds=time.perf_counter() - t)
+    # per kernel: both trainers' runs and the eval, each counted from 0
+    out["launches_workflow"] = {
+        n: {"rgb_steps": launches["rgb"][n], "mask_steps": launches["mask"][n],
+            "eval": launches["eval"][n]} for n in KERNEL_NAMES}
     return out
 
 
@@ -3483,7 +3560,7 @@ def main(argv=None) -> int:
     ap.add_argument("--base", type=Path, default=None,
                     help="another checkout whose kernels to time against "
                          "this one's")
-    ap.add_argument("--only", choices=("space",), default=None,
+    ap.add_argument("--only", choices=("space", "workflow"), default=None,
                     help="build, then run this phase alone (a quick check; "
                          "prints its result, not the ok line)")
     args = ap.parse_args(argv)
@@ -3525,13 +3602,14 @@ def main(argv=None) -> int:
                 print(f"  {source}: {line.strip()}")
 
     phase_s = {"build": time.perf_counter() - t0}
-    if args.only == "space":
-        print("height sharding (two ranks on cuda:0):")
-        space = space_phase(torch, args.iters)
-        print(f"phase seconds: build {phase_s['build']:.1f}, space "
+    if args.only is not None:
+        print(f"{args.only} phase alone:")
+        alone = (space_phase(torch, args.iters) if args.only == "space"
+                 else workflow_phase(torch))
+        print(f"phase seconds: build {phase_s['build']:.1f}, {args.only} "
               f"{time.perf_counter() - t0 - phase_s['build']:.1f}")
         print(card)
-        print(json.dumps({"space": space}))
+        print(json.dumps({args.only: alone}))
         return 0
     t = time.perf_counter()
     print("card health:")
@@ -3581,6 +3659,11 @@ def main(argv=None) -> int:
     print("height sharding (two ranks on cuda:0 over gloo):")
     space = space_phase(torch, args.iters)
     phase_s["space"] = time.perf_counter() - t
+    t = time.perf_counter()
+    print(f"trained-weight workflow ({WORKFLOW_STEPS} bf16 steps of each "
+          f"trainer, batch {TRAIN_BATCH}, {TRAIN_SIZE}x{TRAIN_SIZE}):")
+    workflow = workflow_phase(torch)
+    phase_s["workflow"] = time.perf_counter() - t
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in phase_s.items()))
 
@@ -3625,6 +3708,7 @@ def main(argv=None) -> int:
                 # per rank: a banded bf16 forward and a banded fp32 step
                 "launches_space": space["bf16"]["ranks"][0]["launches"][name],
                 "launches_space_train": space["train"]["launches"][name],
+                "launches_workflow": workflow["launches_workflow"][name],
                 "band_cases": space["band_cases"][name],
                 "max_abs_err": h["max_abs_err"], "ms": h["ms"],
                 "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
@@ -3644,6 +3728,7 @@ def main(argv=None) -> int:
                 "launches_forward": path["launches"]["rans_decode"],
                 "launches_codec_v1": codec["launches"]["rans_decode"],
                 "launches_train": train["launches_train"]["rans_decode"],
+                "launches_workflow": workflow["launches_workflow"]["rans_decode"],
                 "launches_cli_decode_dir": evals["codec_cli"]["lanes32"]
                 ["launches_decode"]["rans_decode"],
                 "max_abs_err": lanes["max_abs_err"], "ms": y0["ms"],
@@ -3670,6 +3755,7 @@ def main(argv=None) -> int:
                 "launches_forward": path["launches"]["rans_encode"],
                 "launches_codec_v1": codec["launches"]["rans_encode"],
                 "launches_train": train["launches_train"]["rans_encode"],
+                "launches_workflow": workflow["launches_workflow"]["rans_encode"],
                 "max_abs_err": enc["max_abs_err"], "ms": y0["ms"],
                 "plain_ms": y0["plain_ms"], "bound_ms": y0["bound_ms"],
                 "bound_by": "bytes", "chain_bound_ms": y0["chain_bound_ms"],
@@ -3695,6 +3781,8 @@ def main(argv=None) -> int:
         "int8": int8,
         "parallel": parallel,
         "space": {k: v for k, v in space.items() if k != "band_cases"},
+        "workflow": {k: v for k, v in workflow.items()
+                     if k != "launches_workflow"},
         "phase_seconds": phase_s,
     }
     print(card)

@@ -245,3 +245,81 @@ def _real_codec_image(codec, item: dict, out: dict, bpp: float,
         "real bitstream: %d bytes = %.6f bpp (est %.6f), enc+dec %.3fs, "
         "|dec - forward| max %.2e (mask %.2e)",
         len(blob), real_bpp, bpp, tc1 - tc0, err, mask_err)
+
+
+# How far the real codec's decode may sit from the forward.  codec_err (each
+# image's worst pixel, averaged) at most CODEC_ERR_MAX: the two agree but
+# for fp32 noise.  Above it, a value within fp32 noise of a rounding
+# boundary (a latent's half integer, an 8-bit level of the decoded alpha)
+# went apart in the two computations, laid out and summed apart; each
+# image is then held to the parts below.  CODEC_ERR_AVG_MAX is the JAX
+# package's full_workflow_proof bound, about 1.5 8-bit levels.
+CODEC_ERR_MAX = 1e-5
+CODEC_ERR_AVG_MAX = 6e-3
+RGB_LEVEL, RGB_MEAN_MAX, RGB_SHARE_MAX = 1 / 255, 1e-4, 1e-3
+ALPHA_MEAN_MAX, ALPHA_SHARE_MAX = 1e-3, 0.05
+
+
+def _err_parts(d: np.ndarray) -> dict:
+    return {"max_abs": float(d.max()), "mean_abs": float(d.mean()),
+            "share_above_1e-3": float((d > 1e-3).mean())}
+
+
+def codec_err_parts(codec, rootpath: str) -> list:
+    """Each image of the tree at ``rootpath`` through ``codec`` (an
+    ``RGBAFileCodec``) and the eval step of its models, the decode's parts
+    apart: ``rgb``, the decoded RGB against the forward on the container's
+    own inputs, ``ok`` within one 8-bit level and equal (CODEC_ERR_MAX)
+    but for a bulk within RGB_MEAN_MAX on average with at most
+    RGB_SHARE_MAX of its values off by more than 1e-3; ``alpha``, the
+    decoded alpha
+    against the eval step's, ``ok`` at most ALPHA_MEAN_MAX on average with
+    at most ALPHA_SHARE_MAX of its pixels off by more than 1e-3 (an opaque
+    image's container holds no alpha, as ``evaluate_kodak`` counts it).  A
+    latent rounded apart changes its symbol, and the channel-AR chain moves
+    the slices after it a little: a patch of the alpha by a few levels; a
+    desynced stream moves most of the image."""
+    step = make_eval_step(codec.rgb_io.model, codec.mask_io.model)
+    ds = KodakDataset(rootpath)
+    parts = []
+    for i in range(len(ds)):
+        item = ds.get(i)
+        ref = step(item["masked_image"][None], item["alpha"][None])
+        rgba = codec.decode(codec.encode(item["image"][None],
+                                         item["alpha"][None]))
+        rm = rgba[..., 3:]
+        x_fwd = _codec_forward(
+            codec.rgb_io, np.where(rm > 0, item["image"][None], rm), rm)
+        rgb = _err_parts(np.abs(rgba[..., :3] - x_fwd))
+        rgb["ok"] = rgb["max_abs"] <= RGB_LEVEL and (
+            rgb["max_abs"] <= CODEC_ERR_MAX
+            or (rgb["mean_abs"] <= RGB_MEAN_MAX
+                and rgb["share_above_1e-3"] <= RGB_SHARE_MAX))
+        if bool(np.all(item["alpha"] == 1.0)):
+            d = np.zeros_like(rm)
+        else:
+            d = np.abs(rm - ref["recon_mask"].cpu().numpy())
+        alpha = _err_parts(d)
+        alpha["ok"] = (alpha["mean_abs"] <= ALPHA_MEAN_MAX
+                       and alpha["share_above_1e-3"] <= ALPHA_SHARE_MAX)
+        parts.append({"image": i, "rgb": rgb, "alpha": alpha})
+    return parts
+
+
+def hold_codec_err(codec, rootpath: str, codec_err: float) -> Optional[list]:
+    """Hold ``evaluate_kodak(real_codec=True)``'s ``codec_err`` over the
+    tree at ``rootpath``: below CODEC_ERR_AVG_MAX, and at most
+    CODEC_ERR_MAX or else every image's ``codec_err_parts`` ok.  Returns
+    the parts (None when codec_err is at most CODEC_ERR_MAX); raises
+    AssertionError naming what failed."""
+    if not codec_err < CODEC_ERR_AVG_MAX:
+        raise AssertionError(f"codec_err {codec_err} >= {CODEC_ERR_AVG_MAX}: "
+                             f"the decode disagrees with the forward")
+    if codec_err <= CODEC_ERR_MAX:
+        return None
+    parts = codec_err_parts(codec, rootpath)
+    bad = [p for p in parts if not (p["rgb"]["ok"] and p["alpha"]["ok"])]
+    if bad:
+        raise AssertionError(f"the decode disagrees with the forward beyond "
+                             f"a rounded tie: {bad}")
+    return parts

@@ -1,13 +1,14 @@
 """Run a function on every rank of a process group, one process each.
 
     from rgba_tpu_torch.parallel.launch import run_ranks
-    results = run_ranks("pkg.module:fn", world=4, space=2, device="cpu",
-                        args=(...,))
+    results = run_ranks("pkg.module:fn", world=4, space=2, args=(...,))
 
-Each process joins a ``torch.distributed`` group of ``world`` ranks on a
-free localhost port (``distributed.initialize``: gloo on the CPU, NCCL on
-cards unless ``backend`` says otherwise), builds the (``space``, ``data``)
-mesh (``mesh.make_process_mesh``), calls ``fn(mesh, *args)`` and hands its
+Each process runs on ``device``, ``cuda`` unless the caller asks for the
+CPU (``device="cpu"``; ``core.precision.resolve_device``), joins a
+``torch.distributed`` group of ``world`` ranks on a free localhost port
+(``distributed.initialize``: gloo on the CPU, NCCL on cards unless
+``backend`` says otherwise), builds the (``space``, ``data``) mesh
+(``mesh.make_process_mesh``), calls ``fn(mesh, *args)`` and hands its
 result back (``torch.save`` into a temporary directory, read by the
 caller); the list of results is in rank order.  The processes inherit the
 environment, less torchrun's variables, with the repository on
@@ -31,6 +32,8 @@ from pathlib import Path
 
 import torch
 
+from ..core.precision import resolve_device
+
 _ROOT = Path(__file__).resolve().parents[2]
 _TORCHRUN_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
                   "MASTER_ADDR", "MASTER_PORT")
@@ -48,8 +51,9 @@ class Ranks:
     manager so that no process outlives the caller."""
 
     def __init__(self, fn: str, world: int, *, space: int = 1,
-                 device: str = "cpu", backend: str = None, args=(),
+                 device: str = None, backend: str = None, args=(),
                  env: dict = None):
+        device = str(resolve_device(device))
         self._tmp = tempfile.TemporaryDirectory()
         tmp = Path(self._tmp.name)
         torch.save(tuple(args), tmp / "args.pt")
@@ -59,7 +63,7 @@ class Ranks:
         environ["PYTHONPATH"] = os.pathsep.join(
             [str(_ROOT)] + [p for p in environ.get("PYTHONPATH", "")
                             .split(os.pathsep) if p])
-        if torch.device(device).type == "cpu":
+        if device == "cpu":
             environ.setdefault("OMP_NUM_THREADS", "2")
         port = free_port()
         self.world, self.procs, self.logs = world, [], []
@@ -135,7 +139,7 @@ def _rank_main(argv=None) -> None:
     ap.add_argument("--rank", type=int, required=True)
     ap.add_argument("--port", type=int, required=True)
     ap.add_argument("--space", type=int, default=1)
-    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--device", required=True)
     ap.add_argument("--backend", default=None)
     ap.add_argument("--dir", required=True)
     a = ap.parse_args(argv)

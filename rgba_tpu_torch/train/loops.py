@@ -183,14 +183,19 @@ class Trainer:
 
     def device_batch(self, batch: dict) -> dict:
         """The step's arrays as NCHW fp32 tensors on the device (views of
-        NHWC memory, which is channels_last)."""
+        NHWC memory, which is channels_last).  A host array is copied;
+        a tensor (for example a batch gathered on the device) is moved
+        only if it lies elsewhere."""
         out = {}
         for k in self.batch_keys:
             if k in batch:
-                t = torch.as_tensor(np.asarray(batch[k]), dtype=torch.float32)
-                if self.device.type == "cuda":
-                    t = t.pin_memory()
-                out[k] = t.to(self.device, non_blocking=True).permute(0, 3, 1, 2)
+                t = batch[k]
+                if not isinstance(t, torch.Tensor):
+                    t = torch.as_tensor(np.asarray(t), dtype=torch.float32)
+                    if self.device.type == "cuda":
+                        t = t.pin_memory()
+                out[k] = t.to(self.device, torch.float32,
+                              non_blocking=True).permute(0, 3, 1, 2)
         return out
 
     def noise_source(self):

@@ -47,7 +47,7 @@ torch.set_num_threads(2)
 def bands():
     env = dict(os.environ, PYTHONPATH=TESTS)
     return run_ranks("torch_port_spatial_util:model_bands", S, space=S,
-                     env=env, timeout=300)
+                     device="cpu", env=env, timeout=300)
 
 
 def _whole(parts):

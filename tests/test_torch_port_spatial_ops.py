@@ -41,7 +41,7 @@ TESTS = os.path.dirname(os.path.abspath(__file__))
 def results():
     env = dict(os.environ, PYTHONPATH=TESTS)
     return {world: run_ranks("torch_port_spatial_util:ops_checks", world,
-                             space=world, env=env, timeout=240)
+                             space=world, device="cpu", env=env, timeout=240)
             for world in (2, 4)}
 
 

@@ -40,7 +40,7 @@ def test_dryrun_zero_halo_fails_the_check():
 def test_region_ids_of_the_band(stale):
     env = dict(os.environ, PYTHONPATH=TESTS)
     got = run_ranks("torch_port_spatial_util:win_gate_band", 2, space=2,
-                    env=env, args=(stale,), timeout=120)
+                    device="cpu", env=env, args=(stale,), timeout=120)
     x, alpha = u.win_gate_inputs()
     with torch.no_grad():
         want = u.make_win_gate()(u._nchw(x), u._nchw(alpha))
