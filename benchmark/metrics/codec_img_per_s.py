@@ -1,0 +1,6 @@
+"""codec_img_per_s: images encoded and decoded in the window over the
+window's seconds."""
+
+
+def read(run):
+    return run.images() / run.window_s if run.calls else None

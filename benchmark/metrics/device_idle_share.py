@@ -1,0 +1,9 @@
+"""device_idle_share, for every cell (``.bulk``, ``.request``, ...): the
+share of the traced window in which no operation ran on the device (1 -
+the union of the device activities' intervals over the window), in %."""
+
+
+def read(run):
+    if run.trace is None or run.trace["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - run.trace["busy_s"] / run.trace["window_s"])
