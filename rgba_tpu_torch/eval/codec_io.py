@@ -56,6 +56,13 @@ Worker threads (``eval/pipeline.PipelinedCodec``) enqueue on the caller's
 CUDA stream (``caller_stream``), and the codec's lazily built caches fill
 under a lock.
 
+Under a profiler the host's waits run in spans (``utils/trace.py``):
+``<kind>.fetch`` where device tensors come to the host, ``<kind>.upload``
+where host arrays go to the device, ``<kind>.rans`` around each fan-out of
+the host rANS coder; each closes before its decode step yields.  The
+lazily built tables' copies, made once, open none; a sharded codec's shard
+threads record their spans as requests of their own.
+
 Batch-sharded serving (``sharding=batch_sharding(mesh)``, ``parallel/
 mesh.py``): each device of the mesh holds a replica of the model (the
 codec's own model on its own device, copies elsewhere; ``set_params``
@@ -94,6 +101,7 @@ from ..native import rans
 from ..ops.kernels import rans_decode as _rd
 from ..ops.kernels import rans_encode as _re
 from ..ops.mask_pyramid import mask_pyramid
+from ..utils.trace import span
 
 _MAX_CODING_THREADS = 8
 STREAM_FORMATS = ("v64", "lanes32")
@@ -188,6 +196,8 @@ class CodecIO:
             raise ValueError(f"kind must be 'rgb' or 'mask', got {kind!r}")
         self.model = model.eval()
         self.kind = kind
+        self._span_fetch, self._span_upload, self._span_rans = (
+            f"{kind}.{s}" for s in ("fetch", "upload", "rans"))
         self.rate_gate = bool(rate_gate) and kind == "rgb"
         self.device = next(model.parameters()).device
         self.num_slices = model.num_slices
@@ -279,7 +289,11 @@ class CodecIO:
     def _nchw(self, a):
         """NHWC host array or tensor -> fp32 NCHW (channels_last) on the
         codec's device."""
-        t = torch.as_tensor(a, device=self.device)
+        if torch.is_tensor(a) and a.device == self.device:
+            t = a
+        else:
+            with span(self._span_upload):
+                t = torch.as_tensor(a, device=self.device)
         if t.dtype == torch.uint8:
             t = t.float() / 255.0
         return t.float().permute(0, 3, 1, 2)
@@ -320,8 +334,13 @@ class CodecIO:
     def _compress_device(self, lead, mask=None, gate=None,
                          deadzone: float = 0.0):
         """``_compress_tensors`` fetched whole: int32 host arrays."""
-        return tuple(t.cpu().numpy().astype(np.int32) for t in
-                     self._compress_tensors(lead, mask, gate, deadzone))
+        return self._fetch_int32(
+            self._compress_tensors(lead, mask, gate, deadzone))
+
+    def _fetch_int32(self, tensors) -> tuple:
+        """Device tensors -> int32 host arrays, in one wait."""
+        with span(self._span_fetch):
+            return tuple(t.cpu().numpy().astype(np.int32) for t in tensors)
 
     def _compress_tensors(self, lead, mask=None, gate=None,
                           deadzone: float = 0.0):
@@ -407,7 +426,8 @@ class CodecIO:
                 # stream, the decoder never derives it again
                 with self._scope():
                     gate = mask_pyramid(m)[2] > 0
-                gate_host = _nhwc(gate).cpu().numpy()
+                with span(self._span_fetch):
+                    gate_host = _nhwc(gate).cpu().numpy()
             dev = self._compress_tensors(x, m, gate, dz)
         else:
             dev = self._compress_tensors(self._nchw(mask), deadzone=dz)
@@ -421,7 +441,7 @@ class CodecIO:
             lanes = self._lane_count(z_n + n_slices * s_n, lanes)
             if os.environ.get("RGBA_TPU_DEVICE_ENCODE", "0") == "1":
                 return self._lane_compress_device(dev, gate, gate_host, lanes)
-        y_syms, y_idxs, z_sym = (t.cpu().numpy().astype(np.int32) for t in dev)
+        y_syms, y_idxs, z_sym = self._fetch_int32(dev)
 
         def alive_of(b):
             return None if gate_host is None else np.broadcast_to(
@@ -465,7 +485,8 @@ class CodecIO:
                     out["gate"] = gate_host[b]
                 return out
 
-        return list(self._pool.map(one, range(batch)))
+        with span(self._span_rans):
+            return list(self._pool.map(one, range(batch)))
 
     def _lane_count(self, n_total: int, lanes: Optional[int]) -> int:
         """``lanes``, or the JAX package's pick: one lane per 512 symbols,
@@ -583,7 +604,8 @@ class CodecIO:
                 self._z_indexes(zh, zw, batch, lanes),
                 steps(z_sym, z_n), self._all_active(z_n, batch, lanes))
             words, nwords, overflow = device_rans.finish_lanes(state, wptr, out)
-            return words, nwords.cpu().numpy(), bool(overflow)
+            with span(self._span_fetch):
+                return words, nwords.cpu().numpy(), bool(overflow)
 
         with self._scope():
             act = self._all_active(s_n, batch, lanes)
@@ -605,7 +627,8 @@ class CodecIO:
                                      "overflow": overflow,
                                      "rerun_budget": rerun}
             used = min(int(words.shape[-1]), -(-int(nwords.max()) // 64) * 64)
-            words = words[:, :, :used].cpu().numpy()
+            with span(self._span_fetch):
+                words = words[:, :, :used].cpu().numpy()
 
         def one(b):
             # each lane's words in decode order, lane after lane
@@ -651,10 +674,11 @@ class CodecIO:
         st = self._lane_tables()
         b, s = len(compressed), self.max_support
         with self._scope():
-            words = device_rans.words_tensor(flat, self.device)
-            lane_end = torch.from_numpy(end).to(self.device)
-            state, ptr = device_rans.init_lanes(
-                words, torch.from_numpy(base).to(self.device))
+            with span(self._span_upload):
+                words = device_rans.words_tensor(flat, self.device)
+                lane_end = torch.from_numpy(end).to(self.device)
+                lane_base = torch.from_numpy(base).to(self.device)
+            state, ptr = device_rans.init_lanes(words, lane_base)
             c_z = self.eb_tables["quantized_cdfs"].shape[0]
             z_n = zh * zw * c_z
             syms, state, ptr = _rd.rans_decode(
@@ -667,9 +691,10 @@ class CodecIO:
             h, w = lm.shape[2], lm.shape[3]
             gate = None
             if gated[0]:
-                gate = torch.from_numpy(np.stack(
-                    [np.asarray(c["gate"], bool).reshape(h, w, 1)
-                     for c in compressed])).to(self.device)
+                gate = np.stack([np.asarray(c["gate"], bool).reshape(h, w, 1)
+                                 for c in compressed])
+                with span(self._span_upload):
+                    gate = torch.from_numpy(gate).to(self.device)
             y_hats: List = []
             for i in range(k):
                 sup = y_hats[:s]
@@ -723,7 +748,9 @@ class CodecIO:
     def _upload(self, syms: np.ndarray):
         """NHWC int symbols -> int16 NCHW (channels_last) on the device."""
         t = torch.from_numpy(np.ascontiguousarray(syms, np.int16))
-        return t.to(self.device).permute(0, 3, 1, 2)
+        with span(self._span_upload):
+            t = t.to(self.device)
+        return t.permute(0, 3, 1, 2)
 
     def decompress_chain(self, compressed: Sequence[dict], gate_host=None,
                          max_slices: Optional[int] = None,
@@ -755,10 +782,12 @@ class CodecIO:
                 compressed[b]["strings"][1], z_indexes, t["quantized_cdfs"],
                 t["cdf_lengths"], t["offsets"])
 
-        z_sym = np.concatenate(list(self._pool.map(decode_z, range(batch))))
-        # k = 0 reads no y bytes
-        decoders = [rans.RansDecoder(cc["strings"][0])
-                    for cc in compressed] if k else []
+        with span(self._span_rans):
+            z_sym = np.concatenate(list(self._pool.map(decode_z,
+                                                       range(batch))))
+            # k = 0 reads no y bytes
+            decoders = [rans.RansDecoder(cc["strings"][0])
+                        for cc in compressed] if k else []
         n, s = self.num_slices, self.max_support
         tail = k - s if tail_parallel and k > s else 0
         serial = k - tail
@@ -777,16 +806,18 @@ class CodecIO:
                     self._fill(lm, ls, y_hats, 0)
             yield
             for i in range(serial):
-                idx_np = _to_host(index)
+                with span(self._span_fetch):
+                    idx_np = _to_host(index)
                 if gate_host is not None and alives[0] is None:
                     lh, lw, sw = idx_np.shape[1:]
                     alives = [np.broadcast_to(
                         np.asarray(gate_host[b], bool).reshape(lh, lw, 1),
                         (lh, lw, sw)).ravel() for b in range(batch)]
-                syms = list(self._pool.map(
-                    lambda b: self._decode_slice(decoders[b], idx_np[b:b + 1],
-                                                 alives[b]),
-                    range(batch)))
+                with span(self._span_rans):
+                    syms = list(self._pool.map(
+                        lambda b: self._decode_slice(
+                            decoders[b], idx_np[b:b + 1], alives[b]),
+                        range(batch)))
                 with self._scope():
                     sym = self._upload(np.concatenate(syms))
                     y_hats.append(self._finish(lm, y_hats[:s], sym, mu, i))
@@ -804,14 +835,16 @@ class CodecIO:
             if tail:
                 # one fetch for the tail slices' indexes; each image's
                 # stream decodes its whole tail back to back on a thread
-                idxs_np = np.stack([_to_host(ix) for ix in idx_tail])
+                with span(self._span_fetch):
+                    idxs_np = np.stack([_to_host(ix) for ix in idx_tail])
 
                 def decode_tail(b):
                     return np.stack([self._decode_slice(
                         decoders[b], idxs_np[j, b:b + 1], alives[b])
                         for j in range(tail)])
 
-                syms = list(self._pool.map(decode_tail, range(batch)))
+                with span(self._span_rans):
+                    syms = list(self._pool.map(decode_tail, range(batch)))
                 tail_syms = np.concatenate(syms, axis=1)  # (tail, B, ...)
                 with self._scope():
                     sup = y_hats[:s]
@@ -857,7 +890,8 @@ class CodecIO:
             raise ValueError("rate-gated streams without a gate need mask=")
         with self._scope():
             gate = mask_pyramid(self._nchw(mask))[2] > 0
-        return gate.permute(0, 2, 3, 1).cpu().numpy()
+        with span(self._span_fetch):
+            return gate.permute(0, 2, 3, 1).cpu().numpy()
 
     def decode_image(self, y_hat, mask=None, device: bool = False):
         """Synthesis transform of a decoded latent (gated by the mask
@@ -875,7 +909,10 @@ class CodecIO:
             else:
                 x = self.model.decode_latent(y_hat)
             x = torch.clamp(x, 0.0, 1.0).permute(0, 2, 3, 1)
-            return x if device else x.cpu().numpy()
+            if device:
+                return x
+            with span(self._span_fetch):
+                return x.cpu().numpy()
 
     def decompress_chains(self, compressed: Sequence[dict], gate_host=None,
                           max_slices: Optional[int] = None,
@@ -944,8 +981,9 @@ class CodecIO:
         (host arrays: NHWC x_hat, NCHW y_hat)."""
         y_hat = self._decode_latent(compressed, mask, rate_gate, max_slices,
                                     tail_parallel, interleave)
-        return (self.decode_image(y_hat, mask=mask),
-                y_hat.float().cpu().numpy())
+        x_hat = self.decode_image(y_hat, mask=mask)
+        with span(self._span_fetch):
+            return x_hat, y_hat.float().cpu().numpy()
 
     def compress(self, image=None, mask=None) -> dict:
         """One image: RGB compress(image, mask), mask codec compress(mask=)."""

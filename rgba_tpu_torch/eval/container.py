@@ -30,6 +30,9 @@ where the card decodes the lane streams of both codecs itself.
 ``encode_batch(bucket=)`` codes on a larger /64 canvas (``eval/buckets.py``)
 and ``decode_batch(interleave=)`` cuts the RGB chain into sub-batch chains
 (``CodecIO.decompress_chains``); neither changes the format.
+Under a profiler each ``encode_batch`` / ``decode_batch`` call is a root
+span (``container.encode_batch`` / ``container.decode_batch``,
+``utils/trace.py``) over the codecs' fetch, upload and rANS spans.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ import numpy as np
 import torch
 
 from ..ops.morphology import constraint_rgb
+from ..utils.trace import span
 from .codec_io import drive_chains
 
 _MAGIC = b"RGBA"
@@ -188,7 +192,9 @@ class RGBAFileCodec:
         if rows:
             rm_s = torch.round(torch.clamp(rm_sub, 0, 1) * 255.0) / 255.0
             rm_s = constraint_rgb(rm_s.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
-            rm[torch.tensor(rows, device=self.device)] = rm_s
+            with span("container.upload"):
+                at = torch.tensor(rows, device=self.device)
+            rm[at] = rm_s
         return rm
 
     def encode_batch(self, images: np.ndarray, alphas: np.ndarray,
@@ -211,56 +217,57 @@ class RGBAFileCodec:
         it must be /64-aligned and cover the minimal canvas, else
         ValueError.  The header keeps the original (h, w), so a bucketed
         blob is the same container version and decodes to the same size."""
-        images, alphas = np.asarray(images), np.asarray(alphas)
-        b, h, w = images.shape[:3]
-        crop = None
-        if bbox:
-            vis_y = np.any(alphas > 0, axis=(0, 2, 3))
-            vis_x = np.any(alphas > 0, axis=(0, 1, 3))
-            if vis_y.any() and not (vis_y.all() and vis_x.all()):
-                y0, y1 = np.flatnonzero(vis_y)[[0, -1]]
-                x0, x1 = np.flatnonzero(vis_x)[[0, -1]]
-                if (y1 - y0 + 1, x1 - x0 + 1) != (h, w):
-                    crop = (h, w, int(y0), int(x0))
-                    images = images[:, y0:y1 + 1, x0:x1 + 1]
-                    alphas = alphas[:, y0:y1 + 1, x0:x1 + 1]
-                    h, w = images.shape[1:3]
-        one = 255 if alphas.dtype == np.uint8 else 1.0
-        # opacity is judged on the original alpha: an opaque image ships no
-        # mask stream, and the decoder rebuilds ones inside (h, w)
-        non_op = [i for i in range(b) if not np.all(alphas[i] == one)]
-        hp, wp = -(-h // 64) * 64, -(-w // 64) * 64
-        if bucket is not None:
-            bh, bw = int(bucket[0]), int(bucket[1])
-            if bh < hp or bw < wp or bh % 64 or bw % 64:
-                raise ValueError(f"bucket {tuple(bucket)} must be /64-aligned "
-                                 f"and cover the minimal padded canvas "
-                                 f"{(hp, wp)}")
-            hp, wp = bh, bw
-        if (hp, wp) != (h, w):
-            pad = ((0, 0), (0, hp - h), (0, wp - w), (0, 0))
-            images, alphas = np.pad(images, pad), np.pad(alphas, pad)
+        with span("container.encode_batch"):
+            images, alphas = np.asarray(images), np.asarray(alphas)
+            b, h, w = images.shape[:3]
+            crop = None
+            if bbox:
+                vis_y = np.any(alphas > 0, axis=(0, 2, 3))
+                vis_x = np.any(alphas > 0, axis=(0, 1, 3))
+                if vis_y.any() and not (vis_y.all() and vis_x.all()):
+                    y0, y1 = np.flatnonzero(vis_y)[[0, -1]]
+                    x0, x1 = np.flatnonzero(vis_x)[[0, -1]]
+                    if (y1 - y0 + 1, x1 - x0 + 1) != (h, w):
+                        crop = (h, w, int(y0), int(x0))
+                        images = images[:, y0:y1 + 1, x0:x1 + 1]
+                        alphas = alphas[:, y0:y1 + 1, x0:x1 + 1]
+                        h, w = images.shape[1:3]
+            one = 255 if alphas.dtype == np.uint8 else 1.0
+            # opacity is judged on the original alpha: an opaque image ships no
+            # mask stream, and the decoder rebuilds ones inside (h, w)
+            non_op = [i for i in range(b) if not np.all(alphas[i] == one)]
+            hp, wp = -(-h // 64) * 64, -(-w // 64) * 64
+            if bucket is not None:
+                bh, bw = int(bucket[0]), int(bucket[1])
+                if bh < hp or bw < wp or bh % 64 or bw % 64:
+                    raise ValueError(f"bucket {tuple(bucket)} must be "
+                                     f"/64-aligned and cover the minimal "
+                                     f"padded canvas {(hp, wp)}")
+                hp, wp = bh, bw
+            if (hp, wp) != (h, w):
+                pad = ((0, 0), (0, hp - h), (0, wp - w), (0, 0))
+                images, alphas = np.pad(images, pad), np.pad(alphas, pad)
 
-        lanes32 = stream_format == "lanes32"
-        with torch.inference_mode():
-            x_dev = self.rgb_io._nchw(images).permute(0, 2, 3, 1)
-            a_dev = self.rgb_io._nchw(alphas).permute(0, 2, 3, 1)
-            mask_comps: dict[int, dict] = {}
-            rm_sub = None
-            if non_op:
-                comps = self.mask_io.compress_batch(
-                    mask=a_dev[non_op], stream_format=stream_format)
-                rm_sub = (self.mask_io.decompress_device(comps) if lanes32
-                          else self.mask_io.decompress_batch(comps,
-                                                             device=True))
-                mask_comps = dict(zip(non_op, comps))
-            recon = self._recon_alpha(rm_sub, b, h, w, hp, wp, non_op)
-            masked = torch.where(recon > 0, x_dev, recon)
-        rgb_comps = self.rgb_io.compress_batch(
-            image=masked, mask=recon, rate_gate=rate_gate, deadzone=deadzone,
-            stream_format=stream_format)
-        return [pack_rgba(h, w, rgb_comps[i], mask_comps.get(i), crop)
-                for i in range(b)]
+            lanes32 = stream_format == "lanes32"
+            with torch.inference_mode():
+                x_dev = self.rgb_io._nchw(images).permute(0, 2, 3, 1)
+                a_dev = self.rgb_io._nchw(alphas).permute(0, 2, 3, 1)
+                mask_comps: dict[int, dict] = {}
+                rm_sub = None
+                if non_op:
+                    comps = self.mask_io.compress_batch(
+                        mask=a_dev[non_op], stream_format=stream_format)
+                    rm_sub = (self.mask_io.decompress_device(comps) if lanes32
+                              else self.mask_io.decompress_batch(comps,
+                                                                 device=True))
+                    mask_comps = dict(zip(non_op, comps))
+                recon = self._recon_alpha(rm_sub, b, h, w, hp, wp, non_op)
+                masked = torch.where(recon > 0, x_dev, recon)
+            rgb_comps = self.rgb_io.compress_batch(
+                image=masked, mask=recon, rate_gate=rate_gate,
+                deadzone=deadzone, stream_format=stream_format)
+            return [pack_rgba(h, w, rgb_comps[i], mask_comps.get(i), crop)
+                    for i in range(b)]
 
     def decode_batch(self, blobs: list[bytes], output: str = "float32",
                      max_slices: int | None = None,
@@ -281,59 +288,66 @@ class RGBAFileCodec:
         2 into G sub-batch chains driven with the mask chain
         (``CodecIO.decompress_chains``; None picks 2 for batches of 4, 6
         and 8); the result is the same."""
-        if output not in OUTPUTS:
-            raise ValueError(f"output must be one of {OUTPUTS}, got "
-                             f"{output!r}")
-        metas = [unpack_rgba(blob) for blob in blobs]
-        h, w = metas[0]["height"], metas[0]["width"]
-        crop = metas[0]["crop"]
-        if any((m["height"], m["width"], m["crop"]) != (h, w, crop)
-               for m in metas):
-            raise ValueError("decode_batch requires same-sized images with "
-                             "identical crop placements")
-        kind = (metas[0]["stream_format"], metas[0]["rate_gated"])
-        if any((m["stream_format"], m["rate_gated"]) != kind for m in metas):
-            raise ValueError("decode_batch requires blobs of one container "
-                             "version")
-        b = len(metas)
-        zh, zw = metas[0]["rgb"]["shape"]
-        hp, wp = zh * 64, zw * 64
+        with span("container.decode_batch"):
+            if output not in OUTPUTS:
+                raise ValueError(f"output must be one of {OUTPUTS}, got "
+                                 f"{output!r}")
+            metas = [unpack_rgba(blob) for blob in blobs]
+            h, w = metas[0]["height"], metas[0]["width"]
+            crop = metas[0]["crop"]
+            if any((m["height"], m["width"], m["crop"]) != (h, w, crop)
+                   for m in metas):
+                raise ValueError("decode_batch requires same-sized images "
+                                 "with identical crop placements")
+            kind = (metas[0]["stream_format"], metas[0]["rate_gated"])
+            if any((m["stream_format"], m["rate_gated"]) != kind
+                   for m in metas):
+                raise ValueError("decode_batch requires blobs of one "
+                                 "container version")
+            b = len(metas)
+            zh, zw = metas[0]["rgb"]["shape"]
+            hp, wp = zh * 64, zw * 64
 
-        with_mask = [i for i, m in enumerate(metas) if m["mask"] is not None]
-        rgbs = [m["rgb"] for m in metas]
-        masks = [metas[i]["mask"] for i in with_mask]
-        if kind[0] == "lanes32":
-            rm_sub = (self.mask_io.decompress_device(masks)
-                      if with_mask else None)
+            with_mask = [i for i, m in enumerate(metas)
+                         if m["mask"] is not None]
+            rgbs = [m["rgb"] for m in metas]
+            masks = [metas[i]["mask"] for i in with_mask]
+            if kind[0] == "lanes32":
+                rm_sub = (self.mask_io.decompress_device(masks)
+                          if with_mask else None)
+                with torch.inference_mode():
+                    recon = self._recon_alpha(rm_sub, b, h, w, hp, wp,
+                                              with_mask)
+                rgb = self.rgb_io.decompress_device(rgbs, mask=recon,
+                                                    max_slices=max_slices)
+            else:
+                gate = (np.stack([r["gate"] for r in rgbs]) if kind[1]
+                        else None)
+                chains = self.rgb_io.decompress_chains(
+                    rgbs, gate_host=gate, max_slices=max_slices,
+                    interleave=interleave)
+                n_rgb = len(chains)
+                if with_mask:
+                    chains.append(self.mask_io.decompress_chain(masks))
+                outs = drive_chains(chains)
+                rm_sub = (self.mask_io.decode_image(outs[n_rgb], device=True)
+                          if with_mask else None)
+                with torch.inference_mode():
+                    recon = self._recon_alpha(rm_sub, b, h, w, hp, wp,
+                                              with_mask)
+                    y_rgb = outs[0] if n_rgb == 1 else torch.cat(outs[:n_rgb])
+                rgb = self.rgb_io.decode_image(y_rgb, mask=recon, device=True)
             with torch.inference_mode():
-                recon = self._recon_alpha(rm_sub, b, h, w, hp, wp, with_mask)
-            rgb = self.rgb_io.decompress_device(rgbs, mask=recon,
-                                                max_slices=max_slices)
-        else:
-            gate = (np.stack([r["gate"] for r in rgbs]) if kind[1] else None)
-            chains = self.rgb_io.decompress_chains(
-                rgbs, gate_host=gate, max_slices=max_slices,
-                interleave=interleave)
-            n_rgb = len(chains)
-            if with_mask:
-                chains.append(self.mask_io.decompress_chain(masks))
-            outs = drive_chains(chains)
-            rm_sub = (self.mask_io.decode_image(outs[n_rgb], device=True)
-                      if with_mask else None)
-            with torch.inference_mode():
-                recon = self._recon_alpha(rm_sub, b, h, w, hp, wp, with_mask)
-                y_rgb = outs[0] if n_rgb == 1 else torch.cat(outs[:n_rgb])
-            rgb = self.rgb_io.decode_image(y_rgb, mask=recon, device=True)
-        with torch.inference_mode():
-            rgba = torch.cat([rgb[:, :h, :w], recon[:, :h, :w]], dim=-1)
-            if output == "uint8":
-                rgba = torch.round(rgba * 255.0).to(torch.uint8)
-            elif output == "uint8_trunc":
-                rgba = (rgba.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
-            out = rgba.cpu().numpy()
-        if crop is not None:
-            ch, cw, y0, x0 = crop
-            canvas = np.zeros((b, ch, cw, 4), out.dtype)
-            canvas[:, y0:y0 + h, x0:x0 + w] = out
-            return canvas
-        return out
+                rgba = torch.cat([rgb[:, :h, :w], recon[:, :h, :w]], dim=-1)
+                if output == "uint8":
+                    rgba = torch.round(rgba * 255.0).to(torch.uint8)
+                elif output == "uint8_trunc":
+                    rgba = (rgba.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
+                with span("container.fetch"):
+                    out = rgba.cpu().numpy()
+            if crop is not None:
+                ch, cw, y0, x0 = crop
+                canvas = np.zeros((b, ch, cw, 4), out.dtype)
+                canvas[:, y0:y0 + h, x0:x0 + w] = out
+                return canvas
+            return out

@@ -32,9 +32,10 @@ stride^2 output phases instead: output rows s*m + r take the taps q = r + p
 ceil(k / s) taps a side (3x3 for k=5, s=2) whose accumulators are the
 dilated convolution's, without multiplying the inserted zeros.
 
-Under ``torch.profiler`` the stages run in spans named ``int8.quantize``,
-``int8.im2col``, ``int8.int_mm`` and ``int8.dequantize``, whose device time
-``chip_smoke.py`` reads; without the profiler they are not opened.
+Under ``torch.profiler`` the stages run in spans (``utils/trace.span``)
+named ``int8.quantize``, ``int8.im2col``, ``int8.int_mm`` and
+``int8.dequantize``, whose device time ``chip_smoke.py`` reads; without
+the profiler they are not opened.
 
 Serving only: ``round`` has no gradient, and the per-tensor activation
 scale couples every image to its batchmates, so the int8 branch never runs
@@ -44,21 +45,13 @@ fp32, never takes it.
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
-import torch.autograd.profiler as _profiler
+
+from ..utils.trace import span
 
 _EPS = 1e-12
 QMAX = 127
 IM2COL_BYTES = 1 << 30      # the largest im2col chunk, in bytes
-
-
-def _span(name: str):
-    """A profiler range around one stage, only while a profiler runs."""
-    if _profiler._is_profiler_enabled:
-        return torch.profiler.record_function(name)
-    return contextlib.nullcontext()
 
 
 def quantize_activation(x):
@@ -117,7 +110,7 @@ def _conv_phase(xq, wk, stride: int, pads, emit):
     per = max(1, IM2COL_BYTES // max(1, ho * wo * kp))
     for b0 in range(0, b, per):
         b1 = min(b, b0 + per)
-        with _span("int8.im2col"):
+        with span("int8.im2col"):
             xp = _pad_crop(xq[b0:b1], *pads, cp)
             if kh == kw == stride == 1:
                 src = xp
@@ -131,7 +124,7 @@ def _conv_phase(xq, wk, stride: int, pads, emit):
             else:
                 a = xp.new_zeros((max(rows, 17), kp))
                 a[:rows, :k].view(src.shape).copy_(src)
-        with _span("int8.int_mm"):
+        with span("int8.int_mm"):
             acc = torch._int_mm(a, wmat)[:rows, :o]
         emit(b0, b1, acc.reshape(b1 - b0, ho, wo, o))
 
@@ -214,7 +207,7 @@ def int8_conv(x, weight, stride: int = 1, padding: int = 0,
     torch layout, no bias: (B, O, Ho, Wo) in ``out_dtype`` (x's by
     default), a view of NHWC memory (channels_last)."""
     out_dtype = out_dtype or x.dtype
-    with _span("int8.quantize"):
+    with span("int8.quantize"):
         xq, sx = quantize_activation(x)
         wq, sw = quantize_weight(weight, transposed)
         scale = sx * sw
@@ -226,7 +219,7 @@ def int8_conv(x, weight, stride: int = 1, padding: int = 0,
               dtype=out_dtype, device=x.device)
 
     def emit(b0, b1, rows, cols, acc):
-        with _span("int8.dequantize"):
+        with span("int8.dequantize"):
             out[b0:b1, rows, cols] = (acc.float() * scale).to(out_dtype)
     _accumulate(xq, wq, stride, padding, transposed, out.shape, emit)
     return out.permute(0, 3, 1, 2)
