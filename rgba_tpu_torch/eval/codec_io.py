@@ -75,6 +75,29 @@ so the streams are bit-identical to unsharded ones.  As in the JAX
 package, the decode chain is not interleaved under sharding and the lane
 (v3) decode refuses it.  A batch the mesh does not divide raises.
 
+CUDA graphs (``eval/step_graphs.py``).  On a CUDA device each device
+step runs through ``StepGraphs``: the encode pass (``_compress_tensors``),
+a decode chain's first step (the hyper decode and slice 0's stats, or the
+mean-fill when k = 0), each serial slice step (slice i's finish, then the
+next stats, the tail's stats or the mean-fill), the tail step and
+``decode_image``.  A step's key is its name and parameters (slice i, k,
+tail, deadzone) with the shape, dtype and strides of its inputs (batch,
+latent or image size, a gate or none).  A key's first call runs eagerly
+and warms what the step builds lazily; its second captures a CUDA graph
+and replays it; later calls copy the host arrays into the graph's static
+inputs inside the ``<kind>.upload`` span and replay the graph, one launch
+in a ``<kind>.replay`` span in place of the step's hundreds.  A replay
+hands back copies of its outputs, and its copies and launch run one
+replay at a time on the device, so interleaved chains of one key,
+``PipelinedCodec``'s workers and every other caller own each output they
+get.  The blobs and
+images are the eager path's, byte for byte.  Off the card, and on a
+sharded codec's replicas (their shard threads run at once), every step
+runs eagerly; the lane decode's and lane encode's own steps
+(``decompress_device_latent``, ``_lane_compress_device``) run eagerly
+too.  ``set_params`` drops the graphs; ``graphs.captures``, ``.replays``
+and ``.fallbacks`` count them.
+
 Not ported: the JAX package's split fetch of the encode (its second half
 fetched under the first half's host coding: on the H100 the whole fetch is
 too short for it to pay, ``PERF.md``).
@@ -84,6 +107,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import hashlib
 import os
 import threading
@@ -102,6 +126,7 @@ from ..ops.kernels import rans_decode as _rd
 from ..ops.kernels import rans_encode as _re
 from ..ops.mask_pyramid import mask_pyramid
 from ..utils.trace import span
+from .step_graphs import StepGraphs
 
 _MAX_CODING_THREADS = 8
 STREAM_FORMATS = ("v64", "lanes32")
@@ -210,6 +235,8 @@ class CodecIO:
         self._cache_lock = threading.RLock()   # the lazily built caches
         self.last_lane_encode = None    # the device lane encode's last budget
         self._build_tables()
+        self.graphs = StepGraphs(self.device, self._span_upload,
+                                 f"{kind}.replay")
         self._pool = ThreadPoolExecutor(max_workers=_MAX_CODING_THREADS)
         self.sharding = sharding
         self._replicas = None
@@ -221,10 +248,13 @@ class CodecIO:
                 CodecIO(self.model if i == 0 and d == self.device
                         else copy.deepcopy(self.model).to(d), kind, rate_gate)
                 for i, d in enumerate(sharding.mesh.devices)]
+            for r in self._replicas:
+                r.graphs.backend = None
             self._shard_pool = ThreadPoolExecutor(
                 max_workers=sharding.mesh.size)
 
     def close(self):
+        self.graphs.clear()
         self._pool.shutdown()
         if self._replicas is not None:
             self._shard_pool.shutdown()
@@ -267,10 +297,13 @@ class CodecIO:
         ``weights.state_dict_from_jax`` of a JAX tree), and rebuild the
         tables made from them.  With no argument, only rebuild them, after
         the model's weights changed in place (``load_state_dict``, a
-        training step): until then the codec codes with the old tables."""
+        training step): until then the codec codes with the old tables and
+        replays the graphs captured with the old weights' layouts.  Drops
+        the graphs: their next calls run eagerly, then capture again."""
         if state_dict is not None:
             self.model.load_state_dict(state_dict, strict=True)
         self._build_tables()
+        self.graphs.clear()
         for r in self._replicas or ():
             if r.model is not self.model:
                 r.model.load_state_dict(self.model.state_dict(), strict=True)
@@ -348,41 +381,49 @@ class CodecIO:
         of every slice, stacked (S, B, H, W, sw), and the z symbols (B, zh,
         zw, 192) int16, as tensors on the card in the streams' NHWC order.
         gate: (B, 1, H, W) bool, cells where it is False carry symbol 0;
-        deadzone > 0: sym = sign(r) max(floor(|r| + 0.5 - deadzone), 0)."""
+        deadzone > 0: sym = sign(r) max(floor(|r| + 0.5 - deadzone), 0).
+        One step of ``graphs``."""
+        dz = float(deadzone)
         with self._scope():
-            if self.kind == "rgb":
-                me = mask_pyramid(mask)
-                y = self.model.encode_latent(lead, me[1], me[2])
+            return self.graphs.run(
+                ("encode", dz), functools.partial(self._encode_pass,
+                                                  deadzone=dz),
+                (lead, mask, gate))
+
+    def _encode_pass(self, lead, mask, gate, deadzone: float):
+        if self.kind == "rgb":
+            me = mask_pyramid(mask)
+            y = self.model.encode_latent(lead, me[1], me[2])
+        else:
+            y = self.model.encode_latent(lead)
+        y = _cl(y.float())
+        m = y.shape[1]
+        z = self.model.hyper_encode(y).float()
+        z_sym = torch.round(z - self._medians)
+        lm, ls = self._hyper(z_sym + self._medians)
+        sw = m // self.num_slices
+        y_hats, syms, idxs = [], [], []
+        for i in range(self.num_slices):
+            support = y_hats[:self.max_support]
+            mu, index = self._stats(lm, ls, support, i)
+            r = y[:, i * sw:(i + 1) * sw] - mu
+            if deadzone > 0.0:
+                # the stream and y_hat carry the same symbols, so the
+                # decoder's support stays in step
+                sym = torch.sign(r) * torch.clamp_min(
+                    torch.floor(torch.abs(r) + 0.5 - deadzone), 0.0)
             else:
-                y = self.model.encode_latent(lead)
-            y = _cl(y.float())
-            m = y.shape[1]
-            z = self.model.hyper_encode(y).float()
-            z_sym = torch.round(z - self._medians)
-            lm, ls = self._hyper(z_sym + self._medians)
-            sw = m // self.num_slices
-            y_hats, syms, idxs = [], [], []
-            for i in range(self.num_slices):
-                support = y_hats[:self.max_support]
-                mu, index = self._stats(lm, ls, support, i)
-                r = y[:, i * sw:(i + 1) * sw] - mu
-                if deadzone > 0.0:
-                    # the stream and y_hat carry the same symbols, so the
-                    # decoder's support stays in step
-                    sym = torch.sign(r) * torch.clamp_min(
-                        torch.floor(torch.abs(r) + 0.5 - deadzone), 0.0)
-                else:
-                    sym = torch.round(r)
-                if gate is not None:
-                    sym = sym * gate.float()
-                y_hats.append(self._finish(lm, support, sym, mu, i))
-                # int16 / uint8 halve the fetch: symbols stay far inside
-                # int16, and the table has 64 rows
-                syms.append(sym.to(torch.int16))
-                idxs.append(index.to(torch.uint8))
-            return (torch.stack([_nhwc(s) for s in syms]),
-                    torch.stack([_nhwc(t) for t in idxs]),
-                    _nhwc(z_sym.to(torch.int16)).contiguous())
+                sym = torch.round(r)
+            if gate is not None:
+                sym = sym * gate.float()
+            y_hats.append(self._finish(lm, support, sym, mu, i))
+            # int16 / uint8 halve the fetch: symbols stay far inside
+            # int16, and the table has 64 rows
+            syms.append(sym.to(torch.int16))
+            idxs.append(index.to(torch.uint8))
+        return (torch.stack([_nhwc(s) for s in syms]),
+                torch.stack([_nhwc(t) for t in idxs]),
+                _nhwc(z_sym.to(torch.int16)).contiguous())
 
     def compress_batch(self, image=None, mask=None, rate_gate=None,
                        deadzone: float = 0.0, stream_format: str = "v64",
@@ -745,12 +786,50 @@ class CodecIO:
             self.gc.offsets)
         return out.reshape(idx.shape)
 
-    def _upload(self, syms: np.ndarray):
-        """NHWC int symbols -> int16 NCHW (channels_last) on the device."""
-        t = torch.from_numpy(np.ascontiguousarray(syms, np.int16))
-        with span(self._span_upload):
-            t = t.to(self.device)
-        return t.permute(0, 3, 1, 2)
+    # The decode chain's device steps, each one step of ``graphs``; the
+    # symbols come as NHWC int16 device tensors.
+
+    def _first_step(self, z_sym, k: int):
+        """The hyper decode; then slice 0's (mu, uint8 index), or with k = 0
+        every slice mean-filled."""
+        lm, ls = self._hyper(z_sym.permute(0, 3, 1, 2).float()
+                             + self._medians)
+        if k:
+            mu, index = self._stats(lm, ls, [], 0)
+            return lm, ls, mu, index.to(torch.uint8)
+        y_hats: List = []
+        self._fill(lm, ls, y_hats, 0)
+        return tuple(y_hats)
+
+    def _slice_step(self, sym, lm, ls, mu, *support, i: int, serial: int,
+                    tail: int, k: int):
+        """Slice i's y from its symbols (support: the decoded slices up to
+        ``max_support``); then slice i + 1's (mu, uint8 index), or the
+        tail's mus and stacked uint8 indexes, or the mean-filled slices
+        k..n-1."""
+        s = self.max_support
+        y = self._finish(lm, list(support), sym.permute(0, 3, 1, 2), mu, i)
+        y_hats = [*support, y]
+        if i + 1 < serial:
+            mu, index = self._stats(lm, ls, y_hats[:s], i + 1)
+            return y, mu, index.to(torch.uint8)
+        if tail:
+            stats = [self._stats(lm, ls, y_hats[:s], j)
+                     for j in range(s, self.num_slices)]
+            return (y, *[m for m, _ in stats],
+                    torch.stack([ix.to(torch.uint8) for _, ix in stats[:tail]]))
+        self._fill(lm, ls, y_hats, k)
+        return (y, *y_hats[len(support) + 1:])
+
+    def _tail_step(self, syms, lm, *rest, tail: int):
+        """The tail slices' y: rest is the first ``max_support`` slices,
+        then each tail slice's mu; syms (tail, B, H, W, sw) the first
+        ``tail`` slices' symbols, the others symbol 0."""
+        s = self.max_support
+        support = list(rest[:s])
+        return tuple(self._finish(
+            lm, support, syms[j].permute(0, 3, 1, 2) if j < tail else None,
+            mu, s + j) for j, mu in enumerate(rest[s:]))
 
     def decompress_chain(self, compressed: Sequence[dict], gate_host=None,
                          max_slices: Optional[int] = None,
@@ -788,7 +867,7 @@ class CodecIO:
             # k = 0 reads no y bytes
             decoders = [rans.RansDecoder(cc["strings"][0])
                         for cc in compressed] if k else []
-        n, s = self.num_slices, self.max_support
+        s = self.max_support
         tail = k - s if tail_parallel and k > s else 0
         serial = k - tail
         alives: List = [None] * batch
@@ -797,13 +876,14 @@ class CodecIO:
         # closed by drive_chains after a sibling chain raised
         try:
             with self._scope():
-                z_hat = self._upload(z_sym).float() + self._medians
-                lm, ls = self._hyper(z_hat)
-                if k:
-                    mu, index = self._stats(lm, ls, [], 0)
-                    index = index.to(torch.uint8)
-                else:
-                    self._fill(lm, ls, y_hats, 0)
+                out = self.graphs.run(
+                    ("first", k, tail),
+                    functools.partial(self._first_step, k=k),
+                    (np.ascontiguousarray(z_sym, np.int16),))
+            if k:
+                lm, ls, mu, index = out
+            else:
+                y_hats.extend(out)
             yield
             for i in range(serial):
                 with span(self._span_fetch):
@@ -819,18 +899,19 @@ class CodecIO:
                             decoders[b], idx_np[b:b + 1], alives[b]),
                         range(batch)))
                 with self._scope():
-                    sym = self._upload(np.concatenate(syms))
-                    y_hats.append(self._finish(lm, y_hats[:s], sym, mu, i))
-                    if i + 1 < serial:
-                        mu, index = self._stats(lm, ls, y_hats[:s], i + 1)
-                        index = index.to(torch.uint8)
-                    elif tail:
-                        tail_stats = [self._stats(lm, ls, y_hats[:s], j)
-                                      for j in range(s, n)]
-                        idx_tail = torch.stack([ix.to(torch.uint8)
-                                                for _, ix in tail_stats[:tail]])
-                    else:
-                        self._fill(lm, ls, y_hats, k)
+                    out = self.graphs.run(
+                        ("slice", k, tail, i),
+                        functools.partial(self._slice_step, i=i,
+                                          serial=serial, tail=tail, k=k),
+                        (np.ascontiguousarray(np.concatenate(syms), np.int16),
+                         lm, ls, mu, *y_hats[:s]))
+                y_hats.append(out[0])
+                if i + 1 < serial:
+                    mu, index = out[1:]
+                elif tail:
+                    tail_mus, idx_tail = out[1:-1], out[-1]
+                else:
+                    y_hats.extend(out[1:])
                 yield
             if tail:
                 # one fetch for the tail slices' indexes; each image's
@@ -847,10 +928,11 @@ class CodecIO:
                     syms = list(self._pool.map(decode_tail, range(batch)))
                 tail_syms = np.concatenate(syms, axis=1)  # (tail, B, ...)
                 with self._scope():
-                    sup = y_hats[:s]
-                    for j, (mu_j, _) in enumerate(tail_stats):
-                        sym = self._upload(tail_syms[j]) if j < tail else None
-                        y_hats.append(self._finish(lm, sup, sym, mu_j, s + j))
+                    y_hats.extend(self.graphs.run(
+                        ("tail", k, tail),
+                        functools.partial(self._tail_step, tail=tail),
+                        (np.ascontiguousarray(tail_syms, np.int16), lm,
+                         *y_hats[:s], *tail_mus)))
                 yield
             with self._scope():
                 return torch.cat(y_hats, dim=1)
@@ -903,16 +985,21 @@ class CodecIO:
                                None if mask is None else mask[sl], device))),
                 device)
         with self._scope():
-            if self.kind == "rgb":
-                md = mask_pyramid(self._nchw(mask))
-                x = self.model.decode_latent(y_hat, md[1], md[2])
-            else:
-                x = self.model.decode_latent(y_hat)
-            x = torch.clamp(x, 0.0, 1.0).permute(0, 2, 3, 1)
+            m = self._nchw(mask) if self.kind == "rgb" else None
+            x, = self.graphs.run(("image",), self._image, (y_hat, m))
             if device:
                 return x
             with span(self._span_fetch):
                 return x.cpu().numpy()
+
+    def _image(self, y_hat, mask):
+        """``decode_image``'s device step: NHWC, clipped to [0, 1]."""
+        if self.kind == "rgb":
+            md = mask_pyramid(mask)
+            x = self.model.decode_latent(y_hat, md[1], md[2])
+        else:
+            x = self.model.decode_latent(y_hat)
+        return (torch.clamp(x, 0.0, 1.0).permute(0, 2, 3, 1),)
 
     def decompress_chains(self, compressed: Sequence[dict], gate_host=None,
                           max_slices: Optional[int] = None,

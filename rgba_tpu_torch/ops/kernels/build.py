@@ -5,11 +5,14 @@ Each source is compiled on its own, at first use, into
 covers the source, the shared header and the flags, so an edited source
 builds anew.  Nothing is compiled or loaded when a module is imported.
 ``build_all`` starts one nvcc per missing library at once and waits for
-all of them.
+all of them.  ``CudaKernel.launches`` counts the launches that ran; those
+made while a CUDA graph is captured run when it replays (``recording``,
+``count``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import itertools
@@ -34,6 +37,26 @@ def _nvcc() -> str:
 
 
 _BUILD_SEQ = itertools.count()
+_RECORDING = threading.local()
+
+
+@contextlib.contextmanager
+def recording():
+    """This thread's launches inside the block are recorded, not counted:
+    a CUDA graph captured there runs them each time it replays.  Yields
+    {kernel: launches}, which ``count`` adds at each replay."""
+    _RECORDING.launches = launches = {}
+    try:
+        yield launches
+    finally:
+        _RECORDING.launches = None
+
+
+def count(launches: dict) -> None:
+    """Add {kernel: launches} (a replayed graph's) to the kernels' counts."""
+    for kernel, n in launches.items():
+        with kernel._lock:
+            kernel.launches += n
 
 
 class CudaKernel:
@@ -99,6 +122,10 @@ class CudaKernel:
             msg = self._lib.rgba_cuda_error_string(rc).decode()
             raise RuntimeError(f"{self.symbol} launch failed: CUDA error "
                                f"{rc} ({msg})")
+        recorded = getattr(_RECORDING, "launches", None)
+        if recorded is not None:
+            recorded[self] = recorded.get(self, 0) + 1
+            return
         with self._lock:
             self.launches += 1
 
