@@ -66,6 +66,21 @@
 // - Persistent grid, one block per SM; rows past M are never stored.  Sums
 //   in a fixed order (k ascending, the three terms in the order above), no
 //   atomics: a row gives the same bits for any M.
+//
+// C in (192, 256] (the mixed Transformer-CNN codec's GDN, C=256): both
+// kernels are templates over the width NT of one product and the PASSES
+// that cover the channels (NT x PASSES = 192 x 1 for C <= 192, which is
+// the design above unchanged, and 128 x 2 past it).  Each tile's outputs
+// are made in two passes of m64n128 wgmma, output channels 0-127 then
+// 128-255, over all k; the x^2 fragments stay in registers across both.
+// - fp32: gamma_t's B operand is laid out [pass][chunk of 16 k][hi | lo of
+//   128 rows] (gdn.kernel_weights), so a ring stage holds 16,384 bytes and
+//   the four-stage ring streams the passes' chunks in turn; x (128 floats
+//   of it a thread) and one pass's 64 accumulators stay in registers.
+//   Shared memory: ring 65,536 + the 128-row x tile 135,168 bytes.
+// - bf16: gamma_t staged whole (256 x 256 bf16, 131,072 bytes) leaves room
+//   for one warpgroup's ring of two 64-row tiles (67,584 bytes): a block of
+//   128 threads per SM, one tile landing while the other computes.
 #include <algorithm>
 
 #include "common.cuh"
@@ -75,12 +90,8 @@ namespace {
 constexpr int kThreads = 256;
 
 // ---------------------------------------------------------------- bf16 path
-constexpr int kGroups = 2;              // warpgroups: independent tile streams
-constexpr int kStages = 3;              // tiles per group's ring: 2 in flight
-constexpr int kGroupThreads = kThreads / kGroups;
+constexpr int kGroupThreads = 128;      // a warpgroup: one stream of tiles
 constexpr int kTileRows = 16 * kGroupThreads / 32;  // 16 rows per warp: 64
-constexpr int kN = 192;                 // wgmma width; C < 192 pads gamma_t
-constexpr int kKS = 192 / 16;           // k steps: C <= 192
 
 using bf16 = __nv_bfloat16;
 
@@ -103,12 +114,17 @@ __device__ __forceinline__ void group_sync(int group) {
   asm volatile("bar.sync %0, %1;" :: "r"(1 + group), "n"(kGroupThreads));
 }
 
-// d (64 x 192 fp32 over the warpgroup) += a (64 x 16 bf16, this warp's 16
-// rows as the A fragment of mma m16n8k16) x B (16 x 192 from shared memory,
+// d (64 x N fp32 over the warpgroup) += a (64 x 16 bf16, this warp's 16
+// rows as the A fragment of mma m16n8k16) x B (16 x N from shared memory,
 // K-major): wgmma.  d's registers run over n-tiles of 8 as mma's do.
-__device__ __forceinline__ void wgmma_192(float (&d)[kN / 2],
-                                          const uint32_t (&a)[4],
-                                          uint64_t desc) {
+template <int N>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc);
+template <>
+__device__ __forceinline__ void wgmma_bf16<192>(float (&d)[96],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
@@ -137,11 +153,43 @@ __device__ __forceinline__ void wgmma_192(float (&d)[kN / 2],
         "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
+template <>
+__device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
 
-__global__ void __launch_bounds__(kThreads, 1)
+// NT x PASSES: the channels held (C <= NT PASSES), each pass NT output
+// channels wide; GROUPS warpgroups per block, each with a ring of STAGES
+// 64-row tiles.
+template <int NT, int PASSES, int GROUPS, int STAGES>
+__global__ void __launch_bounds__(GROUPS * kGroupThreads, 1)
 gdn_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma_t,
                const float* __restrict__ beta, bf16* __restrict__ y,
                long long m, int c, int inverse) {
+  constexpr int kN = NT * PASSES;        // rows of the staged B; c < kN pads
+  constexpr int kKS = kN / 16;           // k steps: C <= kN
+  constexpr int kBlock = GROUPS * kGroupThreads;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int ld = c + 8;                  // x rows 4 banks apart: no conflicts
   const int sbo = c / 8 * 128;           // bytes between 8-row blocks of gs
@@ -149,11 +197,11 @@ gdn_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma_t,
   float* bs = reinterpret_cast<float*>(gs + kN * c);     // c
   const int group = threadIdx.x / kGroupThreads;
   const int gt = threadIdx.x % kGroupThreads;
-  bf16* xs = reinterpret_cast<bf16*>(bs + c) +    // kStages x kTileRows x ld
-             group * kStages * kTileRows * ld;            // per group
+  bf16* xs = reinterpret_cast<bf16*>(bs + c) +    // STAGES x kTileRows x ld
+             group * STAGES * kTileRows * ld;             // per group
   const int chunks = c / 8;              // 16-byte pieces of a row
   const long long tiles = (m + kTileRows - 1) / kTileRows;
-  const long long streams = static_cast<long long>(kGroups) * gridDim.x;
+  const long long streams = static_cast<long long>(GROUPS) * gridDim.x;
 
   // every call commits one cp.async group, empty past the last tile, so
   // a fixed wait count finds the oldest tile landed
@@ -167,25 +215,24 @@ gdn_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma_t,
     rgba::cp_async_commit();
   };
 
-  long long t = static_cast<long long>(kGroups) * blockIdx.x + group;
-  for (int st = 0; st < kStages - 1; ++st)
+  long long t = static_cast<long long>(GROUPS) * blockIdx.x + group;
+  for (int st = 0; st < STAGES - 1; ++st)
     load(t + st * streams, xs + st * kTileRows * ld);
   // gamma_t (k, n) to the B operand's core-matrix layout, rows n >= c zero
-  for (int i = threadIdx.x; i < c * kN; i += kThreads) {
+  for (int i = threadIdx.x; i < c * kN; i += kBlock) {
     const int k = i / kN, n = i - k * kN;
     gs[rgba::core_off(n, k, c / 8)] =
         n < c ? gamma_t[k * c + n] : __float2bfloat16(0.f);
   }
-  for (int i = threadIdx.x; i < c; i += kThreads) bs[i] = beta[i];
+  for (int i = threadIdx.x; i < c; i += kBlock) bs[i] = beta[i];
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();  // gamma_t and beta staged; from here each group alone
 
   const int warp = gt / 32, lane = threadIdx.x % 32;
   const int gq = lane / 4, t2 = 2 * (lane % 4);
   const int nk = c / 16, nt = c / 8;
-  const uint64_t desc0 = rgba::kmajor_desc(gs, sbo);
-  for (int buf = 0; t < tiles; t += streams, buf = (buf + 1) % kStages) {
-    rgba::cp_async_wait<kStages - 2>();
+  for (int buf = 0; t < tiles; t += streams, buf = (buf + 1) % STAGES) {
+    rgba::cp_async_wait<STAGES - 2>();
     group_sync(group);  // this tile landed for every thread of the group
 
     bf16* xt = xs + buf * kTileRows * ld;
@@ -201,29 +248,35 @@ gdn_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma_t,
         for (int e = 0; e < 4; ++e) a[ks][e] = square2(a[ks][e]);
       }
     }
-    float d[kN / 2];
 #pragma unroll
-    for (int i = 0; i < kN / 2; ++i) d[i] = 0.f;
-    rgba::fence_operands(d);
-    rgba::wgmma_fence();
+    for (int pass = 0; pass < PASSES; ++pass) {
+      // output channels NT pass .. NT pass + NT - 1 (rows of gs)
+      const uint64_t desc0 = rgba::kmajor_desc(gs + NT * pass * c, sbo);
+      float d[NT / 2];
 #pragma unroll
-    for (int ks = 0; ks < kKS; ++ks)
-      if (ks < nk) wgmma_192(d, a[ks], desc0 + 16 * ks);
-    rgba::wgmma_commit_wait();
-    rgba::fence_operands(d);
+      for (int i = 0; i < NT / 2; ++i) d[i] = 0.f;
+      rgba::fence_operands(d);
+      rgba::wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < kN / 8; ++j) {
-      if (j >= nt) continue;
-      const int col = 8 * j + t2;
+      for (int ks = 0; ks < kKS; ++ks)
+        if (ks < nk) wgmma_bf16<NT>(d, a[ks], desc0 + 16 * ks);
+      rgba::wgmma_commit_wait();
+      rgba::fence_operands(d);
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>((r ? hi : lo) + col);
-        const float2 xv = __bfloat1622float2(*p);
-        const float n0 = d[4 * j + 2 * r] + bs[col];
-        const float n1 = d[4 * j + 2 * r + 1] + bs[col + 1];
-        const float s0 = inverse ? sqrt_approx(n0) : rsqrtf(n0);
-        const float s1 = inverse ? sqrt_approx(n1) : rsqrtf(n1);
-        *p = __floats2bfloat162_rn(xv.x * s0, xv.y * s1);
+      for (int jj = 0; jj < NT / 8; ++jj) {
+        const int j = NT / 8 * pass + jj;
+        if (j >= nt) continue;
+        const int col = 8 * j + t2;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>((r ? hi : lo) + col);
+          const float2 xv = __bfloat1622float2(*p);
+          const float n0 = d[4 * jj + 2 * r] + bs[col];
+          const float n1 = d[4 * jj + 2 * r + 1] + bs[col + 1];
+          const float s0 = inverse ? sqrt_approx(n0) : rsqrtf(n0);
+          const float s1 = inverse ? sqrt_approx(n1) : rsqrtf(n1);
+          *p = __floats2bfloat162_rn(xv.x * s0, xv.y * s1);
+        }
       }
     }
     // y rows to device memory by the bulk-copy engine, one row per lane
@@ -236,44 +289,61 @@ gdn_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma_t,
     // refill the buffer of the tile before this one, once its rows are read
     rgba::bulk_wait_read<1>();
     group_sync(group);
-    load(t + (kStages - 1) * streams,
-         xs + (buf + kStages - 1) % kStages * kTileRows * ld);
+    load(t + (STAGES - 1) * streams,
+         xs + (buf + STAGES - 1) % STAGES * kTileRows * ld);
   }
   rgba::bulk_wait_read<0>();  // shared memory must outlive the last copies
 }
 
-int launch_mma(const void* x, const void* gamma_t, const void* beta, void* y,
-               long long m, int c, int inverse, cudaStream_t stream) {
+template <int NT, int PASSES, int GROUPS, int STAGES>
+int launch_mma_as(const void* x, const void* gamma_t, const void* beta,
+                  void* y, long long m, int c, int inverse,
+                  cudaStream_t stream) {
+  const auto kernel = gdn_mma_kernel<NT, PASSES, GROUPS, STAGES>;
+  const int threads = GROUPS * kGroupThreads;
   const size_t smem =
-      sizeof(bf16) * (kN * c + kStages * kGroups * kTileRows * (c + 8)) +
+      sizeof(bf16) * (NT * PASSES * c + STAGES * GROUPS * kTileRows * (c + 8)) +
       sizeof(float) * c;
-  cudaFuncSetAttribute(gdn_mma_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(smem));
   const long long tiles = (m + kTileRows - 1) / kTileRows;
   const long long grid = std::min<long long>(
-      (tiles + kGroups - 1) / kGroups,
-      rgba::persistent_grid(gdn_mma_kernel, kThreads, smem));
-  gdn_mma_kernel<<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(
+      (tiles + GROUPS - 1) / GROUPS,
+      rgba::persistent_grid(kernel, threads, smem));
+  kernel<<<static_cast<unsigned>(grid), threads, smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(gamma_t),
       static_cast<const float*>(beta), static_cast<bf16*>(y), m, c, inverse);
   return static_cast<int>(cudaGetLastError());
 }
 
+int launch_mma(const void* x, const void* gamma_t, const void* beta, void* y,
+               long long m, int c, int inverse, cudaStream_t stream) {
+  if (c <= 192)   // two warpgroups, three tiles each in flight
+    return launch_mma_as<192, 1, 2, 3>(x, gamma_t, beta, y, m, c, inverse,
+                                       stream);
+  return launch_mma_as<128, 2, 1, 2>(x, gamma_t, beta, y, m, c, inverse,
+                                     stream);
+}
+
 // ---------------------------------------------------------------- fp32 path
 constexpr int kStages32 = 4;                        // gamma chunks in the ring
-constexpr int kChunk32 = 2 * kN * rgba::kChunkK;    // floats of a chunk: hi, lo
-constexpr int kRows32 = kGroups * kTileRows;        // rows per tile: 128
+constexpr int kRows32 = 2 * kTileRows;              // rows per tile: 128
 
-size_t smem_tf32(int c) {
-  return sizeof(float) * (kStages32 * kChunk32 + kRows32 * (c + 8) + c) +
+template <int NT>
+size_t smem_tf32(int c) {  // a ring stage holds 2 NT kChunkK floats: hi, lo
+  return sizeof(float) * (kStages32 * 2 * NT * rgba::kChunkK + kRows32 * (c + 8) + c) +
          sizeof(uint64_t) * (kStages32 + 1);
 }
 
+// NT x PASSES as in the bf16 kernel: NT output channels a pass, their
+// chunks of gamma streamed pass after pass.
+template <int NT, int PASSES>
 __global__ void __launch_bounds__(kThreads, 1)
 gdn_tf32_kernel(const float* __restrict__ x, const float* __restrict__ gw,
                 const float* __restrict__ beta, float* __restrict__ y,
                 long long m, int c, int inverse) {
+  constexpr int kN = NT * PASSES;         // channels held: C <= kN
+  constexpr int kChunk32 = 2 * NT * rgba::kChunkK;   // floats of a chunk: hi, lo
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int nch = c / rgba::kChunkK, nt = c / 8, ldx = c + 8;
   float* ring = reinterpret_cast<float*>(smem_raw);       // kStages32 x kChunk32
@@ -284,12 +354,14 @@ gdn_tf32_kernel(const float* __restrict__ x, const float* __restrict__ gw,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gq = lane / 4, t2 = 2 * (lane % 4);
   const long long tiles = (m + kRows32 - 1) / kRows32;
-  const long long total =  // gamma chunks this block takes: nch a tile
-      blockIdx.x < tiles ? ((tiles - 1 - blockIdx.x) / gridDim.x + 1) * nch : 0;
-  auto fill = [&](long long q) {  // chunk q % nch of gamma into its stage
+  const int per_tile = nch * PASSES;  // gamma chunks a tile takes
+  const long long total =  // gamma chunks this block takes
+      blockIdx.x < tiles ? ((tiles - 1 - blockIdx.x) / gridDim.x + 1) * per_tile : 0;
+  auto fill = [&](long long q) {  // chunk q % per_tile of gamma into its stage
     const int s = static_cast<int>(q % kStages32);
     rgba::mbar_expect(&full[s], kChunk32 * 4);
-    rgba::bulk_load(ring + s * kChunk32, gw + (q % nch) * kChunk32, kChunk32 * 4, &full[s]);
+    rgba::bulk_load(ring + s * kChunk32, gw + (q % per_tile) * kChunk32,
+                    kChunk32 * 4, &full[s]);
   };
   auto load_x = [&](long long tt) {  // warp 0: tile tt's rows into xs
     const long long rows = m - tt * kRows32;
@@ -326,81 +398,95 @@ gdn_tf32_kernel(const float* __restrict__ x, const float* __restrict__ gw,
     __syncthreads();  // xs is read
     if (warp == 0 && t + gridDim.x < tiles) load_x(t + gridDim.x);
 
-    float d[kN / 2];
 #pragma unroll
-    for (int e = 0; e < kN / 2; ++e) d[e] = 0.f;
-    rgba::fence_operands(d);
+    for (int pass = 0; pass < PASSES; ++pass) {
+      float d[NT / 2];
 #pragma unroll
-    for (int ch = 0; ch < kN / rgba::kChunkK; ++ch) {
-      if (ch < nch) {  // the same for every thread: no wgmma is predicated
-        uint32_t hi[2][4], lo[2][4];
+      for (int e = 0; e < NT / 2; ++e) d[e] = 0.f;
+      rgba::fence_operands(d);
 #pragma unroll
-        for (int kk = 0; kk < 2; ++kk) {
-          const float2 p = xv[2 * ch + kk][0], r = xv[2 * ch + kk][1];
-          const float v[4] = {p.x * p.x, r.x * r.x, p.y * p.y, r.y * r.y};
+      for (int ch = 0; ch < kN / rgba::kChunkK; ++ch) {
+        if (ch < nch) {  // the same for every thread: no wgmma is predicated
+          uint32_t hi[2][4], lo[2][4];
 #pragma unroll
-          for (int e = 0; e < 4; ++e) rgba::split1_tf32(v[e], hi[kk][e], lo[kk][e]);
+          for (int kk = 0; kk < 2; ++kk) {
+            const float2 p = xv[2 * ch + kk][0], r = xv[2 * ch + kk][1];
+            const float v[4] = {p.x * p.x, r.x * r.x, p.y * p.y, r.y * r.y};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) rgba::split1_tf32(v[e], hi[kk][e], lo[kk][e]);
+          }
+          const int s = static_cast<int>(q % kStages32);
+          rgba::mbar_wait(&full[s], static_cast<unsigned>((q / kStages32) & 1));
+          const float* b = ring + s * kChunk32;
+          const uint64_t bh = rgba::kmajor_desc(b, 2 * 256);
+          const uint64_t bl = rgba::kmajor_desc(b + kChunk32 / 2, 2 * 256);
+          rgba::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 2; ++kk)
+            rgba::wgmma_3xtf32<NT>(d, hi[kk], lo[kk], bh + 16 * kk, bl + 16 * kk);
+          rgba::wgmma_commit_wait();
+          __syncthreads();  // both groups are done with stage s
+          if (threadIdx.x == 0 && q + kStages32 < total) fill(q + kStages32);
+          ++q;
         }
-        const int s = static_cast<int>(q % kStages32);
-        rgba::mbar_wait(&full[s], static_cast<unsigned>((q / kStages32) & 1));
-        const float* b = ring + s * kChunk32;
-        const uint64_t bh = rgba::kmajor_desc(b, 2 * 256);
-        const uint64_t bl = rgba::kmajor_desc(b + kChunk32 / 2, 2 * 256);
-        rgba::wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 2; ++kk)
-          rgba::wgmma_3xtf32<kN>(d, hi[kk], lo[kk], bh + 16 * kk, bl + 16 * kk);
-        rgba::wgmma_commit_wait();
-        __syncthreads();  // both groups are done with stage s
-        if (threadIdx.x == 0 && q + kStages32 < total) fill(q + kStages32);
-        ++q;
       }
-    }
-    rgba::fence_operands(d);
+      rgba::fence_operands(d);
 #pragma unroll
-    for (int j = 0; j < kN / 8; ++j) {
-      if (j >= nt) continue;
-      const int col = 8 * j + t2;
-      const float b0 = bs[col], b1 = bs[col + 1];
+      for (int jj = 0; jj < NT / 8; ++jj) {
+        const int j = NT / 8 * pass + jj;
+        if (j >= nt) continue;
+        const int col = 8 * j + t2;
+        const float b0 = bs[col], b1 = bs[col + 1];
 #pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        const long long row = t * kRows32 + 16 * warp + gq + 8 * rr;
-        if (row >= m) continue;
-        const float n0 = d[4 * j + 2 * rr] + b0, n1 = d[4 * j + 2 * rr + 1] + b1;
-        const float s0 = inverse ? sqrtf(n0) : rsqrtf(n0);
-        const float s1 = inverse ? sqrtf(n1) : rsqrtf(n1);
-        *reinterpret_cast<float2*>(y + row * c + col) =
-            make_float2(xv[j][rr].x * s0, xv[j][rr].y * s1);
+        for (int rr = 0; rr < 2; ++rr) {
+          const long long row = t * kRows32 + 16 * warp + gq + 8 * rr;
+          if (row >= m) continue;
+          const float n0 = d[4 * jj + 2 * rr] + b0, n1 = d[4 * jj + 2 * rr + 1] + b1;
+          const float s0 = inverse ? sqrtf(n0) : rsqrtf(n0);
+          const float s1 = inverse ? sqrtf(n1) : rsqrtf(n1);
+          *reinterpret_cast<float2*>(y + row * c + col) =
+              make_float2(xv[j][rr].x * s0, xv[j][rr].y * s1);
+        }
       }
     }
   }
 }
 
-int launch_tf32(const void* x, const void* gw, const void* beta, void* y,
-                long long m, int c, int inverse, cudaStream_t stream) {
-  const size_t smem = smem_tf32(c);
-  cudaFuncSetAttribute(gdn_tf32_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+template <int NT, int PASSES>
+int launch_tf32_as(const void* x, const void* gw, const void* beta, void* y,
+                   long long m, int c, int inverse, cudaStream_t stream) {
+  const auto kernel = gdn_tf32_kernel<NT, PASSES>;
+  const size_t smem = smem_tf32<NT>(c);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(smem));
   const long long tiles = (m + kRows32 - 1) / kRows32;
   const long long grid = std::min<long long>(
-      tiles, rgba::persistent_grid(gdn_tf32_kernel, kThreads, smem));
-  gdn_tf32_kernel<<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(
+      tiles, rgba::persistent_grid(kernel, kThreads, smem));
+  kernel<<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(gw),
       static_cast<const float*>(beta), static_cast<float*>(y), m, c, inverse);
   return static_cast<int>(cudaGetLastError());
 }
 
+int launch_tf32(const void* x, const void* gw, const void* beta, void* y,
+                long long m, int c, int inverse, cudaStream_t stream) {
+  if (c <= 192)
+    return launch_tf32_as<192, 1>(x, gw, beta, y, m, c, inverse, stream);
+  return launch_tf32_as<128, 2>(x, gw, beta, y, m, c, inverse, stream);
+}
+
 }  // namespace
 
 // x, y: (m, c) contiguous in the activation dtype (fp32 or bf16), 16-byte
-// aligned; beta: (c,) fp32.  c % 16 == 0 and c <= 192 (checked by the
+// aligned; beta: (c,) fp32.  c % 16 == 0 and c <= 256 (checked by the
 // Python wrapper).  The dtype picks the kernel and gamma's layout:
 // - bf16: gamma_t (c, c) [in][out] in bf16;
-// - fp32: gw, gamma_t as the B operand [n < 192][k < c], n = output
-//   channel (rows n >= c zero), k permuted within each 8 (see the fp32
-//   design), in chunks of 16 k, each its TF32 hi then lo in K-major core
-//   matrices of 8 x 4 (gdn.kernel_weights; 2 * 192 * c floats).
+// - fp32: gw, gamma_t as the B operand [n < kN][k < c], n = output
+//   channel (rows n >= c zero; kN = 192 for c <= 192, else 256), k
+//   permuted within each 8 (see the fp32 design), cut into passes of NT
+//   rows (one of 192, or two of 128), each in chunks of 16 k, each chunk
+//   its TF32 hi then lo in K-major core matrices of 8 x 4
+//   (gdn.kernel_weights; 2 * kN * c floats).
 extern "C" int rgba_gdn(const void* x, const void* gamma_t, const void* beta,
                         void* y, long long m, int c, int inverse, int bf16,
                         void* stream) {

@@ -24,6 +24,11 @@ does).  The encode overlaps the same way: the second half of the batch's
 symbols and indexes is fetched on a worker thread while the host codes the
 first half.
 
+The slice chain carries each slice's mean support (``slice_stats``: the
+hyper means and the decoded support slices, through the model's per-slice
+attention where it has one, as TCM's ``SWAtten``) on the card from the
+step of its stats to the step of its finish, where the lrp reads it.
+
 Encoder and decoder recompute (mu, scale) in separate calls, and the
 indexes must agree bit for bit, so every device step runs in fp32 with
 TF32 off, deterministic cuDNN algorithms and no autotuning (``_scope``),
@@ -207,9 +212,11 @@ def _to_host(t) -> np.ndarray:
 
 class CodecIO:
     """A codec model with its entropy tables and the device steps of the
-    bitstream codec.  model: the port's RGBCodec (kind "rgb") or MaskCodec
-    (kind "mask"), on the device it runs on, with the policy it runs with
-    (the codec's contract is fp32).  rate_gate: the default of
+    bitstream codec.  model: the port's RGBCodec or TCM (kind "rgb") or
+    MaskCodec (kind "mask"), on the device it runs on, with the policy it
+    runs with (the codec's contract is fp32).  The alpha pyramid gates the
+    RGBCodec's transforms (``gated``); TCM's take none, so its codec codes
+    opaque images without a mask and refuses ``rate_gate``.  rate_gate: the default of
     ``compress_batch`` (RGB codec only); the decoder takes each stream's
     gate from the stream."""
 
@@ -223,7 +230,12 @@ class CodecIO:
         self.kind = kind
         self._span_fetch, self._span_upload, self._span_rans = (
             f"{kind}.{s}" for s in ("fetch", "upload", "rans"))
-        self.rate_gate = bool(rate_gate) and kind == "rgb"
+        # "paper": the RGBA paper's codecs, whose RGB transforms the alpha
+        # pyramid gates; "tcm": the mixed Transformer-CNN codec of opaque
+        # images (models/tcm.py), whose transforms take no alpha
+        self.architecture = getattr(model, "architecture", "paper")
+        self.gated = kind == "rgb" and self.architecture == "paper"
+        self.rate_gate = bool(rate_gate) and self.gated
         self.device = next(model.parameters()).device
         self.num_slices = model.num_slices
         # slices >= max_support all condition on exactly the first
@@ -338,25 +350,26 @@ class CodecIO:
     # ------------------------------------------------- shared device steps
 
     def _stats(self, lm, ls, support, i: int):
-        """(mu, CDF-row index) of slice i."""
+        """(mu, CDF-row index, mean support) of slice i; ``_finish`` takes
+        the mean support (the model's ``slice_stats``)."""
         h, w = lm.shape[2], lm.shape[3]
-        mu, scale = self.model.slice_stats(lm, ls, support, i, (h, w))
-        return mu, self.gc.build_indexes(scale)
+        mu, scale, ms = self.model.slice_stats(lm, ls, support, i, (h, w))
+        return mu, self.gc.build_indexes(scale), ms
 
-    def _finish(self, lm, support, sym, mu, i: int):
-        """y_hat of slice i from its symbols: sym + mu + lrp; sym None is
-        symbol 0 everywhere (mu + lrp)."""
+    def _finish(self, ms, sym, mu, i: int):
+        """y_hat of slice i from its symbols: sym + mu + lrp (of the mean
+        support ``ms`` and sym + mu); sym None is symbol 0 everywhere (mu +
+        lrp)."""
         y = _cl(mu if sym is None else sym.float() + mu)
-        return y + self.model.slice_lrp(lm, support, y, i)
+        return y + self.model.slice_lrp(ms, y, i)
 
     def _fill(self, lm, ls, y_hats: list, start: int):
         """Mean-fill slices start..n-1 (symbol 0: y = mu + lrp), appended
         to ``y_hats``: the preview's tail, and what a rate-gated cell
         gets."""
         for i in range(start, self.num_slices):
-            sup = y_hats[:self.max_support]
-            mu, _ = self._stats(lm, ls, sup, i)
-            y_hats.append(self._finish(lm, sup, None, mu, i))
+            mu, _, ms = self._stats(lm, ls, y_hats[:self.max_support], i)
+            y_hats.append(self._finish(ms, None, mu, i))
 
     def _hyper(self, z_hat):
         lm, ls = self.model.hyper_decode(_cl(z_hat))
@@ -391,7 +404,7 @@ class CodecIO:
                 (lead, mask, gate))
 
     def _encode_pass(self, lead, mask, gate, deadzone: float):
-        if self.kind == "rgb":
+        if self.gated:
             me = mask_pyramid(mask)
             y = self.model.encode_latent(lead, me[1], me[2])
         else:
@@ -405,7 +418,7 @@ class CodecIO:
         y_hats, syms, idxs = [], [], []
         for i in range(self.num_slices):
             support = y_hats[:self.max_support]
-            mu, index = self._stats(lm, ls, support, i)
+            mu, index, ms = self._stats(lm, ls, support, i)
             r = y[:, i * sw:(i + 1) * sw] - mu
             if deadzone > 0.0:
                 # the stream and y_hat carry the same symbols, so the
@@ -416,7 +429,7 @@ class CodecIO:
                 sym = torch.round(r)
             if gate is not None:
                 sym = sym * gate.float()
-            y_hats.append(self._finish(lm, support, sym, mu, i))
+            y_hats.append(self._finish(ms, sym, mu, i))
             # int16 / uint8 halve the fetch: symbols stay far inside
             # int16, and the table has 64 rows
             syms.append(sym.to(torch.int16))
@@ -456,12 +469,16 @@ class CodecIO:
                 rate_gate=rate_gate, deadzone=deadzone,
                 stream_format=stream_format, lanes=lanes))
             return [c for part in parts for c in part]
+        if rate_gate and self.kind == "rgb" and not self.gated:
+            raise ValueError(f"rate_gate: the {self.architecture} codec's "
+                             f"transforms take no alpha")
         rg = self.rate_gate if rate_gate is None else (
-            bool(rate_gate) and self.kind == "rgb")
+            bool(rate_gate) and self.gated)
         dz = float(deadzone)
         gate = gate_host = None
         if self.kind == "rgb":
-            x, m = self._nchw(image), self._nchw(mask)
+            x = self._nchw(image)
+            m = self._nchw(mask) if self.gated else None
             if rg:
                 # the encoder's gate is the one truth: it ships with the
                 # stream, the decoder never derives it again
@@ -738,8 +755,7 @@ class CodecIO:
                     gate = torch.from_numpy(gate).to(self.device)
             y_hats: List = []
             for i in range(k):
-                sup = y_hats[:s]
-                mu, index = self._stats(lm, ls, sup, i)
+                mu, index, ms = self._stats(lm, ls, y_hats[:s], i)
                 sw = index.shape[1]
                 n_i = h * w * sw
                 idx = device_rans.to_steps(
@@ -755,7 +771,7 @@ class CodecIO:
                     inverse=st["inverse"])
                 sym = device_rans.from_steps(syms, n_i).reshape(
                     b, h, w, sw).permute(0, 3, 1, 2)
-                y_hats.append(self._finish(lm, sup, sym, mu, i))
+                y_hats.append(self._finish(ms, sym, mu, i))
             self._fill(lm, ls, y_hats, k)
             return torch.cat(y_hats, dim=1)
 
@@ -766,7 +782,7 @@ class CodecIO:
         by the mask pyramid of ``mask`` (the decoded alpha, RGB codec).
         Returns the NHWC reconstruction as a device tensor.  On the card it
         launches the CUDA decode kernel or raises; there is no other route."""
-        if self.kind == "rgb" and mask is None:
+        if self.gated and mask is None:
             raise ValueError("the RGB codec's decompress_device needs "
                              "mask= (the decoded alpha)")
         y_hat = self.decompress_device_latent(compressed, max_slices)
@@ -790,46 +806,48 @@ class CodecIO:
     # symbols come as NHWC int16 device tensors.
 
     def _first_step(self, z_sym, k: int):
-        """The hyper decode; then slice 0's (mu, uint8 index), or with k = 0
-        every slice mean-filled."""
+        """The hyper decode; then slice 0's (mu, uint8 index, mean
+        support), or with k = 0 every slice mean-filled."""
         lm, ls = self._hyper(z_sym.permute(0, 3, 1, 2).float()
                              + self._medians)
         if k:
-            mu, index = self._stats(lm, ls, [], 0)
-            return lm, ls, mu, index.to(torch.uint8)
+            mu, index, ms = self._stats(lm, ls, [], 0)
+            return lm, ls, mu, index.to(torch.uint8), ms
         y_hats: List = []
         self._fill(lm, ls, y_hats, 0)
         return tuple(y_hats)
 
-    def _slice_step(self, sym, lm, ls, mu, *support, i: int, serial: int,
+    def _slice_step(self, sym, lm, ls, mu, ms, *support, i: int, serial: int,
                     tail: int, k: int):
-        """Slice i's y from its symbols (support: the decoded slices up to
-        ``max_support``); then slice i + 1's (mu, uint8 index), or the
-        tail's mus and stacked uint8 indexes, or the mean-filled slices
-        k..n-1."""
+        """Slice i's y from its symbols, its mu and its mean support ``ms``
+        (support: the decoded slices up to ``max_support``); then slice
+        i + 1's (mu, uint8 index, mean support), or the tail's mus, mean
+        supports and stacked uint8 indexes, or the mean-filled slices
+        k..n-1.  The mean support of a slice is made once, in the step of
+        its stats, and carried on the card to the step of its finish."""
         s = self.max_support
-        y = self._finish(lm, list(support), sym.permute(0, 3, 1, 2), mu, i)
+        y = self._finish(ms, sym.permute(0, 3, 1, 2), mu, i)
         y_hats = [*support, y]
         if i + 1 < serial:
-            mu, index = self._stats(lm, ls, y_hats[:s], i + 1)
-            return y, mu, index.to(torch.uint8)
+            mu, index, ms = self._stats(lm, ls, y_hats[:s], i + 1)
+            return y, mu, index.to(torch.uint8), ms
         if tail:
             stats = [self._stats(lm, ls, y_hats[:s], j)
                      for j in range(s, self.num_slices)]
-            return (y, *[m for m, _ in stats],
-                    torch.stack([ix.to(torch.uint8) for _, ix in stats[:tail]]))
+            return (y, *[m for m, _, _ in stats], *[ms for _, _, ms in stats],
+                    torch.stack([ix.to(torch.uint8)
+                                 for _, ix, _ in stats[:tail]]))
         self._fill(lm, ls, y_hats, k)
         return (y, *y_hats[len(support) + 1:])
 
-    def _tail_step(self, syms, lm, *rest, tail: int):
-        """The tail slices' y: rest is the first ``max_support`` slices,
-        then each tail slice's mu; syms (tail, B, H, W, sw) the first
-        ``tail`` slices' symbols, the others symbol 0."""
-        s = self.max_support
-        support = list(rest[:s])
+    def _tail_step(self, syms, *rest, tail: int):
+        """The tail slices' y: rest is each tail slice's mu, then each one's
+        mean support; syms (tail, B, H, W, sw) the first ``tail`` slices'
+        symbols, the others symbol 0."""
+        s, n = self.max_support, len(rest) // 2
         return tuple(self._finish(
-            lm, support, syms[j].permute(0, 3, 1, 2) if j < tail else None,
-            mu, s + j) for j, mu in enumerate(rest[s:]))
+            ms, syms[j].permute(0, 3, 1, 2) if j < tail else None, mu, s + j)
+            for j, (mu, ms) in enumerate(zip(rest[:n], rest[n:])))
 
     def decompress_chain(self, compressed: Sequence[dict], gate_host=None,
                          max_slices: Optional[int] = None,
@@ -881,7 +899,7 @@ class CodecIO:
                     functools.partial(self._first_step, k=k),
                     (np.ascontiguousarray(z_sym, np.int16),))
             if k:
-                lm, ls, mu, index = out
+                lm, ls, mu, index, ms = out
             else:
                 y_hats.extend(out)
             yield
@@ -904,12 +922,12 @@ class CodecIO:
                         functools.partial(self._slice_step, i=i,
                                           serial=serial, tail=tail, k=k),
                         (np.ascontiguousarray(np.concatenate(syms), np.int16),
-                         lm, ls, mu, *y_hats[:s]))
+                         lm, ls, mu, ms, *y_hats[:s]))
                 y_hats.append(out[0])
                 if i + 1 < serial:
-                    mu, index = out[1:]
+                    mu, index, ms = out[1:]
                 elif tail:
-                    tail_mus, idx_tail = out[1:-1], out[-1]
+                    tail_stats, idx_tail = out[1:-1], out[-1]
                 else:
                     y_hats.extend(out[1:])
                 yield
@@ -931,8 +949,8 @@ class CodecIO:
                     y_hats.extend(self.graphs.run(
                         ("tail", k, tail),
                         functools.partial(self._tail_step, tail=tail),
-                        (np.ascontiguousarray(tail_syms, np.int16), lm,
-                         *y_hats[:s], *tail_mus)))
+                        (np.ascontiguousarray(tail_syms, np.int16),
+                         *tail_stats)))
                 yield
             with self._scope():
                 return torch.cat(y_hats, dim=1)
@@ -966,7 +984,7 @@ class CodecIO:
             missing = has.index(False)
             raise ValueError(f"stream {missing} carries no rate gate while "
                              f"others do")
-        if not (rate_gate and self.kind == "rgb"):
+        if not (rate_gate and self.gated):
             return None
         if mask is None:
             raise ValueError("rate-gated streams without a gate need mask=")
@@ -985,7 +1003,7 @@ class CodecIO:
                                None if mask is None else mask[sl], device))),
                 device)
         with self._scope():
-            m = self._nchw(mask) if self.kind == "rgb" else None
+            m = self._nchw(mask) if self.gated else None
             x, = self.graphs.run(("image",), self._image, (y_hat, m))
             if device:
                 return x
@@ -994,7 +1012,7 @@ class CodecIO:
 
     def _image(self, y_hat, mask):
         """``decode_image``'s device step: NHWC, clipped to [0, 1]."""
-        if self.kind == "rgb":
+        if self.gated:
             md = mask_pyramid(mask)
             x = self.model.decode_latent(y_hat, md[1], md[2])
         else:

@@ -11,6 +11,9 @@ One self-describing blob holds both codecs' streams.  Layout
                             bit2: RGB stream rate-gated (gate bitmap ships
                             as a 5th section)
                             bit3: lane streams (version 3)
+                            bit4: RGB stream written by TCM (the mixed
+                            Transformer-CNN codec, models/tcm.py), not by
+                            the paper's RGB codec
   height  u32, width u32    coded image size (before the /64 padding)
   zh, zw  u16 x2            RGB z-latent spatial shape
   mzh,mzw u16 x2            mask z-latent spatial shape (0 if no mask)
@@ -27,6 +30,9 @@ host-coded v64 chains (a version-2 blob decodes with the gate it ships,
 never one derived again), and version 3 through ``decompress_device``,
 where the card decodes the lane streams of both codecs itself.
 ``decode(max_slices=k)`` gives the progressive preview of the RGB stream.
+A codec whose ``rgb_io`` holds TCM codes opaque images only (no mask
+stream, ``mask_io`` may be None) and sets flags bit4; a decoder refuses a
+blob whose bit4 does not name its own RGB model.
 ``encode_batch(bucket=)`` codes on a larger /64 canvas (``eval/buckets.py``)
 and ``decode_batch(interleave=)`` cuts the RGB chain into sub-batch chains
 (``CodecIO.decompress_chains``); neither changes the format.
@@ -54,15 +60,17 @@ OUTPUTS = ("float32", "uint8", "uint8_trunc")
 
 
 def pack_rgba(height: int, width: int, rgb: dict, mask: dict | None,
-              crop: tuple | None = None) -> bytes:
+              crop: tuple | None = None, tcm: bool = False) -> bytes:
     """crop, when given, is (canvas_h, canvas_w, y0, x0): the coded
     height x width region is a window into a larger transparent canvas.
     An rgb dict with a "gate" bitmap makes a version-2 container, one with
-    format "lanes32" a version-3 container."""
+    format "lanes32" a version-3 container; tcm: the RGB stream is TCM's
+    (flags bit4)."""
     gate = rgb.get("gate")
     lanes32 = rgb.get("format") == "lanes32"
     flags = ((1 if mask is not None else 0) | (2 if crop is not None else 0)
-             | (4 if gate is not None else 0) | (8 if lanes32 else 0))
+             | (4 if gate is not None else 0) | (8 if lanes32 else 0)
+             | (16 if tcm else 0))
     version = 3 if lanes32 else (2 if gate is not None else 1)
     zh, zw = rgb["shape"]
     mzh, mzw = mask["shape"] if mask else (0, 0)
@@ -146,6 +154,8 @@ def unpack_rgba(blob: bytes) -> dict:
         if bits.size < lh * lw:
             raise ValueError("corrupt rgba_tpu container (gate bitmap)")
         out["rgb"]["gate"] = bits[:lh * lw].reshape(lh, lw, 1).astype(bool)
+    if flags & 16:
+        out["tcm"] = True     # the JAX package's containers never set it
     if flags & 1:
         out["mask"] = lane_sec(sections[2], (mzh, mzw)) if lanes32 else \
             {"strings": [sections[2], sections[3]], "shape": (mzh, mzw)}
@@ -161,12 +171,28 @@ class RGBAFileCodec:
     and RGB slice chains run together (``drive_chains``), then the alpha is
     rebuilt the same way and gates the RGB synthesis, so encoder and
     decoder agree on it.
+
+    An ``rgb_io`` over TCM (``models/tcm.py``) codes opaque images only:
+    ``mask_io`` may be None, a non-opaque image raises ValueError, and the
+    decoded alpha is 1 everywhere.
     """
 
-    def __init__(self, rgb_io, mask_io):
+    def __init__(self, rgb_io, mask_io=None):
         self.rgb_io = rgb_io
         self.mask_io = mask_io
         self.device = rgb_io.device
+        self.tcm = getattr(rgb_io, "architecture", "paper") == "tcm"
+
+    def _check_model(self, metas):
+        """Each blob's RGB stream must be of this codec's RGB model."""
+        for i, m in enumerate(metas):
+            tcm = m.get("tcm", False)
+            if tcm != self.tcm:
+                names = ("the paper's RGB codec", "TCM")
+                raise ValueError(
+                    f"blob {i}: its RGB stream was written by "
+                    f"{names[tcm]}, this decoder holds "
+                    f"{names[self.tcm]}")
 
     def encode(self, image: np.ndarray, alpha: np.ndarray,
                bbox: bool = False, rate_gate: bool = False,
@@ -236,6 +262,10 @@ class RGBAFileCodec:
             # opacity is judged on the original alpha: an opaque image ships no
             # mask stream, and the decoder rebuilds ones inside (h, w)
             non_op = [i for i in range(b) if not np.all(alphas[i] == one)]
+            if non_op and (self.tcm or self.mask_io is None):
+                raise ValueError(f"image {non_op[0]} is not opaque: a codec "
+                                 f"{'over TCM' if self.tcm else 'without a mask codec'}"
+                                 f" codes opaque images only")
             hp, wp = -(-h // 64) * 64, -(-w // 64) * 64
             if bucket is not None:
                 bh, bw = int(bucket[0]), int(bucket[1])
@@ -266,8 +296,8 @@ class RGBAFileCodec:
             rgb_comps = self.rgb_io.compress_batch(
                 image=masked, mask=recon, rate_gate=rate_gate,
                 deadzone=deadzone, stream_format=stream_format)
-            return [pack_rgba(h, w, rgb_comps[i], mask_comps.get(i), crop)
-                    for i in range(b)]
+            return [pack_rgba(h, w, rgb_comps[i], mask_comps.get(i), crop,
+                              self.tcm) for i in range(b)]
 
     def decode_batch(self, blobs: list[bytes], output: str = "float32",
                      max_slices: int | None = None,
@@ -293,6 +323,7 @@ class RGBAFileCodec:
                 raise ValueError(f"output must be one of {OUTPUTS}, got "
                                  f"{output!r}")
             metas = [unpack_rgba(blob) for blob in blobs]
+            self._check_model(metas)
             h, w = metas[0]["height"], metas[0]["width"]
             crop = metas[0]["crop"]
             if any((m["height"], m["width"], m["crop"]) != (h, w, crop)

@@ -8,6 +8,13 @@
   ``max_support_slices`` decoded slices; latent-residual prediction
   0.5 * tanh(.).
 
+A codec may bring its own hyper transforms (``hyper=(h_a, h_mean_s,
+h_scale_s)``) and per-slice support transforms (``support=(atten_mean,
+atten_scale)``, the mixed Transformer-CNN codec's ``SWAtten``): the mean and
+scale supports then pass through them before the cc transforms, and the lrp
+transform reads the transformed mean support.  Without them the support is
+the concatenation itself, as in the reference.
+
 The codecs subclass ``ChannelARPrior``, so these modules sit at the top
 of the codec's state dict (``h_a.0.weight``, ``cc_mean_transforms.0.0.weight``,
 ``entropy_bottleneck._matrix0``) as in the reference.
@@ -73,7 +80,7 @@ class ChannelARPrior(nn.Module):
 
     def __init__(self, latent_channels: int, num_slices: int,
                  max_support_slices: int = 5, *, policy: Policy, device,
-                 generator):
+                 generator, hyper=None, support=None):
         super().__init__()
         m = latent_channels
         self.latent_channels, self.num_slices = m, num_slices
@@ -81,9 +88,15 @@ class ChannelARPrior(nn.Module):
         self.policy = policy
         sw = m // num_slices
         args = (policy, device, generator)
-        self.h_a = _hyper_analysis(m, *args)
-        self.h_mean_s = _hyper_synthesis(m, *args)
-        self.h_scale_s = _hyper_synthesis(m, *args)
+        if hyper is None:
+            self.h_a = _hyper_analysis(m, *args)
+            self.h_mean_s = _hyper_synthesis(m, *args)
+            self.h_scale_s = _hyper_synthesis(m, *args)
+        else:
+            self.h_a, self.h_mean_s, self.h_scale_s = hyper
+        self.atten_mean = self.atten_scale = None
+        if support is not None:
+            self.atten_mean, self.atten_scale = support
         support = [m + min(i, max_support_slices) * sw
                    for i in range(num_slices)]
         self.cc_mean_transforms = nn.ModuleList(
@@ -108,19 +121,27 @@ class ChannelARPrior(nn.Module):
 
     def slice_stats(self, latent_means, latent_scales, support, index: int,
                     y_hw):
-        """(mu, scale) of slice ``index`` given the decoded support slices.
-        The conv inputs are channels_last whatever their parts were, so the
-        encoder and the decoder, which build them in separate calls, run
-        the same convolution kernels on them."""
+        """(mu, scale, mean support) of slice ``index`` given the decoded
+        support slices.  The mean support is the hyper means and the
+        support slices, through ``atten_mean[index]`` where the codec has
+        a support transform; ``slice_lrp`` takes it.  The conv inputs are
+        channels_last whatever their parts were, so the encoder and the
+        decoder, which build them in separate calls, run the same
+        convolution kernels on them."""
         h, w = y_hw
-        mean_in = torch.cat([latent_means] + support, dim=1)
-        scale_in = torch.cat([latent_scales] + support, dim=1)
-        mu = self.cc_mean_transforms[index](_channels_last(mean_in))
-        scale = self.cc_scale_transforms[index](_channels_last(scale_in))
-        return mu[:, :, :h, :w], scale[:, :, :h, :w]
+        mean_in = _channels_last(torch.cat([latent_means] + support, dim=1))
+        scale_in = _channels_last(torch.cat([latent_scales] + support, dim=1))
+        if self.atten_mean is not None:
+            mean_in = _channels_last(self.atten_mean[index](mean_in))
+            scale_in = _channels_last(self.atten_scale[index](scale_in))
+        mu = self.cc_mean_transforms[index](mean_in)
+        scale = self.cc_scale_transforms[index](scale_in)
+        return mu[:, :, :h, :w], scale[:, :, :h, :w], mean_in
 
-    def slice_lrp(self, latent_means, support, y_hat_slice, index: int):
-        lrp_in = torch.cat([latent_means] + support + [y_hat_slice], dim=1)
+    def slice_lrp(self, mean_support, y_hat_slice, index: int):
+        """0.5 tanh(lrp(mean support, y_hat)) of slice ``index``; the mean
+        support as ``slice_stats`` returned it."""
+        lrp_in = torch.cat([mean_support, y_hat_slice], dim=1)
         return 0.5 * torch.tanh(
             self.lrp_transforms[index](_channels_last(lrp_in)))
 
@@ -168,8 +189,8 @@ class ChannelARPrior(nn.Module):
         for i in range(self.num_slices):
             y_slice = y[:, i * sw:(i + 1) * sw]
             support = y_hat_slices[:self.max_support_slices]
-            mu, scale = self.slice_stats(latent_means, latent_scales, support,
-                                         i, (h, w))
+            mu, scale, mean_support = self.slice_stats(
+                latent_means, latent_scales, support, i, (h, w))
             lik = self.gaussian.likelihood(y_slice, scale, mu, training,
                                            generator)
             if gate is not None:
@@ -177,7 +198,7 @@ class ChannelARPrior(nn.Module):
                 y_hat = ste_round((y_slice - mu) * gate) + mu
             else:
                 y_hat = ste_round(y_slice - mu) + mu
-            y_hat = y_hat + self.slice_lrp(latent_means, support, y_hat, i)
+            y_hat = y_hat + self.slice_lrp(mean_support, y_hat, i)
             y_hat_slices.append(y_hat)
             liks.append(lik)
             mus.append(mu)

@@ -23,31 +23,43 @@ KERNEL = CudaKernel("gdn.cu", "rgba_gdn", [
     ctypes.c_void_p])
 
 _DTYPES = (torch.float32, torch.bfloat16)
-MAX_CHANNELS = 192   # csrc/gdn.cu: one m64n192 wgmma per k step
+MAX_CHANNELS = 256   # csrc/gdn.cu: m64n192 wgmma to 192, two m64n128 past it
 # fp32: the k of each 8 as the kernel's registers hold x (csrc/gdn.cu): k
 # 8j + p of the product is channel 8j + K_ORDER[p]
 K_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
 
 
+def tf32_passes(c: int) -> tuple:
+    """(NT, passes) of the fp32 kernel at C=c: the width of one product
+    and how many cover the channels (csrc/gdn.cu)."""
+    return (192, 1) if c <= 192 else (128, 2)
+
+
 def kernel_weights(gamma_t, dtype):
     """gamma_t (C, C) [in][out] post-reparam -> the layout the kernel reads
     for x of ``dtype``: bf16 keeps (C, C) in bf16 (the kernel stages it);
-    fp32 gives the B operand [out n < 192][in k < C] (rows n >= C zero, k
-    permuted within each 8 by ``K_ORDER``) as ``tf32.chunked_hi_lo``
-    chunks of 16 k, 2 * 192 * C floats.  The module that owns gamma builds
-    it once per weights and passes it as ``fused_gdn(..., prepared=)``."""
+    fp32 gives the B operand [out n < NT passes][in k < C] (rows n >= C
+    zero, k permuted within each 8 by ``K_ORDER``), cut into its passes of
+    NT rows (``tf32_passes``), each as ``tf32.chunked_hi_lo`` chunks of 16
+    k: 2 * 192 * C floats to C=192, 2 * 256 * C past it.  The module that
+    owns gamma builds it once per weights and passes it as
+    ``fused_gdn(..., prepared=)``."""
     if dtype == torch.bfloat16:
         return gamma_t.to(dtype).contiguous()
     c = gamma_t.shape[0]
+    nt, passes = tf32_passes(c)
     order = torch.tensor([8 * (k // 8) + K_ORDER[k % 8] for k in range(c)],
                          device=gamma_t.device)
-    b = torch.zeros(MAX_CHANNELS, c, device=gamma_t.device)
+    b = torch.zeros(nt * passes, c, device=gamma_t.device)
     b[:c] = gamma_t.float()[order].t()
-    return chunked_hi_lo(b).contiguous()
+    return chunked_hi_lo(b.reshape(passes, nt, c)).reshape(-1).contiguous()
 
 
 def _prepared_numel(c: int, dtype) -> int:
-    return c * c if dtype == torch.bfloat16 else 2 * MAX_CHANNELS * c
+    if dtype == torch.bfloat16:
+        return c * c
+    nt, passes = tf32_passes(c)
+    return 2 * nt * passes * c
 
 
 def gdn_plain(x, gamma_t, beta, inverse: bool = False):

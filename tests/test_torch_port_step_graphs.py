@@ -224,7 +224,8 @@ def test_the_steps_keys(pipe):
     # inputs are device tensors
     host = sig[("slice", 10, 5, 2)][0]
     assert host[0] == "host" and host[1][0] == 1 and host[2] == "<i2"
-    assert len(sig[("slice", 10, 5, 2)]) == 4 + 2
+    # symbols, hyper means and scales, mu, the mean support; two slices
+    assert len(sig[("slice", 10, 5, 2)]) == 5 + 2
     assert sig[("encode", 0.0)][2] is None          # no gate
 
 
