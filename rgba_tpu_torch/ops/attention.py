@@ -36,6 +36,7 @@ from ..core.precision import Policy
 from ..parallel import spatial
 from .conv import Conv, GELU, conv2d
 from .kernels import gate_chain as gck
+from .kernels.cache import cached_layout
 from .kernels.gate_chain import (GateChainWeights, activation,
                                  fused_gate_chain)
 from .kernels.nhwc import hwio3x3, io1x1
@@ -44,33 +45,6 @@ from .kernels.win_attn import fused_window_attention, kernel_weights
 from .window import (relative_position_index, swin_attention_bias,
                      swin_region_ids, window_alive, window_partition,
                      window_reverse)
-
-
-def param_key(params) -> tuple:
-    """Storage and version of each parameter: a cache built from them holds
-    until one is written or moved (inference tensors keep no version, so
-    only a move counts for them)."""
-    return tuple((p.data_ptr(), -1 if p.is_inference() else p._version)
-                 for p in params)
-
-
-def cached_layout(module, params, dtype, build):
-    """``build()``, a kernel's layout of ``params`` for ``dtype``, kept on
-    ``module._kernel_cache`` until a parameter is written or moved
-    (``param_key``).  While the forward is traced (``torch.export``) the
-    layout is computed from the parameters in the graph and not cached:
-    the traced parameters have no storage, and a layout captured from the
-    eager weights would go stale in the artifact."""
-    if torch.compiler.is_compiling():
-        with torch.no_grad():
-            return build()
-    key = (dtype, *param_key(params))
-    cached = module._kernel_cache    # one read: another thread may fill it
-    if cached[0] != key:
-        with torch.no_grad():
-            cached = (key, build())
-        module._kernel_cache = cached
-    return cached[1]
 
 
 class WindowAttention(nn.Module):

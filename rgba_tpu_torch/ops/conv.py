@@ -21,6 +21,12 @@ their callers extend, and the autograd recomputations of those paths call
 it.  The int8 branch refuses a scope: its activation scale would be the
 band's, not the batch's.
 
+Inside ``batch_invariant_scope`` a 3x3 convolution at stride 1 and
+padding 1 in fp32 on a CUDA tensor runs on the hand-written kernel of
+``ops/kernels/conv3x3.py`` (``takes_conv3x3``), the whole batch in one
+launch: its sum order does not depend on the batch.  Every other
+convolution there goes one image at a time (``per_image``).
+
 The TPU lowerings ``_strided_conv5x5_s2_s2d`` and ``_subpixel_deconv5x5_s2``
 are schedule variants of the same math and are not ported.
 """
@@ -34,6 +40,8 @@ import torch.nn.functional as F
 from ..core import init
 from ..core.precision import Policy, batch_invariant
 from ..parallel import spatial
+from .kernels import conv3x3 as k3
+from .kernels.cache import cached_layout
 from .quant import policy_conv
 
 
@@ -47,14 +55,37 @@ def per_image(fn, x):
     return fn(x)
 
 
-def conv2d(x, weight, bias, policy: Policy, stride: int = 1, padding=0):
+def _pair(v) -> tuple:
+    return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
+
+
+def takes_conv3x3(device: str, dtype, kernel_size, stride, padding,
+                  int8_conv: bool, invariant: bool) -> bool:
+    """Whether ``conv2d`` runs on the 3x3 kernel: inside
+    ``batch_invariant_scope`` (``invariant``), on a CUDA tensor, in fp32,
+    with a 3x3 weight at stride 1 and padding 1 on both axes, and no int8
+    convolution.  A height band pads (0, 1) and keeps cuDNN."""
+    return (invariant and device == "cuda" and dtype == torch.float32
+            and not int8_conv and tuple(kernel_size) == (3, 3)
+            and _pair(stride) == (1, 1) and _pair(padding) == (1, 1))
+
+
+def conv2d(x, weight, bias, policy: Policy, stride: int = 1, padding=0,
+           cache=None):
     """``Conv`` on explicit fp32 parameters in torch layout, cast to the
     policy's compute dtype: what the pure plain paths of the kernel sites
-    are written in."""
+    are written in.  ``cache``: the module that keeps the 3x3 kernel's
+    weight layout (``Conv``); without one a routed call lays the weights
+    out anew."""
     if policy.int8_conv:
         _no_int8_bands()
         return policy_conv(x, weight, bias, policy, stride, padding)
     dt = policy.compute_dtype
+    if takes_conv3x3(x.device.type, dt, weight.shape[-2:], stride, padding,
+                     policy.int8_conv, batch_invariant()):
+        prepared = None if cache is None else cached_layout(
+            cache, (weight,), dt, lambda: k3.kernel_weights(weight))
+        return k3.conv3x3(x.to(dt), weight, bias, prepared)
     w, b = weight.to(dt), bias.to(dt)
     return per_image(lambda t: F.conv2d(t.to(dt), w, b, stride, padding), x)
 
@@ -89,13 +120,14 @@ class Conv(nn.Module):
         self.weight = init.uniform_fan_in((cout, cin, k, k), k * k * cin,
                                           generator, device)
         self.bias = init.zeros((cout,), device)
+        self._kernel_cache = (None, None)   # (key, the 3x3 kernel's layout)
 
     def forward(self, x):
         k = self.weight.shape[-1]
         above, below = _band_rows(k, self.stride, self.padding, False)
         if spatial.current() is None or not (above or below):
             return conv2d(x, self.weight, self.bias, self.policy, self.stride,
-                          self.padding)
+                          self.padding, cache=self)
         return conv2d(spatial.halo(x, above, below), self.weight, self.bias,
                       self.policy, self.stride, (0, self.padding))
 
