@@ -14,7 +14,7 @@ failure:
    health canary (``utils/health.chip_health``: bf16 8192^3
    ``torch.matmul`` TF/s by CUDA events, a host fetch's ms, the share of
    the healthy rate);
-2. kernels: each kernel at the main paths' shapes (batch 16, 512x768), in
+2. kernels: each conv kernel at the main paths' shapes (batch 16, 512x768), in
    fp32 and bf16, against its plain PyTorch version on the same inputs
    within the printed tolerance (attention also fed a zeroed and a
    transposed rel_bias, which that check must fail); times the kernel
@@ -25,7 +25,14 @@ failure:
    calls) and the bound (the larger of bytes over 3.35 TB/s and operations
    over the H100 SXM peak for their type: bf16 at 989 TFLOP/s, fp32 as
    3xTF32 at 3 x operations / 495 TFLOP/s, with the bound at the CUDA
-   cores' 67 TFLOP/s printed beside);
+   cores' 67 TFLOP/s printed beside); then the codec's 3x3 stride-1
+   kernel (``conv3x3_cases``) at TCM's and the paper codec's shapes
+   (batch 16 at H/2, H/4, H/8 and a slice transform's H/16; the paper's
+   slice transforms at H/8; the sticker's, batch 1 at 64x64) under the
+   codec's flags: within twice cuDNN's per-image fp32 error of a float64
+   convolution (the same with the taps mirrored must fail), image 0 alone
+   the same bits as in the batch, and its ms against the per-image cuDNN
+   route it replaces, one cuDNN call over the batch and the bound;
 3. forward: ``RGBAPipeline`` at batch 16, 512x768, bf16 with all four
    kernels on: shapes, finiteness, the launch count of each kernel in one
    forward, images/s (kernels on, then off, twice each), one profiled
@@ -53,7 +60,9 @@ failure:
    uint8), the decoded RGB against
    the fp32 RGB codec forward on the same masked input and decoded alpha,
    real bpp from the blob bytes, encode / decode / round-trip images/s
-   (kernels on, then off, twice each) and one profiled round trip.  Then
+   (the four kernels on, then off, twice each; the conv3x3 kernel, which
+   has no switch, runs in both: 214 launches an encode, 155 a decode) and
+   one profiled round trip.  Then
    the serving options on the same codec: lane streams (container version
    3, decoded on the card by the ``rans_decode`` kernel): launches of one
    encode and of one decode (1 + 10 RGB and 1 + 5 mask ``rans_decode``),
@@ -94,6 +103,8 @@ failure:
    four kernels on (fp32) and with them off (the launches of one eval step,
    4 / 12 / 8 / 2, of one image's encode + decode, 4 / 15 / 10 / 3, and of
    the whole eval, which adds the RGB forward that codec_err reads; the
+   conv3x3 kernel on both routes, 369 an encode + decode, 102 the forward;
+   the
    averages on against off: bpp 1e-4 relative, PSNR and psnr_real 0.01 dB,
    MS-SSIM 1e-4; codec_err by ``eval.kodak.hold_codec_err``: below 6e-3
    on average, and <= 1e-5 on each route or, where a value within fp32
@@ -108,7 +119,8 @@ failure:
    of 16 RGBA PNGs at ``-b 8``, v64 and lanes32 (every blob equal to
    ``encode_batch``'s, every PNG to the JAX CLI's pixels of
    ``decode_batch``'s float decode, clipped, times 255 and truncated,
-   2 x 17 ``rans_decode`` launches in the lanes32 decode-dir; img/s of each
+   2 x 17 ``rans_decode`` launches in the lanes32 decode-dir, 2 x 255 /
+   2 x 155 ``conv3x3`` in the v64 / lanes32 one; img/s of each
    command); ``cli.train_rgb``: 2 steps from a config in a temporary
    directory, ``iter_2.ckpt``, read back by ``--test`` over the tree;
    ``torch.export`` of the bf16 ``RGBAPipeline`` at batch 16, under
@@ -192,7 +204,8 @@ failure:
 The line before the last is one JSON object with every kernel's numbers
 (the four conv kernels' headline cases are bf16 forward shapes; the
 ``rans_decode`` entry's are the first y slice of the v3 RGB decode, the
-``rans_encode`` entry's that of the device v3 encode);
+``rans_encode`` entry's that of the device v3 encode, the ``conv3x3``
+entry's TCM's H/2 256->256 at batch 16);
 the last line is {"ok": true, "device": {...}}.  Without CUDA, or without
 the rest of the repository beside it, the script exits non-zero and prints
 no result.
@@ -642,6 +655,113 @@ def dse_cases(torch, batch: int, iters: int, h: int = 512, w: int = 768):
     return cases
 
 
+# (what, batch, H, W, Cin, Cout) of the 3x3 stride-1 convolutions the
+# codecs run on the conv3x3 kernel: TCM at 512x768 (g_a / g_s at H/2, H/4
+# and H/8, a subpel convolution, g_s's last, a slice transform at H/16),
+# the paper codec's slice transforms at H/8 (512x768) and the sticker's
+# first slice transform (batch 1, 512x512); batch None is --batch
+CONV3X3_SHAPES = (
+    ("tcm H/2 256", None, 256, 384, 256, 256),
+    ("tcm H/2 128", None, 256, 384, 128, 128),
+    ("tcm H/4 256", None, 128, 192, 256, 256),
+    ("tcm H/8 256", None, 64, 96, 256, 256),
+    ("tcm H/4 subpel", None, 128, 192, 256, 1024),
+    ("tcm H/2 out 12", None, 256, 384, 256, 12),
+    ("tcm slice H/16", None, 32, 48, 576, 224),
+    ("paper slice in", None, 64, 96, 120, 224),
+    ("paper slice mid", None, 64, 96, 224, 128),
+    ("paper slice out", None, 64, 96, 128, 8),
+    ("sticker slice in", 1, 64, 64, 120, 224),
+)
+
+
+def conv3x3_cases(torch, batch: int, iters: int):
+    """The 3x3 stride-1 fp32 kernel (``ops/kernels/conv3x3.py``) at the
+    codecs' shapes (``CONV3X3_SHAPES``), under the codec's flags (TF32
+    off, deterministic cuDNN, ``batch_invariant_scope``).  Held, on the
+    first two images, to a float64 convolution within twice the error of
+    what it replaces, cuDNN's fp32 convolution one image at a time
+    (``per_image(F.conv2d)``); the same check must fail the kernel fed
+    the weights with their taps mirrored; image 0 alone must give the
+    bits it gives in the batch.  Times the kernel (its weights laid out
+    once, as ``Conv`` keeps them; the layout's own time beside), the
+    per-image cuDNN route it replaces (plain_ms), one cuDNN call over the
+    whole batch (library_ms, a yardstick the codec never calls) and the
+    bound."""
+    import torch.nn.functional as F
+    from rgba_tpu_torch.core.precision import (DEFAULT_POLICY,
+                                               batch_invariant_scope,
+                                               deterministic_scope,
+                                               precision_scope)
+    from rgba_tpu_torch.ops.conv import per_image
+    from rgba_tpu_torch.ops.kernels import conv3x3 as k
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    cases = []
+    with torch.inference_mode(), precision_scope(DEFAULT_POLICY), \
+            deterministic_scope(), batch_invariant_scope():
+        for what, b, h, w, ci, co in CONV3X3_SHAPES:
+            b = batch if b is None else b
+            x = _cl(torch, torch.randn(b, ci, h, w, device=dev, generator=g))
+            wt = torch.randn(co, ci, 3, 3, device=dev,
+                             generator=g) / (9 * ci) ** 0.5
+            bias = 0.1 * torch.randn(co, device=dev, generator=g)
+            prep = k.kernel_weights(wt)                # once per weights
+            name = f"conv3x3 {what} B={b} {h}x{w} {ci}->{co} float32"
+            got = k.conv3x3(x, wt, bias, prep)
+            cudnn = per_image(lambda t: F.conv2d(t, wt, bias, 1, 1), x)
+            n = min(b, 2)
+            ref = F.conv2d(x[:n].double(), wt.double(), bias.double(), 1, 1)
+            err = float((got[:n].double() - ref).abs().max())
+            err_cudnn = float((cudnn[:n].double() - ref).abs().max())
+            ok = err <= 2.0 * err_cudnn
+            print(f"  {name}: max_abs_err vs float64 {err:.3g}, cuDNN's "
+                  f"{err_cudnn:.3g} (tol 2x cuDNN's) -> "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name}: further from float64 than "
+                                     f"twice cuDNN's error")
+            mirrored = k.conv3x3(x[:n], wt, bias,
+                                 k.kernel_weights(wt.flip(-1)))
+            wrong = float((mirrored.double() - ref).abs().max())
+            blind = wrong <= 2.0 * err_cudnn
+            print(f"    the same with the taps mirrored: max_abs_err "
+                  f"{wrong:.3g} -> "
+                  f"{'FAIL (the check cannot see it)' if blind else 'seen'}")
+            if blind:
+                raise AssertionError(f"{name}: mirrored taps within "
+                                     f"tolerance")
+            if not torch.equal(k.conv3x3(x[:1], wt, bias, prep), got[:1]):
+                raise AssertionError(f"{name}: image 0 alone differs from "
+                                     f"image 0 in the batch")
+            del ref, mirrored, cudnn
+            flops = 2.0 * b * h * w * co * 9 * ci
+            nbytes = 4 * (b * h * w * (ci + co) + 2 * 9 * ci * co + co)
+            res = dict(
+                shape=f"{what},B={b},{h}x{w},{ci}->{co}", dtype="float32",
+                max_abs_err=err, cudnn_max_abs_err=err_cudnn,
+                ms=_time_ms(torch, lambda: k.conv3x3(x, wt, bias, prep),
+                            iters),
+                layout_ms=_time_ms(torch, lambda: k.kernel_weights(wt),
+                                   iters),
+                plain_ms=_time_ms(torch, lambda: per_image(
+                    lambda t: F.conv2d(t, wt, bias, 1, 1), x), iters),
+                library_ms=_time_ms(torch, lambda: F.conv2d(
+                    x, wt, bias, 1, 1), iters),
+                tf32_bound_ms=flops / PEAK_TF32 * 1e3,
+                **_bound(nbytes, flops, "float32"))
+            print(f"    ms {res['ms']:.4f} (weight layout, once per weights: "
+                  f"{res['layout_ms']:.4f}) per-image cuDNN (plain_ms) "
+                  f"{res['plain_ms']:.4f} library_ms {res['library_ms']:.4f} "
+                  f"{_bound_text(res)}; operations at the TF32 peak "
+                  f"{res['tf32_bound_ms']:.4f} ms, "
+                  f"{100.0 * res['tf32_bound_ms'] / res['ms']:.1f}% of it")
+            cases.append(res)
+            del x, got, prep
+    return cases
+
+
 def _liven(torch, pipe, seed: int = 1, gain: float = 10.0) -> None:
     """Random init leaves the latents within one quantization bin of the
     prior's mean (std ~0.05) and x_hat below 0, so every rate is the same
@@ -703,23 +823,39 @@ def profile_run(torch, fn, what: str, top: int = 15, spans=()) -> dict:
 
 
 KERNEL_NAMES = ("fused_window_attention", "fused_gdn", "fused_gate_chain",
-                "fused_dse", "rans_decode", "rans_encode")
+                "fused_dse", "rans_decode", "rans_encode", "conv3x3")
 CONV_KERNELS = KERNEL_NAMES[:4]
 
 
-def _launch_counts(attn, gdn, gate_chain, dse, rans=0, rans_encode=0):
+def _launch_counts(attn, gdn, gate_chain, dse, rans=0, rans_encode=0,
+                   conv3x3=0):
     return dict(zip(KERNEL_NAMES, (attn, gdn, gate_chain, dse, rans,
-                                   rans_encode)))
+                                   rans_encode, conv3x3)))
 
 
+# The conv3x3 kernel runs only inside the codec's steps
+# (``batch_invariant_scope``), once per ``Conv`` call of its class whatever
+# the batch, with the four kernels on or off (their plain paths keep
+# cuDNN): in the paper's codec 214 calls an encode and 155 a decode (the
+# RGB and mask slice transforms, 9 a slice step, and the hyper syntheses'
+# stride-1 layers), 102 in an RGB codec forward under the codec's scope
+# (the Kodak eval's codec_err reference); a v64 decode of 4, 6 or 8 images
+# runs the RGB decode as two chains (``interleave=None`` picks 2), each
+# with its own hyper synthesis and slice steps: 100 more
+CONV3X3_ENCODE, CONV3X3_DECODE, CONV3X3_RGB_FORWARD = 214, 155, 102
+CONV3X3_RGB_CHAIN = 100
+CONV3X3_CODEC = CONV3X3_ENCODE + CONV3X3_DECODE
 FORWARD_LAUNCHES = _launch_counts(4, 12, 8, 2)
 SERVE_LAUNCHES = _launch_counts(4, 0, 0, 0)
-CODEC_LAUNCHES = _launch_counts(4, 15, 10, 3)
+CODEC_LAUNCHES = _launch_counts(4, 15, 10, 3, conv3x3=CONV3X3_CODEC)
+# the codec with the four kernels off: the conv3x3 kernel still runs
+CODEC_FOUR_OFF_LAUNCHES = _launch_counts(0, 0, 0, 0, conv3x3=CONV3X3_CODEC)
 # lane streams (v3): the mask decode inside the encode takes 1 + 5 rANS
 # segments, the decode 1 + 10 (RGB) and 1 + 5 (mask)
 LANE_ENCODE_RANS, LANE_DECODE_RANS = 6, 17
 LANE_LAUNCHES = _launch_counts(4, 15, 10, 3,
-                               LANE_ENCODE_RANS + LANE_DECODE_RANS)
+                               LANE_ENCODE_RANS + LANE_DECODE_RANS,
+                               conv3x3=CONV3X3_CODEC)
 # the device lane encode of a v3 container (RGBA_TPU_DEVICE_ENCODE=1): 1 + 10
 # RGB and 1 + 5 mask segments
 LANE_ENCODE_SEGMENTS = 17
@@ -730,11 +866,13 @@ TRAIN_BATCH, TRAIN_SIZE, TRAIN_STEPS = 8, 256, 20
 
 
 def _kernels():
-    from rgba_tpu_torch.ops.kernels import (dse, gate_chain, gdn, rans_decode,
-                                            rans_encode, win_attn)
+    from rgba_tpu_torch.ops.kernels import (conv3x3, dse, gate_chain, gdn,
+                                            rans_decode, rans_encode,
+                                            win_attn)
     return dict(zip(KERNEL_NAMES, (win_attn.KERNEL, gdn.KERNEL,
                                    gate_chain.KERNEL, dse.KERNEL,
-                                   rans_decode.KERNEL, rans_encode.KERNEL)))
+                                   rans_decode.KERNEL, rans_encode.KERNEL,
+                                   conv3x3.KERNEL)))
 
 
 def _all_kernels(policy):
@@ -865,7 +1003,8 @@ def _bulk_agreement(a, b, what: str) -> dict:
 
 def codec_phase(torch, batch: int, iters: int) -> dict:
     """The bitstream codec, fp32 with all four kernels on, against itself
-    with them off and against the fp32 forward."""
+    with them off and against the fp32 forward.  The conv3x3 kernel runs
+    in the codec's steps on both routes."""
     import numpy as np
     from rgba_tpu_torch.core.precision import DEFAULT_POLICY
     from rgba_tpu_torch.data.synthetic import synthetic_rgba_batch
@@ -952,15 +1091,15 @@ def codec_phase(torch, batch: int, iters: int) -> dict:
              "round_trip": batch / (te + td)}
         print(f"  codec {name}: encode {r['encode']:.3f} decode "
               f"{r['decode']:.3f} enc+dec {r['round_trip']:.3f} img/s "
-              f"(batch {batch}, 512x768, fp32)")
+              f"(batch {batch}, 512x768, fp32, conv3x3 on)")
         return r
 
     img_s = {}
     for rep in ("", " again"):
         for which in ("on", "off"):
-            name = f"kernels {which}{rep}"
+            name = f"four kernels {which}{rep}"
             if which == "off" and not rep:
-                rates("kernels off (warm-up)", codecs["off"], datas[1])
+                rates("four kernels off (warm-up)", codecs["off"], datas[1])
             img_s[name] = rates(name, codecs[which], datas[(len(img_s)) % 2])
     profile = profile_run(torch, lambda: codec.decode_batch(
         codec.encode_batch(img, alpha), output="uint8"), "round trip")
@@ -1733,8 +1872,12 @@ def encode_phase(torch, live, img, alpha, iters) -> dict:
 
 # the eval step launches what one forward does (FORWARD_LAUNCHES); the
 # real-codec branch adds one encode + decode and the RGB codec forward it
-# checks the decode against (4 attention, 6 GDN, 4 gate chains, 1 DSE)
-CODEC_FORWARD_LAUNCHES = _launch_counts(4, 6, 4, 1)
+# checks the decode against (4 attention, 6 GDN, 4 gate chains, 1 DSE, and
+# conv3x3, which runs in the codec's scope)
+CODEC_FORWARD_LAUNCHES = _launch_counts(4, 6, 4, 1,
+                                        conv3x3=CONV3X3_RGB_FORWARD)
+CODEC_FORWARD_FOUR_OFF = _launch_counts(0, 0, 0, 0,
+                                        conv3x3=CONV3X3_RGB_FORWARD)
 EVAL_HW, EVAL_IMAGES, CLI_BATCH, EXPORT_BATCH = (512, 768), 8, 4, 16
 EVAL_GATES = {"bpp": 1e-4, "psnr": 0.01, "msssim": 1e-4, "psnr_real": 0.01}
 
@@ -1802,7 +1945,10 @@ def _sum_launches(*counts):
 
 def _kodak_eval(torch, tree: str, ckpt: dict) -> dict:
     """evaluate_kodak(real_codec=True) with all four kernels on (fp32) and
-    with them off, on the live weights."""
+    with them off, on the live weights.  The conv3x3 kernel runs in the
+    codec's steps on both routes (it has no switch): "off" holds the four
+    kernels against their plain paths, not the codec's 3x3 convolutions
+    against cuDNN (``conv3x3_cases`` does that)."""
     import numpy as np
     from rgba_tpu_torch.core.precision import DEFAULT_POLICY
     from rgba_tpu_torch.data.datasets import KodakDataset
@@ -1835,23 +1981,25 @@ def _kodak_eval(torch, tree: str, ckpt: dict) -> dict:
                                     item["alpha"][None]).items()}
         per["step"] = _read_launches(
             FORWARD_LAUNCHES if route == "on" else _launch_counts(0, 0, 0, 0),
-            f"one eval step, kernels {route}")
+            f"one eval step, four kernels {route}")
         _reset_launches()
         codec.decode(codec.encode(item["image"][None], item["alpha"][None]))
         per["codec"] = _read_launches(
-            CODEC_LAUNCHES if route == "on" else _launch_counts(0, 0, 0, 0),
-            f"one image's encode + decode, kernels {route}")
+            CODEC_LAUNCHES if route == "on" else CODEC_FOUR_OFF_LAUNCHES,
+            f"one image's encode + decode, four kernels {route}")
         n = EVAL_IMAGES
-        want = (_sum_launches(*(n * [FORWARD_LAUNCHES, CODEC_LAUNCHES,
-                                     CODEC_FORWARD_LAUNCHES]))
-                if route == "on" else _launch_counts(0, 0, 0, 0))
+        want = _sum_launches(*(n * (
+            [FORWARD_LAUNCHES, CODEC_LAUNCHES, CODEC_FORWARD_LAUNCHES]
+            if route == "on" else [CODEC_FOUR_OFF_LAUNCHES,
+                                   CODEC_FORWARD_FOUR_OFF])))
         _reset_launches()
         t = time.perf_counter()
         avg = evaluate_kodak(rgb, mask, tree, real_codec=True, codec=codec)
         wall = time.perf_counter() - t
         per["evaluate_kodak"] = _read_launches(
-            want, f"evaluate_kodak of {n} images, kernels {route}")
-        print(f"  kodak eval, kernels {route}: time {avg['time'] * 1e3:.3f} "
+            want, f"evaluate_kodak of {n} images, four kernels {route}")
+        print(f"  kodak eval, four kernels {route} (conv3x3 on): time "
+              f"{avg['time'] * 1e3:.3f} "
               f"ms/image (eval step), codec {avg['codec_time'] * 1e3:.3f} "
               f"ms/image (encode + decode), wall {wall:.2f} s for {n}; bpp "
               f"{avg['bpp']:.6f} PSNR {avg['psnr']:.6f} MS-SSIM "
@@ -1859,7 +2007,8 @@ def _kodak_eval(torch, tree: str, ckpt: dict) -> dict:
               f"psnr_real {avg['psnr_real']:.6f} codec_err "
               f"{avg['codec_err']:.3g}")
         if not all(np.isfinite(v) for v in avg.values()):
-            raise AssertionError(f"kernels {route}: an average is not finite")
+            raise AssertionError(f"four kernels {route}: an average is "
+                                 f"not finite")
         per_image = _hold_codec_err(codec, tree, avg["codec_err"])
         out[route] = {"avg": avg, "wall_s": wall, "launches": per,
                       "codec_err_parts": per_image}
@@ -1927,7 +2076,9 @@ def _codec_cli(torch, rgba: str, work: str, ckpt: dict) -> dict:
         batches = len(paths) // CLI_BATCH
         want = _launch_counts(0, 0, 0, 0,
                               batches * LANE_DECODE_RANS if fmt == "lanes32"
-                              else 0)
+                              else 0, conv3x3=batches * (
+                                  CONV3X3_DECODE + (CONV3X3_RGB_CHAIN
+                                                    if fmt == "v64" else 0)))
         launches = _read_launches(want, f"decode-dir of {len(paths)} {fmt} "
                                         f"blobs")
         for b0 in range(0, len(paths), CLI_BATCH):
@@ -3305,7 +3456,8 @@ def workflow_phase(torch) -> dict:
             _reset_launches()
             point = wf.eval_point(codec, tree, ck["rgb"], ck["mask"])
             launches["eval"] = _read_launches(
-                dict(_launch_counts(0, 0, 0, 0), **{
+                dict(_launch_counts(0, 0, 0, 0, conv3x3=WORKFLOW_IMAGES * (
+                    CONV3X3_CODEC + CONV3X3_RGB_FORWARD)), **{
                     n: WORKFLOW_IMAGES * c
                     for n, c in wf.EVAL_IMAGE_LAUNCHES.items()}),
                 f"evaluate_kodak of {WORKFLOW_IMAGES} images")
@@ -3621,7 +3773,8 @@ def main(argv=None) -> int:
            "fused_window_attention": attention_cases(torch, args.batch,
                                                      args.iters),
            "fused_gate_chain": gate_chain_cases(torch, args.batch, args.iters),
-           "fused_dse": dse_cases(torch, args.batch, args.iters)}
+           "fused_dse": dse_cases(torch, args.batch, args.iters),
+           "conv3x3": conv3x3_cases(torch, args.batch, args.iters)}
     phase_s["kernels"] = time.perf_counter() - t
     t = time.perf_counter()
     print("forward path:")
@@ -3766,9 +3919,33 @@ def main(argv=None) -> int:
                 "rgb_chain_ms": enc["rgb_chain_ms"],
                 "host_encode_lanes_ms": enc["host_encode_lanes_ms"]}
 
+    def conv3x3_entry():
+        # TCM's largest shape; launches of one paper-codec encode + decode
+        h = res["conv3x3"][0]
+        return {"name": "conv3x3", "route": "cuda",
+                "source": "rgba_tpu_torch/csrc/conv3x3.cu",
+                "replaces": None, "status": "added (the JAX package leaves "
+                "convolutions to XLA)",
+                "launches_forward": path["launches"]["conv3x3"],
+                "launches_codec": codec["launches"]["conv3x3"],
+                "launches_train": train["launches_train"]["conv3x3"],
+                "launches_eval": evals["kodak"]["on"]["launches"]
+                ["evaluate_kodak"]["conv3x3"],
+                "launches_eval_four_off": evals["kodak"]["off"]["launches"]
+                ["evaluate_kodak"]["conv3x3"],
+                "launches_cli_decode_dir": evals["codec_cli"]["v64"]
+                ["launches_decode"]["conv3x3"],
+                "launches_workflow": workflow["launches_workflow"]["conv3x3"],
+                **{k: h[k] for k in ("max_abs_err", "cudnn_max_abs_err",
+                                     "ms", "layout_ms", "plain_ms",
+                                     "library_ms", "bound_ms", "bound_by",
+                                     "bound_3xtf32_ms", "bound_cuda_cores_ms",
+                                     "tf32_bound_ms", "shape", "dtype")},
+                "cases": res["conv3x3"]}
+
     line = {
-        "kernels": [entry(name) for name in CONV_KERNELS] + [rans_entry(),
-                                                            rans_encode_entry()],
+        "kernels": [entry(name) for name in CONV_KERNELS] + [
+            rans_entry(), rans_encode_entry(), conv3x3_entry()],
         "pending": [],
         "path": {k: v for k, v in path.items() if k != "launches"},
         "codec": {k: v for k, v in codec.items()

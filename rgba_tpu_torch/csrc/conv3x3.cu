@@ -13,8 +13,8 @@
 // Bound on an H100 SXM (495 TFLOP/s TF32 dense, 3.35 TB/s): an implicit
 // GEMM of M = B H W output pixels, N = Cout, K = 9 Cin.  At the mixed
 // Transformer-CNN codec's H/2 layer (batch 16, 256x384, 256 -> 256) that is
-// 2 M N K = 3.71 TFLOP against 0.40 GB of input and output: bound by
-// operations, 7.5 ms at the TF32 peak.  3xTF32 issues every product three
+// 2 M N K = 1.86 TFLOP against 3.2 GB of input and output: bound by
+// operations, 3.75 ms at the TF32 peak (0.96 ms of bytes).  3xTF32 issues every product three
 // times, so the kernel can reach at most a third of that peak (33% of the
 // bound counted at one TF32 product per fp32 product).  Measured on an H100
 // 80GB HBM3 at 700 W: 15.4 ms there (24% of the bound), against 47.9 ms for

@@ -1030,8 +1030,8 @@ class CodecIO:
         sub-batch's host rANS and index fetch run under another's device
         step.  interleave=None picks 2 for batches of 4, 6 and 8 and 1
         otherwise, as the JAX package does (equal sub-batches of at least
-        2).  The results equal interleave=1 exactly: the codec's
-        convolutions run one image at a time (``_scope``).  A sharded codec
+        2).  The results equal interleave=1 exactly: no image's result
+        depends on its batch (``_scope``).  A sharded codec
         takes 1, as the JAX package does (the mesh splits the batch)."""
         batch = len(compressed)
         if self._replicas is not None:

@@ -22,10 +22,11 @@ it.  The int8 branch refuses a scope: its activation scale would be the
 band's, not the batch's.
 
 Inside ``batch_invariant_scope`` a 3x3 convolution at stride 1 and
-padding 1 in fp32 on a CUDA tensor runs on the hand-written kernel of
-``ops/kernels/conv3x3.py`` (``takes_conv3x3``), the whole batch in one
-launch: its sum order does not depend on the batch.  Every other
-convolution there goes one image at a time (``per_image``).
+padding 1 in fp32 on a CUDA tensor, called from ``Conv``, runs on the
+hand-written kernel of ``ops/kernels/conv3x3.py`` (``takes_conv3x3``),
+the whole batch in one launch: its sum order does not depend on the
+batch.  Every other convolution there, the plain paths of the kernel
+sites among them, goes one image at a time (``per_image``).
 
 The TPU lowerings ``_strided_conv5x5_s2_s2d`` and ``_subpixel_deconv5x5_s2``
 are schedule variants of the same math and are not ported.
@@ -60,13 +61,15 @@ def _pair(v) -> tuple:
 
 
 def takes_conv3x3(device: str, dtype, kernel_size, stride, padding,
-                  int8_conv: bool, invariant: bool) -> bool:
+                  cached: bool, invariant: bool) -> bool:
     """Whether ``conv2d`` runs on the 3x3 kernel: inside
     ``batch_invariant_scope`` (``invariant``), on a CUDA tensor, in fp32,
-    with a 3x3 weight at stride 1 and padding 1 on both axes, and no int8
-    convolution.  A height band pads (0, 1) and keeps cuDNN."""
-    return (invariant and device == "cuda" and dtype == torch.float32
-            and not int8_conv and tuple(kernel_size) == (3, 3)
+    with a 3x3 weight at stride 1 and padding 1 on both axes, called with
+    the module that keeps the kernel's weight layout (``cached``).  A
+    height band pads (0, 1) and keeps cuDNN; so do the plain paths of the
+    kernel sites, which pass no module.  An int8 convolution never asks."""
+    return (invariant and cached and device == "cuda"
+            and dtype == torch.float32 and tuple(kernel_size) == (3, 3)
             and _pair(stride) == (1, 1) and _pair(padding) == (1, 1))
 
 
@@ -75,16 +78,15 @@ def conv2d(x, weight, bias, policy: Policy, stride: int = 1, padding=0,
     """``Conv`` on explicit fp32 parameters in torch layout, cast to the
     policy's compute dtype: what the pure plain paths of the kernel sites
     are written in.  ``cache``: the module that keeps the 3x3 kernel's
-    weight layout (``Conv``); without one a routed call lays the weights
-    out anew."""
+    weight layout (``Conv``); a call without one keeps ``per_image``."""
     if policy.int8_conv:
         _no_int8_bands()
         return policy_conv(x, weight, bias, policy, stride, padding)
     dt = policy.compute_dtype
     if takes_conv3x3(x.device.type, dt, weight.shape[-2:], stride, padding,
-                     policy.int8_conv, batch_invariant()):
-        prepared = None if cache is None else cached_layout(
-            cache, (weight,), dt, lambda: k3.kernel_weights(weight))
+                     cache is not None, batch_invariant()):
+        prepared = cached_layout(cache, (weight,), dt,
+                                 lambda: k3.kernel_weights(weight))
         return k3.conv3x3(x.to(dt), weight, bias, prepared)
     w, b = weight.to(dt), bias.to(dt)
     return per_image(lambda t: F.conv2d(t.to(dt), w, b, stride, padding), x)

@@ -1,12 +1,13 @@
 """3x3 stride-1 fp32 convolutions on the tensor cores: the CUDA kernel
 ``csrc/conv3x3.cu`` and the kernel's walk in plain PyTorch.
 
-``conv2d`` (``ops/conv.py``) routes here a 3x3 convolution at stride 1
-and padding 1 in fp32 on a CUDA tensor inside ``batch_invariant_scope``
-(``takes_conv3x3``): the kernel takes the whole batch in one launch, with
-an output element's sum order fixed by (Cin, Cout) alone, where cuDNN ran
-each image on its own.  It replaces no TPU kernel (the JAX package leaves
-convolutions to XLA).  Each product is 3xTF32 (``tf32.py``).
+``conv2d`` (``ops/conv.py``) routes here a ``Conv``'s 3x3 convolution at
+stride 1 and padding 1 in fp32 on a CUDA tensor inside
+``batch_invariant_scope`` (``takes_conv3x3``): the kernel takes the
+whole batch in one launch, with an output element's sum order fixed by
+(Cin, Cout) alone, where cuDNN ran each image on its own.  It replaces
+no TPU kernel (the JAX package leaves convolutions to XLA).  Each product
+is 3xTF32 (``tf32.py``).
 
 K order: input channels in blocks of ``KC`` (zero past Cin), within a
 block the 9 taps (dy, dx) row-major, within a tap the block's channels.

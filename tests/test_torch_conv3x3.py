@@ -18,7 +18,7 @@ from rgba_tpu_torch.ops.kernels import conv3x3 as k3
 from rgba_tpu_torch.ops.kernels.tf32 import round_tf32
 
 F32, BF16 = torch.float32, torch.bfloat16
-ROUTED = ("cuda", F32, (3, 3), 1, 1, False, True)
+ROUTED = ("cuda", F32, (3, 3), 1, 1, True, True)
 
 
 @pytest.mark.parametrize("change,taken", [
@@ -29,7 +29,7 @@ ROUTED = ("cuda", F32, (3, 3), 1, 1, False, True)
     ({2: (5, 5), 4: 2}, False),           # 5x5
     ({2: (5, 5), 3: 2, 4: 2}, False),     # 5x5 stride 2
     ({1: BF16}, False),                   # bf16 compute
-    ({5: True}, False),                   # int8 convolutions
+    ({5: False}, False),                  # a plain path: no module
     ({4: (0, 1)}, False),                 # a height band
     ({6: False}, False),                  # outside batch_invariant_scope
     ({0: "cpu"}, False),                  # the CPU keeps per_image
@@ -68,6 +68,42 @@ def test_conv_modules_ask_with_their_geometry(monkeypatch):
     with torch.no_grad():
         mods[0](x)
     assert takes_conv3x3("cuda", *seen[-1][1:]) is False   # out of scope
+
+
+def test_plain_paths_and_int8_keep_per_image(monkeypatch):
+    """The kernel sites' plain paths (the gate chain's bottleneck blocks,
+    the DSE chain) call ``conv2d`` without a module, so they ask with
+    ``cached`` False and keep ``per_image`` on the card too; an int8
+    convolution returns before it asks."""
+    import dataclasses
+    from rgba_tpu_torch.ops.attention import bottleneck_block
+    from rgba_tpu_torch.ops.enhance import dse_chain
+    seen = []
+
+    def spy(*args):
+        seen.append(args)
+        return takes_conv3x3(*args)
+    monkeypatch.setattr(conv_mod, "takes_conv3x3", spy)
+    g = torch.Generator().manual_seed(0)
+
+    def wb(co, ci, k):
+        return [torch.randn(co, ci, k, k, generator=g) * 0.1,
+                torch.zeros(co)]
+    x = torch.randn(2, 8, 6, 6, generator=g)
+    with torch.no_grad(), batch_invariant_scope():
+        bottleneck_block(x, wb(4, 8, 1) + wb(4, 4, 3) + wb(8, 4, 1),
+                         DEFAULT_POLICY, "relu", False)
+        dse_chain(x, wb(8, 8, 1) + sum((wb(8, 8, 3) for _ in range(6)), [])
+                  + wb(8, 8, 1), DEFAULT_POLICY, False)
+    threes = [a for a in seen if tuple(a[2]) == (3, 3)]
+    assert len(threes) == 7
+    assert not any(takes_conv3x3("cuda", *a[1:]) for a in seen)
+    seen.clear()
+    int8 = dataclasses.replace(DEFAULT_POLICY, int8_conv=True)
+    m = Conv(8, 8, 3, 1, policy=int8, device="cpu", generator=g)
+    with torch.no_grad(), batch_invariant_scope():
+        m(x)
+    assert seen == []
 
 
 def test_the_cpu_keeps_cudnn_s_arithmetic():

@@ -129,9 +129,34 @@ def test_captured_and_replayed(card):
     assert k3.KERNEL.launches > before
 
 
+def test_a_layout_asked_for_inside_a_capture_is_not_kept(card):
+    """A ``Conv`` whose first routed call is captured (a codec step whose
+    eager call ran on another worker) builds its weight layout inside the
+    graph and keeps none: the graph fills it at each replay, which gives
+    the eager result, and the next eager call keeps its own."""
+    x, wt, bias = _inputs(card, 2, 64, 96, 16, 24, seed=5)
+    conv = Conv(64, 96, 3, 1, policy=DEFAULT_POLICY, device=card,
+                generator=torch.Generator().manual_seed(0))
+    with torch.inference_mode(), batch_invariant_scope():
+        k3.conv3x3(x, wt, bias)                     # the library, loaded
+        static = x.clone()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = conv(static)
+        assert conv._kernel_cache == (None, None)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = conv(x)
+        assert conv._kernel_cache[0] is not None
+        assert torch.equal(out, want)
+
+
 def test_routed_only_inside_the_scope(card):
     """``Conv`` 3x3 / stride 1 takes the kernel inside the scope and cuDNN
-    outside it; a 5x5 stride-2 ``Conv`` never takes it."""
+    outside it; a 5x5 stride-2 ``Conv`` never takes it, nor a plain path's
+    ``conv2d`` call without the module; a Cin the kernel cannot take
+    raises."""
     kw = dict(policy=DEFAULT_POLICY, device=card,
               generator=torch.Generator().manual_seed(0))
     conv, strided = Conv(64, 96, 3, 1, **kw), Conv(64, 96, 5, 2, **kw)
@@ -145,16 +170,17 @@ def test_routed_only_inside_the_scope(card):
             got = conv(x)
             strided(x)
             assert k3.KERNEL.launches == before + 1
+            conv2d(x, conv.weight, conv.bias, DEFAULT_POLICY, 1, 1)
+            assert k3.KERNEL.launches == before + 1
             want = per_image(lambda t: F.conv2d(t, conv.weight, conv.bias,
                                                 1, 1), x)
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
     assert float((got - plain).abs().max()) <= 1e-4 * float(want.abs().max())
     assert got.is_contiguous(memory_format=torch.channels_last)
+    odd = Conv(12, 16, 3, 1, **kw)
     with pytest.raises(ValueError):
         with torch.inference_mode(), batch_invariant_scope():
-            conv2d(torch.zeros(1, 12, 8, 8, device=card),
-                   torch.zeros(16, 12, 3, 3, device=card),
-                   torch.zeros(16, device=card), DEFAULT_POLICY, 1, 1)
+            odd(torch.zeros(1, 12, 8, 8, device=card))
 
 
 def _stride1_3x3_calls(model, run):
